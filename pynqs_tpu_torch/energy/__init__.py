@@ -1,0 +1,1 @@
+"""energy of the PyTorch/CUDA port (see pynqs_tpu/energy)."""

@@ -1,0 +1,145 @@
+"""Local energy  E_loc(n) = Σ_m <n|H|m> ψ(m)/ψ(n)  over the connected
+singles and doubles.
+
+Counterpart of ``pynqs_tpu/energy/eloc.py`` (``local_energy_simple``,
+``local_energy_reduce``).  Ratios are formed in log space from
+(log|ψ|, arg ψ) pairs.  The JAX package's one-hot block fetches
+(``_sample_tail_cdf_blkloc``, ``_onehot_fetch_i32``) are a TPU
+workaround for gathers; here the tail draw is ``torch.searchsorted`` on
+the cumulative sum and the selection is a plain gather.
+"""
+
+from __future__ import annotations
+
+from typing import Callable
+
+import torch
+
+from pynqs_tpu_torch.ops import cplx
+from pynqs_tpu_torch.ops import onv
+from pynqs_tpu_torch.ops.excitation import ExcitationTable, excite_bits
+from pynqs_tpu_torch.ops.hamiltonian import comb_hij
+
+__all__ = ["local_energy_simple", "local_energy_reduce", "sample_tail_cdf"]
+
+
+def _chunks(n: int, batch: int | None):
+    step = n if batch is None or batch >= n else batch
+    return [(s, min(s + step, n)) for s in range(0, n, max(step, 1))]
+
+
+@torch.no_grad()
+def local_energy_simple(
+    log_psi_fn: Callable[[torch.Tensor], torch.Tensor],
+    bits: torch.Tensor,
+    tables: tuple,
+    table: ExcitationTable,
+    *,
+    batch: int | None = None,
+    hpair_sect: tuple | None = None,
+) -> torch.Tensor:
+    """E_loc for a batch: bits [B, sorb] -> [B, 2] (Re, Im).
+
+    ``log_psi_fn`` maps rows [N, sorb] to (log|ψ|, arg ψ) [N, 2];
+    ``tables`` = (h1e, h2e, diag1, K, J); ``batch`` chunks the samples."""
+    out = []
+    for s, e in _chunks(bits.shape[0], batch):
+        comb, hij = comb_hij(bits[s:e], *tables, hpair_sect, table=table, with_comb=True)
+        b, m, sorb = comb.shape
+        lp = log_psi_fn(comb.reshape(b * m, sorb)).reshape(b, m, 2)
+        r_re, r_im = cplx.ratio_re_im(lp, lp[:, :1])
+        h = hij.to(r_re.dtype)
+        out.append(torch.stack([(h * r_re).sum(-1), (h * r_im).sum(-1)], -1))
+    return torch.cat(out, 0)
+
+
+def sample_tail_cdf(
+    resid: torch.Tensor, n_stoch: int, generator: torch.Generator
+) -> torch.Tensor:
+    """Stratified inverse-CDF draws [b, n_stoch] with P(j) ∝ resid[:, j].
+
+    u_s = (s + ξ_s)/n · total; draw = #{j : cumsum_j < u_s}.  Every draw's
+    marginal is ∝ resid (unbiased), with less variance than iid draws."""
+    b, n = resid.shape
+    c = torch.cumsum(resid, dim=-1)
+    xi = torch.rand(b, n_stoch, generator=generator, dtype=c.dtype, device=c.device)
+    u = (torch.arange(n_stoch, dtype=c.dtype, device=c.device)[None] + xi) / n_stoch * c[:, -1:]
+    return torch.clamp(torch.searchsorted(c, u), max=n - 1)
+
+
+@torch.no_grad()
+def local_energy_reduce(
+    log_psi_fn: Callable[[torch.Tensor], torch.Tensor],
+    bits: torch.Tensor,
+    tables: tuple,
+    table: ExcitationTable,
+    generator: torch.Generator,
+    *,
+    k_det: int = 256,
+    n_stoch: int = 64,
+    batch: int | None = None,
+    hpair_sect: tuple | None = None,
+    topk: str = "exact",
+) -> torch.Tensor:
+    """Semi-stochastic screened E_loc (reference ElocMethod.REDUCE).
+
+    The k_det largest |H_nm| terms (``topk="exact"``), or the per-segment
+    winners of a strided split into k_det segments (``"segmax"``), are
+    summed exactly; the remaining tail is estimated unbiasedly with
+    n_stoch stratified draws ∝ |H_nm|:
+        Σ_tail H r ≈ (S/n) Σ_s sign(H_s) r_s,   S = Σ_tail |H|.
+    ψ forwards per sample: 1 + k_det + n_stoch.  bits [B, sorb] -> [B, 2].
+    """
+    if topk not in ("exact", "segmax"):
+        raise ValueError(f"unknown topk {topk!r}")
+    ns = table.n_singles
+    pos = torch.as_tensor(table.pos, dtype=torch.long, device=bits.device)
+    out = []
+    for s, e in _chunks(bits.shape[0], batch):
+        chunk = bits[s:e]
+        _, hij = comb_hij(chunk, *tables, hpair_sect, table=table, with_comb=False)
+        b, sorb = chunk.shape
+        n_off = hij.shape[1] - 1
+        kd = min(k_det, n_off)
+        hij_off = hij[:, 1:]
+        absh = hij_off.abs()
+        orbs_all = onv.merged_orbital_list(chunk, table.noa, table.nob)[:, pos]
+
+        if topk == "segmax":
+            # element j belongs to segment j % kd; the deterministic set
+            # is each segment's first maximum (any deterministic set keeps
+            # the estimator unbiased: the tail covers what remains)
+            L = -(-n_off // kd)
+            a2 = torch.nn.functional.pad(absh, (0, kd * L - n_off)).reshape(b, L, kd)
+            loc = torch.argmax(a2, dim=1)  # first maximum along the stride
+            top_idx = torch.clamp(
+                loc * kd + torch.arange(kd, device=bits.device)[None], max=n_off - 1
+            )
+        else:
+            top_idx = torch.topk(absh, kd, dim=1).indices
+        resid = absh.scatter(1, top_idx, 0.0)
+        det_h = torch.gather(hij_off, 1, top_idx)
+        det_orbs = torch.gather(orbs_all, 1, top_idx[..., None].expand(b, kd, 4))
+        det_bits = excite_bits(chunk, det_orbs, top_idx >= ns)
+
+        s_tail = resid.sum(-1)
+        draw = sample_tail_cdf(resid, n_stoch, generator)
+        st_h = torch.gather(hij_off, 1, draw)
+        st_orbs = torch.gather(orbs_all, 1, draw[..., None].expand(b, n_stoch, 4))
+        st_bits = excite_bits(chunk, st_orbs, draw >= ns)
+
+        all_bits = torch.cat([chunk.to(torch.int8)[:, None, :], det_bits, st_bits], 1)
+        lp = log_psi_fn(all_bits.reshape(-1, sorb)).reshape(b, 1 + kd + n_stoch, 2)
+        r_re, r_im = cplx.ratio_re_im(lp, lp[:, :1])
+        dt = r_re.dtype
+        det_hr = det_h.to(dt)
+        e_det_re = (det_hr * r_re[:, 1 : 1 + kd]).sum(-1)
+        e_det_im = (det_hr * r_im[:, 1 : 1 + kd]).sum(-1)
+        sgn = torch.sign(st_h).to(dt)
+        scale = torch.where(s_tail > 0, s_tail.to(dt) / n_stoch, torch.zeros_like(s_tail, dtype=dt))
+        e_tail_re = scale * (sgn * r_re[:, 1 + kd :]).sum(-1)
+        e_tail_im = scale * (sgn * r_im[:, 1 + kd :]).sum(-1)
+        out.append(
+            torch.stack([hij[:, 0].to(dt) + e_det_re + e_tail_re, e_det_im + e_tail_im], -1)
+        )
+    return torch.cat(out, 0)

@@ -1,0 +1,1 @@
+"""grad of the PyTorch/CUDA port (see pynqs_tpu/grad)."""

@@ -1,0 +1,45 @@
+"""Variational energy gradient (pair form).
+
+Counterpart of ``pynqs_tpu/grad/energy_grad.py``:
+
+    ∂E = 2 ⟨ (a − ā)·∂u + (b − b̄)·∂v ⟩_w
+
+for E_loc = a + ib and log ψ = u + iv carried as [..., 2] pairs, taken
+by autograd through the surrogate 2 Σ_n w_n (c_n · log ψ_n).
+``grad_batch`` accumulates the backward over row chunks, so the saved
+activations scale with the chunk and not with B.
+"""
+
+from __future__ import annotations
+
+import torch
+
+__all__ = ["energy_and_grad"]
+
+
+def energy_and_grad(model, bits, weights, eloc, *, grad_batch=None):
+    """Returns (e_mean [2], grads {name: tensor}, variance).
+
+    bits [B, sorb]; weights [B] (sum 1; 0 = dead row); eloc [B, 2]."""
+    weights = weights.detach()
+    eloc = eloc.detach().to(weights.dtype)
+    alive = weights > 0
+    # dead rows may hold inf/NaN eloc: select them out first
+    eloc = torch.where(alive[:, None], eloc, torch.zeros_like(eloc))
+    e_mean = weights @ eloc
+    cen = torch.where(alive[:, None], eloc - e_mean, torch.zeros_like(eloc))
+    var = (weights * (cen**2).sum(-1)).sum()
+
+    names, params = zip(*[(n, p) for n, p in model.named_parameters() if p.requires_grad])
+    grads = [torch.zeros_like(p) for p in params]
+    B = bits.shape[0]
+    step = B if grad_batch is None or grad_batch >= B else grad_batch
+    for s in range(0, B, step):
+        e = min(s + step, B)
+        lp = model.log_psi(bits[s:e])
+        lp = torch.where(alive[s:e, None], lp, torch.zeros_like(lp))
+        loss = 2.0 * (weights[s:e] * (cen[s:e] * lp).sum(-1)).sum()
+        for acc, g in zip(grads, torch.autograd.grad(loss, params, allow_unused=True)):
+            if g is not None:
+                acc += g
+    return e_mean, dict(zip(names, grads)), var

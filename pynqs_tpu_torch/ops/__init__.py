@@ -1,0 +1,1 @@
+"""ops of the PyTorch/CUDA port (see pynqs_tpu/ops)."""

@@ -1,0 +1,354 @@
+"""Fused teacher-forced Graph-MPS-RNN forward: CUDA kernel and plain version.
+
+Counterpart of ``pynqs_tpu/ops/fused_rnn.py::graph_mpsrnn_logpsi_fused``
+(the Pallas kernel ``_kernel``).  It computes, without gradients, the
+same (log|ψ|, arg ψ) as ``GraphMPSRNN.log_psi`` for the ψ(m)/ψ(n)
+ratio forwards of the local energy.  Differences from ``log_psi``:
+
+  * the arg-mode phase is ``atan2`` of the running unit-complex
+    product Π_t ẑ_t/|ẑ_t| (a site with ẑ = 0 contributes phase 0), so
+    it agrees with the per-site atan2 sum only mod 2π;
+  * ``matmul_dtype=torch.bfloat16`` rounds the transition weights and
+    the hidden state to bf16 before each product and accumulates in
+    f32; ``torch.float32`` is full f32.  Everything else is f32.
+
+``graph_mpsrnn_logpsi_fused`` takes the plain torch version
+(``graph_mpsrnn_logpsi_fused_plain``) for rows on the CPU and the CUDA
+kernel (``csrc/fused_rnn.cu``) for rows on the card; on the card it
+launches the kernel or raises.  ``LAUNCHES`` counts kernel launches.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import threading
+
+import torch
+import torch.nn.functional as F
+
+from pynqs_tpu_torch.models.graph_mps_rnn import GraphMPSRNN
+
+__all__ = [
+    "graph_mpsrnn_logpsi_fused",
+    "graph_mpsrnn_logpsi_fused_plain",
+    "fused_forward_available",
+    "pack_tables",
+    "build_kernel",
+    "LAUNCHES",
+]
+
+_NEG = -1e30
+_SRC = os.path.join(os.path.dirname(os.path.dirname(__file__)), "csrc", "fused_rnn.cu")
+_BUILD_DIR = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.dirname(__file__))), "build"
+)
+
+
+class _Counter:
+    """Kernel launch count: one per launch of the CUDA kernel, nowhere else."""
+
+    def __init__(self):
+        self.n = 0
+
+    def reset(self):
+        self.n = 0
+
+
+LAUNCHES = _Counter()
+
+
+def fused_forward_available(model) -> bool:
+    return isinstance(model, GraphMPSRNN)
+
+
+def pack_tables(model) -> dict:
+    """f32 operand tables of the fused forward (shared by both versions).
+
+    With d = dcut, mp = max predecessors, K = 2·mp·d inputs (pred-major,
+    re then im) and O = 2d outputs per value (re then im):
+
+      W    [norb, 4, K, O]  transition  z_x = u @ W[t, x] + vcat[t, x]
+      vcat [norb, 4, O]
+      E    [norb, 4, O]     softplus(η) on the re and the im halves
+      PW   [norb, 4, O]     phase rows: arg mode rows 0/1 give Re/Im of
+                            w·h; linear mode row x is value x's readout
+      SC   [norb, 4]        phase constants (arg: c_re, c_im)
+    """
+    f = torch.float32
+    norb, d, mp = model.norb, model.dcut, model.maxp
+    p = {k: v.detach().to(f) for k, v in model.named_parameters()}
+    pmask = torch.as_tensor(model._pred_mask, dtype=f, device=p["M_re"].device)
+    M_re = p["M_re"] * pmask[:, :, None, None, None]  # [norb, mp, 4, d(out), d(in)]
+    M_im = p["M_im"] * pmask[:, :, None, None, None]
+    # W[t, x, (p, c_in, e), (c_out, dd)]:
+    #   z_re = M_re h_re - M_im h_im ;  z_im = M_im h_re + M_re h_im
+    blocks = torch.stack(
+        [
+            torch.stack([M_re, M_im], dim=-1),   # from h_re: (re, im) outputs
+            torch.stack([-M_im, M_re], dim=-1),  # from h_im
+        ],
+        dim=2,
+    )  # [norb, mp, c_in, 4, dd, e, c_out]
+    W = blocks.permute(0, 3, 1, 2, 5, 6, 4).reshape(norb, 4, 2 * mp * d, 2 * d)
+    vcat = torch.cat([p["v_re"], p["v_im"]], dim=-1)  # [norb, 4, 2d]
+    eta = F.softplus(p["eta"])
+    E = torch.cat([eta, eta], dim=-1)
+    if model.phase_mode == "arg":
+        wr, wi = p["w_arg_re"], p["w_arg_im"]
+        z = torch.zeros_like(wr)
+        PW = torch.stack(
+            [torch.cat([wr, -wi], -1), torch.cat([wi, wr], -1),
+             torch.cat([z, z], -1), torch.cat([z, z], -1)],
+            dim=1,
+        )
+        zc = torch.zeros_like(p["c_arg_re"])
+        SC = torch.stack([p["c_arg_re"], p["c_arg_im"], zc, zc], dim=-1)
+    else:
+        PW = p["w_ph"]
+        SC = p["c_ph"]
+    out = {
+        "W": W.contiguous(), "vcat": vcat.contiguous(), "E": E.contiguous(),
+        "PW": PW.contiguous(), "SC": SC.contiguous(),
+    }
+    if model.use_tensor:
+        for k in ("U_re", "U_im", "K_re", "K_im"):
+            out[k] = p[k].contiguous()
+    return out
+
+
+def _round(x, mmdt):
+    return x.to(torch.bfloat16).to(torch.float32) if mmdt == torch.bfloat16 else x
+
+
+def _finish(model, bits, out4):
+    """Kernel rows (log_amp, Re Π, Im Π, linear phase) -> [N, 2] pair, with
+    the reordering sign and the global phase added."""
+    if model.phase_mode == "arg":
+        phase = torch.atan2(out4[:, 2], out4[:, 1])
+    else:
+        phase = out4[:, 3]
+    gp = model.global_phase.detach().to(out4.dtype)
+    phase = phase + gp + model.sign_phase(bits, out4.dtype)
+    return torch.stack([out4[:, 0], phase], dim=-1)
+
+
+@torch.no_grad()
+def graph_mpsrnn_logpsi_fused_plain(
+    model, bits: torch.Tensor, *, matmul_dtype=torch.bfloat16, tables=None
+) -> torch.Tensor:
+    """The kernel's arithmetic in plain torch (rows on the leading axis).
+    bits [N, sorb] -> [N, 2]."""
+    T = pack_tables(model) if tables is None else tables
+    f = torch.float32
+    norb, d, mp = model.norb, model.dcut, model.maxp
+    N = bits.shape[0]
+    dev = bits.device
+    vals = (bits[:, 0::2].long() + 2 * bits[:, 1::2].long())  # [N, norb]
+    W = _round(T["W"], matmul_dtype)
+    hid = {}  # site id -> [N, 2d] normalized hidden
+    h = torch.zeros(N, 2 * d, dtype=f, device=dev)
+    log_amp = torch.zeros(N, dtype=f, device=dev)
+    pr_re = torch.ones(N, dtype=f, device=dev)
+    pr_im = torch.zeros(N, dtype=f, device=dev)
+    ph_lin = torch.zeros(N, dtype=f, device=dev)
+    used_a = torch.zeros(N, dtype=torch.long, device=dev)
+    used_b = torch.zeros(N, dtype=torch.long, device=dev)
+    rows = torch.arange(N, device=dev)
+    for t in range(norb):
+        s = model.site_order[t]
+        x = vals[:, s]
+        if model.is_chain:
+            u = h
+        else:
+            ps = model.preds[t]
+            parts = [hid[p] for p in ps] + [
+                torch.zeros(N, 2 * d, dtype=f, device=dev)
+            ] * (mp - len(ps))
+            u = torch.cat(parts, dim=-1)  # [N, 2·mp·d]
+        u_mm = _round(u, matmul_dtype)
+        z = torch.einsum("nk,xko->nxo", u_mm, W[t]) + T["vcat"][t]  # [N, 4, 2d]
+        npred = len(model.preds[t])
+        if model.use_tensor and npred >= 2:
+            pr_c_re = pr_c_im = None
+            for j in range(npred):
+                hj = u_mm[:, j * 2 * d : (j + 1) * 2 * d]
+                Ur = _round(T["U_re"][t, j], matmul_dtype)  # [4, dc, d]
+                Ui = _round(T["U_im"][t, j], matmul_dtype)
+                h_re, h_im = hj[:, :d], hj[:, d:]
+                u_re = torch.einsum("xcd,nd->nxc", Ur, h_re) - torch.einsum("xcd,nd->nxc", Ui, h_im)
+                u_im = torch.einsum("xcd,nd->nxc", Ur, h_im) + torch.einsum("xcd,nd->nxc", Ui, h_re)
+                if pr_c_re is None:
+                    pr_c_re, pr_c_im = u_re, u_im
+                else:
+                    pr_c_re, pr_c_im = (
+                        pr_c_re * u_re - pr_c_im * u_im,
+                        pr_c_re * u_im + pr_c_im * u_re,
+                    )
+            pr_c_re = _round(pr_c_re, matmul_dtype)
+            pr_c_im = _round(pr_c_im, matmul_dtype)
+            Kr = _round(T["K_re"][t], matmul_dtype)  # [4, d, dc]
+            Ki = _round(T["K_im"][t], matmul_dtype)
+            d_re = torch.einsum("xdc,nxc->nxd", Kr, pr_c_re) - torch.einsum("xdc,nxc->nxd", Ki, pr_c_im)
+            d_im = torch.einsum("xdc,nxc->nxd", Kr, pr_c_im) + torch.einsum("xdc,nxc->nxd", Ki, pr_c_re)
+            z = z + torch.cat([d_re, d_im], dim=-1)
+        zsq = z * z
+        sums = (zsq * T["E"][t]).sum(-1)  # [N, 4]
+        rem = norb - t - 1
+        occ_a = used_a + 1 <= model.noa
+        emp_a = model.noa - used_a <= rem
+        occ_b = used_b + 1 <= model.nob
+        emp_b = model.nob - used_b <= rem
+        m = torch.stack([emp_a & emp_b, occ_a & emp_b, emp_a & occ_b, occ_a & occ_b], -1)
+        lw = torch.where(m, torch.log(torch.clamp(sums, min=1e-30)), torch.full_like(sums, _NEG))
+        lse = torch.logsumexp(lw, dim=-1)
+        log_amp = log_amp + 0.5 * (lw[rows, x] - lse)
+        sel = z[rows, x]  # [N, 2d]
+        if model.norm_mode == "mpsrnn":
+            nrm = torch.rsqrt(torch.clamp(zsq.sum((-2, -1)) / (4 * d), min=1e-30))
+        else:
+            nrm = torch.rsqrt(torch.clamp((sel * sel).sum(-1), min=1e-30))
+        h = sel * nrm[:, None]
+        if not model.is_chain:
+            hid[s] = h
+        if model.phase_mode == "arg":
+            zr = h @ T["PW"][t, 0] + T["SC"][t, 0]
+            zi = h @ T["PW"][t, 1] + T["SC"][t, 1]
+            m2 = zr * zr + zi * zi
+            ok = m2 > 1e-30
+            mag = torch.rsqrt(torch.clamp(m2, min=1e-30))
+            fr = torch.where(ok, zr * mag, torch.ones_like(zr))
+            fi = torch.where(ok, zi * mag, torch.zeros_like(zi))
+            pr_re, pr_im = pr_re * fr - pr_im * fi, pr_re * fi + pr_im * fr
+        else:
+            ph_lin = ph_lin + (h * T["PW"][t][x]).sum(-1) + T["SC"][t][x]
+        used_a = used_a + (x & 1)
+        used_b = used_b + (x >> 1)
+    out4 = torch.stack([log_amp, pr_re, pr_im, ph_lin], dim=-1)
+    return _finish(model, bits, out4)
+
+
+# ---------------- the CUDA kernel ----------------
+
+_LIB = None
+_LIB_LOCK = threading.Lock()
+BUILD_INFO: dict = {}
+
+
+def _nvcc() -> str:
+    for cand in (shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found: the fused forward's CUDA kernel cannot be built")
+
+
+def build_kernel(build_dir: str = _BUILD_DIR) -> str:
+    """Compile csrc/fused_rnn.cu for sm_90a into ``build_dir`` (once per
+    source version) and return the library path.  The compiler's
+    ``-Xptxas -v`` report is kept in ``BUILD_INFO["ptxas"]``."""
+    with open(_SRC, "rb") as f:
+        digest = hashlib.sha1(f.read()).hexdigest()[:12]
+    lib = os.path.join(build_dir, f"libfused_rnn_{digest}.so")
+    if os.path.exists(lib):
+        return lib
+    os.makedirs(build_dir, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=build_dir)
+    os.close(fd)
+    cmd = [
+        _nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+        "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-o", tmp, _SRC,
+    ]
+    r = subprocess.run(cmd, capture_output=True, text=True)
+    if r.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(f"nvcc failed ({r.returncode}):\n{r.stderr}")
+    os.replace(tmp, lib)
+    BUILD_INFO["ptxas"] = r.stderr
+    return lib
+
+
+def _lib():
+    global _LIB
+    with _LIB_LOCK:
+        if _LIB is None:
+            lib = ctypes.CDLL(build_kernel())
+            fn = lib.fused_rnn_forward
+            P, I = ctypes.c_void_p, ctypes.c_int
+            fn.argtypes = [
+                P, I, I, I, I,           # vals, N, norb, d, mp
+                P, P, P,                 # order, pred, npred
+                P, I,                    # W, w_bf16
+                P, P, P, P,              # vcat, E, PW, SC
+                I, I, I, I, I,           # noa, nob, phase_arg, norm_mpsrnn, chain
+                P, P, P,                 # hbuf, out, stream
+            ]
+            fn.restype = I
+            _LIB = fn
+    return _LIB
+
+
+@torch.no_grad()
+def _launch(model, bits, matmul_dtype, tables):
+    if model.use_tensor:
+        raise NotImplementedError(
+            "the CUDA fused forward has no tensor-coupling branch yet "
+            "(ROADMAP Queue B: kernel #1, tensor-coupling branch)"
+        )
+    if matmul_dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"matmul_dtype must be bf16 or f32, not {matmul_dtype}")
+    dev = bits.device
+    T = pack_tables(model) if tables is None else tables
+    for k, v in T.items():
+        if v.device != dev or v.dtype != torch.float32 or not v.is_contiguous():
+            raise ValueError(f"table {k} must be contiguous f32 on {dev}")
+    norb, d, mp = model.norb, model.dcut, model.maxp
+    N = bits.shape[0]
+    if bits.dim() != 2 or bits.shape[1] != model.sorb:
+        raise ValueError(f"bits must be [N, {model.sorb}], got {tuple(bits.shape)}")
+    vals = (bits[:, 0::2].to(torch.int8) + 2 * bits[:, 1::2].to(torch.int8)).contiguous()
+    W = T["W"].to(matmul_dtype).contiguous()
+    order = torch.as_tensor(model.site_order, dtype=torch.int32, device=dev)
+    pred = torch.as_tensor(model._pred, dtype=torch.int32, device=dev).contiguous()
+    npred = torch.as_tensor([len(p) for p in model.preds], dtype=torch.int32, device=dev)
+    out = torch.empty(N, 4, dtype=torch.float32, device=dev)
+    hbuf = (
+        torch.empty(0, dtype=torch.float32, device=dev)
+        if model.is_chain
+        else torch.empty(N, norb, 2 * d, dtype=torch.float32, device=dev)
+    )
+    fn = _lib()
+    if N > 0:
+        err = fn(
+            vals.data_ptr(), N, norb, d, mp,
+            order.data_ptr(), pred.data_ptr(), npred.data_ptr(),
+            W.data_ptr(), int(matmul_dtype == torch.bfloat16),
+            T["vcat"].data_ptr(), T["E"].data_ptr(), T["PW"].data_ptr(), T["SC"].data_ptr(),
+            model.noa, model.nob, int(model.phase_mode == "arg"),
+            int(model.norm_mode == "mpsrnn"), int(model.is_chain),
+            hbuf.data_ptr(), out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
+        )
+        if err != 0:
+            raise RuntimeError(f"fused_rnn kernel launch failed: CUDA error {err}")
+        LAUNCHES.n += 1
+    return _finish(model, bits, out)
+
+
+def graph_mpsrnn_logpsi_fused(
+    model, bits: torch.Tensor, *, matmul_dtype=torch.bfloat16, tables=None
+) -> torch.Tensor:
+    """Gradient-free replacement for ``model.log_psi``: bits [N, sorb]
+    0/1 -> [N, 2] (log|ψ|, arg ψ), f32.  CPU rows take the plain
+    version; CUDA rows launch the kernel (or raise)."""
+    if not fused_forward_available(model):
+        raise ValueError("the fused forward computes GraphMPSRNN models only")
+    if bits.device.type == "cpu":
+        return graph_mpsrnn_logpsi_fused_plain(
+            model, bits, matmul_dtype=matmul_dtype, tables=tables
+        )
+    if bits.device.type != "cuda":
+        raise ValueError(f"unsupported device {bits.device}")
+    return _launch(model, bits, matmul_dtype, tables)

@@ -1,0 +1,156 @@
+"""Slater–Condon matrix elements over the connected singles and doubles.
+
+Counterpart of ``pynqs_tpu/ops/hamiltonian.py`` (``hij_diagonal``,
+``comb_hij``).  On a GPU a data-dependent gather is cheap, so the JAX
+package's one-hot selections and three-way bf16 splits are not ported:
+
+  * diagonal  <n|H|n> = occ·diag(h1e) + ½ occᵀ K occ;
+  * singles   <n|H|n_i^a> = (h1e[i,a] + Σ_{k∈occ} <ik||ak>) · sign,
+    one product occ @ J for all (i, a), then a gather per sample;
+  * doubles   <n|H|n_ij^ab> = <ij||ab> · sign, a direct gather from the
+    spin-sector pair blocks (H_aa, H_bb, H_ab), or from the compressed
+    triangle where the pair blocks are not built;
+  * signs from one exclusive prefix count per sample.
+
+The operands' dtype is the arithmetic's: f32 on the card, f64 in the
+CPU tests.  No TF32 (the package switches it off on import).
+"""
+
+from __future__ import annotations
+
+from functools import lru_cache
+
+import numpy as np
+import torch
+
+from pynqs_tpu_torch.ops import onv
+from pynqs_tpu_torch.ops.excitation import ExcitationTable, make_comb_bits
+
+__all__ = ["hij_diagonal", "comb_hij"]
+
+
+def hij_diagonal(bits: torch.Tensor, diag1: torch.Tensor, K: torch.Tensor) -> torch.Tensor:
+    """<n|H|n> for a batch. bits [B, sorb] -> [B]."""
+    occ = bits.to(K.dtype)
+    return occ @ diag1 + 0.5 * ((occ @ K) * occ).sum(-1)
+
+
+def _parity_from_count(cnt: torch.Tensor) -> torch.Tensor:
+    return 1 - 2 * (cnt & 1)
+
+
+@lru_cache(maxsize=16)
+def _static(table: ExcitationTable, device: str):
+    """Device copies of the table's static index arrays."""
+    dev = torch.device(device)
+    ns = table.n_singles
+    pos = torch.as_tensor(table.pos.astype(np.int64), device=dev)
+    # spin sector of each double: 0 = aa, 1 = bb, 2 = ab (the parity of
+    # a merged-list slot is the spin of the orbital it holds)
+    par = table.pos[ns:, [0, 2]] % 2
+    sector = np.where(
+        (par[:, 0] == 0) & (par[:, 1] == 0), 0,
+        np.where((par[:, 0] == 1) & (par[:, 1] == 1), 1, 2),
+    )
+    is_double = torch.zeros(table.n_sd, dtype=torch.bool, device=dev)
+    is_double[ns:] = True
+    return pos, torch.as_tensor(sector, device=dev), is_double
+
+
+def _doubles_values(i, a, j, b, sector, hpair_sect, norb):
+    """Unsigned <ij||ab> per double from the sector pair blocks: the
+    occupied pair (i, j) and the virtual pair (a, b) lie in the same
+    sector, so each value is one entry of that sector's block."""
+
+    def local(o1, o2):
+        s1, s2 = o1 >> 1, o2 >> 1
+        hi = torch.maximum(s1, s2)
+        lo = torch.minimum(s1, s2)
+        tri = hi * (hi - 1) // 2 + lo  # same-spin sectors
+        a_first = (o1 & 1) == 0  # alpha member first (ab sector)
+        ab = torch.where(a_first, s1, s2) * norb + torch.where(a_first, s2, s1)
+        return torch.where(sector == 2, ab, tri)
+
+    po = local(i, j)
+    pv = local(a, b)
+    flat = torch.cat([h.reshape(-1) for h in hpair_sect])
+    nps = torch.as_tensor([h.shape[0] for h in hpair_sect], device=i.device)
+    off = torch.as_tensor(
+        [0, hpair_sect[0].numel(), hpair_sect[0].numel() + hpair_sect[1].numel()],
+        device=i.device,
+    )
+    return flat[off[sector] + po * nps[sector] + pv]
+
+
+def _tri_index(p0, p1, q0, q1):
+    """Compressed-triangle flat index for canonical (p0>p1, q0>q1)."""
+    ij = p0 * (p0 - 1) // 2 + p1
+    kl = q0 * (q0 - 1) // 2 + q1
+    hi = torch.maximum(ij, kl)
+    lo = torch.minimum(ij, kl)
+    return hi * (hi + 1) // 2 + lo
+
+
+def comb_hij(
+    bits: torch.Tensor,
+    h1e: torch.Tensor,
+    h2e: torch.Tensor,
+    diag1: torch.Tensor,
+    K: torch.Tensor,
+    J: torch.Tensor,
+    hpair_sect: tuple | None = None,
+    *,
+    table: ExcitationTable,
+    with_comb: bool = True,
+):
+    """Connected determinants and their matrix elements.
+
+    bits [B, sorb] 0/1.  Returns (comb, hij): ``comb`` [B, 1 + n_sd,
+    sorb] int8 with row 0 the sample itself (None when with_comb is
+    False) and ``hij`` [B, 1 + n_sd] with hij[:, 0] = <n|H|n>.
+    ``hpair_sect``: the spin-sector pair blocks; None reads the doubles
+    from the compressed triangle ``h2e``.
+    """
+    sorb = table.sorb
+    ns = table.n_singles
+    dtype = K.dtype
+    pos, sector, is_double = _static(table, str(bits.device))
+
+    occ = bits.to(dtype)
+    prefix = onv.prefix_occ(bits)  # [B, sorb]
+    merged = onv.merged_orbital_list(bits, table.noa, table.nob)  # [B, sorb]
+    orbs = merged[:, pos]  # [B, n_sd, 4] orbitals (i, a, j, b)
+    cnts = torch.gather(prefix, 1, merged)[:, pos]  # prefix at (i, a, j, b)
+
+    hii = hij_diagonal(bits, diag1, K)
+
+    # singles: S[b, p*sorb+q] = h1e[p,q] + Σ_k occ_k <pk||qk>
+    s_full = occ @ J + h1e.reshape(1, -1)
+    i_s, a_s = orbs[:, :ns, 0], orbs[:, :ns, 1]
+    val_s = torch.gather(s_full, 1, i_s * sorb + a_s)
+    cnt_ia = cnts[:, :ns, 0] + cnts[:, :ns, 1] - (i_s < a_s).long()
+    hij_s = val_s * _parity_from_count(cnt_ia).to(dtype)
+
+    # doubles
+    i_d, a_d, j_d, b_d = orbs[:, ns:].unbind(-1)
+    p0 = torch.maximum(i_d, j_d)
+    p1 = torch.minimum(i_d, j_d)
+    q0 = torch.maximum(a_d, b_d)
+    q1 = torch.minimum(a_d, b_d)
+    if hpair_sect is not None:
+        val_d = _doubles_values(i_d, a_d, j_d, b_d, sector, hpair_sect, sorb // 2)
+    else:
+        val_d = h2e[_tri_index(p0, p1, q0, q1)]
+    base = cnts[:, ns:, :].sum(-1)
+    corr = (
+        -(p0 < q0).long() - (p1 < q0).long() + (q1 < q0).long()
+        - (p0 < q1).long() - (p1 < q1).long() + (q0 < q1).long()
+    )
+    hij_d = val_d * _parity_from_count(base + corr).to(dtype)
+
+    hij = torch.cat([hii[:, None], hij_s, hij_d], dim=-1)
+    comb = None
+    if with_comb:
+        exc = make_comb_bits(bits, orbs, is_double)
+        comb = torch.cat([bits.to(torch.int8)[:, None, :], exc], dim=1)
+    return comb, hij

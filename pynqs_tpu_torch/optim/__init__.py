@@ -1,0 +1,1 @@
+"""optim of the PyTorch/CUDA port (see pynqs_tpu/optim)."""

@@ -1,0 +1,1 @@
+"""sampler of the PyTorch/CUDA port (see pynqs_tpu/sampler)."""

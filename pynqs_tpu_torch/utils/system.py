@@ -1,0 +1,123 @@
+"""Electronic-structure system container.
+
+Counterpart of ``pynqs_tpu/utils/system.py``: electron counts, the
+compressed integrals and the core energy, with the Slater–Condon
+operand tables moved to a device on request.  ``from_pth`` is not
+ported: its molecule files are not in the repository.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from functools import cached_property
+
+import numpy as np
+import torch
+
+from pynqs_tpu_torch.ops import integrals as ints
+from pynqs_tpu_torch.ops.excitation import ExcitationTable, excitation_table
+from pynqs_tpu_torch.utils.device import resolve_device
+
+__all__ = ["System", "DeviceTables"]
+
+
+@dataclass(frozen=True)
+class DeviceTables:
+    """Slater–Condon operands on one device (see ops/integrals.py)."""
+
+    h1e: torch.Tensor
+    h2e: torch.Tensor
+    diag1: torch.Tensor
+    K: torch.Tensor
+    J: torch.Tensor
+    # spin-sector pair blocks (H_aa, H_bb, H_ab): the doubles operand of
+    # comb_hij; None when the pair space is too large (> 4096 pairs)
+    hpair_sect: tuple | None = None
+
+    def astuple(self):
+        return (self.h1e, self.h2e, self.diag1, self.K, self.J)
+
+
+@dataclass(frozen=True)
+class System:
+    sorb: int
+    noa: int
+    nob: int
+    h1e: np.ndarray  # [sorb, sorb] dense
+    h2e: np.ndarray  # compressed triangle
+    ecore: float = 0.0
+    e_ref: float | None = None
+    dtype: np.dtype = np.float64
+    _dev_cache: dict = field(default_factory=dict, repr=False, compare=False)
+
+    @property
+    def nele(self) -> int:
+        return self.noa + self.nob
+
+    @property
+    def norb(self) -> int:
+        return self.sorb // 2
+
+    @cached_property
+    def excitation(self) -> ExcitationTable:
+        return excitation_table(self.sorb, self.noa, self.nob)
+
+    @cached_property
+    def host_tables(self) -> ints.HijTables:
+        return ints.precompute_hij_tables(self.h1e, self.h2e, self.sorb, self.dtype)
+
+    def tables(self, device="cuda", dtype=None) -> DeviceTables:
+        """The operand tables on ``device`` in ``dtype`` (default: the
+        system's dtype), built once per (device, dtype)."""
+        dev = resolve_device(device)
+        dt = torch.from_numpy(np.zeros(0, self.dtype)).dtype if dtype is None else dtype
+        key = (str(dev), dt)
+        if key not in self._dev_cache:
+            t = self.host_tables
+
+            def put(a):
+                return torch.as_tensor(np.asarray(a), device=dev).to(dt)
+
+            self._dev_cache[key] = DeviceTables(
+                h1e=put(t.h1e),
+                h2e=put(t.h2e),
+                diag1=put(t.diag1),
+                K=put(t.K),
+                J=put(t.J),
+                hpair_sect=None
+                if t.Hpair_sect is None
+                else tuple(put(b) for b in t.Hpair_sect),
+            )
+        return self._dev_cache[key]
+
+    # ---------------- constructors ----------------
+
+    @classmethod
+    def from_integrals(
+        cls, h1e, h2e_compressed, sorb: int, noa: int, nob: int,
+        ecore: float = 0.0, **kw,
+    ) -> "System":
+        h1e = np.asarray(h1e, dtype=np.float64)
+        if h1e.ndim == 1:
+            h1e = h1e.reshape(sorb, sorb)
+        return cls(
+            sorb=sorb, noa=noa, nob=nob, h1e=h1e,
+            h2e=np.asarray(h2e_compressed, dtype=np.float64),
+            ecore=float(ecore), **kw,
+        )
+
+    @classmethod
+    def from_spatial(
+        cls, hcore, eri_chemist, noa: int, nob: int, ecore: float = 0.0, **kw
+    ) -> "System":
+        """Spatial-orbital (hcore, chemist ERI) -> interleaved spin System."""
+        h1e, h2e_c = ints.spin_orbital_from_spatial(hcore, eri_chemist)
+        return cls.from_integrals(h1e, h2e_c, 2 * hcore.shape[0], noa, nob, ecore, **kw)
+
+    @classmethod
+    def hubbard_1d(
+        cls, nsites: int, noa: int, nob: int, t: float = 1.0, u: float = 4.0,
+        pbc: bool = False, **kw,
+    ) -> "System":
+        hcore, eri = ints.hubbard_1d(nsites, t, u, pbc)
+        return cls.from_spatial(hcore, eri, noa, nob, 0.0, **kw)

@@ -1,0 +1,129 @@
+"""Card-only tests of the port: the fused forward's CUDA kernel against
+its plain version, and VMC steps that go through the kernel.
+
+They import neither JAX nor the JAX package, so they also run where only
+PyTorch for CUDA is installed.  On a machine with a card:
+
+    python -m pytest --noconftest -m gpu tests/test_torch_gpu.py
+
+(``--noconftest`` skips tests/conftest.py, which sets up JAX for the
+other test files.)  Without a card every test here skips.
+"""
+
+import itertools
+import math
+import os
+
+import numpy as np
+import pytest
+import torch
+
+from pynqs_tpu_torch.models.graph_mps_rnn import GraphMPSRNN, grid_snake_graph
+from pynqs_tpu_torch.ops import fused_rnn
+from pynqs_tpu_torch.optim.vmc import VMC, VMCConfig
+from pynqs_tpu_torch.sampler.ar_sampler import ARSampler
+from pynqs_tpu_torch.utils.checkpoint import load_params
+from pynqs_tpu_torch.utils.system import System
+
+pytestmark = pytest.mark.gpu
+
+CKPT = os.path.join(os.path.dirname(__file__), "..", "checkpoints", "fe2s2_dcut48_final.pkl")
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU form)")
+    return torch.device("cuda")
+
+
+def _all_dets(sorb, noa, nob):
+    norb = sorb // 2
+    rows = []
+    for a in itertools.combinations(range(norb), noa):
+        for b in itertools.combinations(range(norb), nob):
+            r = np.zeros(sorb, np.int8)
+            r[[2 * i for i in a]] = 1
+            r[[2 * i + 1 for i in b]] = 1
+            rows.append(r)
+    return np.stack(rows)
+
+
+def _rand_dets(n, sorb, noa, nob, seed):
+    rng = np.random.default_rng(seed)
+    norb = sorb // 2
+    out = np.zeros((n, sorb), np.int8)
+    for s, no in ((0, noa), (1, nob)):
+        cols = np.argsort(rng.random((n, norb)), axis=1)[:, :no]
+        out[np.repeat(np.arange(n), no), 2 * cols.ravel() + s] = 1
+    return out
+
+
+def _model(case, dev):
+    g = torch.Generator().manual_seed(0)
+    if case == "fe2s2-dcut48":
+        m = GraphMPSRNN(40, 15, 15, dcut=48, phase_mode="arg", norm_mode="mpsrnn",
+                        dtype=torch.float32, device=dev)
+        return m.load_numpy_params(load_params(CKPT)), _rand_dets(4096, 40, 15, 15, 0)
+    graph, phase, norm, dcut = {
+        "chain-arg-mpsrnn-d10": (None, "arg", "mpsrnn", 10),
+        "dag-arg-mpsrnn-d10": (grid_snake_graph(3, 2), "arg", "mpsrnn", 10),
+        "chain-linear-unit-d24": (None, "linear", "unit", 24),
+        "dag-linear-unit-d100": (grid_snake_graph(3, 2), "linear", "unit", 100),
+    }[case]
+    m = GraphMPSRNN(12, 3, 3, dcut=dcut, graph=graph, phase_mode=phase, norm_mode=norm,
+                    dtype=torch.float32, device=dev, generator=g)
+    return m, _all_dets(12, 3, 3)
+
+
+@pytest.mark.parametrize("mm", ["f32", "bf16"])
+@pytest.mark.parametrize("case", ["chain-arg-mpsrnn-d10", "dag-arg-mpsrnn-d10",
+                                  "chain-linear-unit-d24", "dag-linear-unit-d100",
+                                  "fe2s2-dcut48"])
+def test_cuda_kernel_matches_plain(case, mm, dev):
+    """One launch per call, and the plain version's values: 1e-4 on
+    log|ψ| and 1e-3 on the unit-circle phase in f32 (the sums differ in
+    order only); 1e-1 in bf16, where an f32 difference of one ulp can
+    move h across a bf16 rounding boundary and the steps compound."""
+    model, dets = _model(case, dev)
+    bits = torch.as_tensor(dets, device=dev)
+    dt = {"f32": torch.float32, "bf16": torch.bfloat16}[mm]
+    before = fused_rnn.LAUNCHES.n
+    k = fused_rnn.graph_mpsrnn_logpsi_fused(model, bits, matmul_dtype=dt)
+    torch.cuda.synchronize()
+    assert fused_rnn.LAUNCHES.n == before + 1
+    p = fused_rnn.graph_mpsrnn_logpsi_fused_plain(model, bits, matmul_dtype=dt)
+    assert k.shape == p.shape == (bits.shape[0], 2) and torch.isfinite(k).all()
+    ta, tp = (1e-4, 1e-3) if mm == "f32" else (1e-1, 1e-1)
+    assert (k[:, 0] - p[:, 0]).abs().max().item() < ta
+    d = (torch.polar(torch.ones_like(k[:, 1]), k[:, 1])
+         - torch.polar(torch.ones_like(p[:, 1]), p[:, 1])).abs().max().item()
+    assert d < tp
+
+
+def test_cuda_kernel_f32_matches_log_psi(dev):
+    """The f32 kernel against the model's own forward (phase mod 2π)."""
+    model, dets = _model("fe2s2-dcut48", dev)
+    bits = torch.as_tensor(dets, device=dev)
+    k = fused_rnn.graph_mpsrnn_logpsi_fused(model, bits, matmul_dtype=torch.float32)
+    ref = model.log_psi(bits).detach()
+    assert (k[:, 0] - ref[:, 0]).abs().max().item() < 1e-4
+    d = (torch.polar(torch.ones_like(k[:, 1]), k[:, 1])
+         - torch.polar(torch.ones_like(ref[:, 1]), ref[:, 1])).abs().max().item()
+    assert d < 1e-3
+
+
+def test_vmc_steps_on_card_launch_the_kernel(dev):
+    """20 steps on the 4-site Hubbard chain: one kernel launch per step
+    and a falling, finite energy."""
+    system = System.hubbard_1d(4, 2, 2, u=4.0)
+    model = GraphMPSRNN(8, 2, 2, dcut=4, phase_mode="arg", norm_mode="mpsrnn",
+                        dtype=torch.float32, device=dev,
+                        generator=torch.Generator().manual_seed(0))
+    sampler = ARSampler(8, 2, 2, n_sample=20_000, capacity=36)
+    before = fused_rnn.LAUNCHES.n
+    hist = VMC(model, system, sampler, VMCConfig(lr=0.05)).run(
+        torch.Generator(device=dev).manual_seed(1), 20)
+    assert fused_rnn.LAUNCHES.n - before == 20
+    assert all(math.isfinite(e) for e in hist)
+    assert np.mean(hist[-5:]) < np.mean(hist[:5]) - 0.05, hist

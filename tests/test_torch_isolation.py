@@ -1,0 +1,88 @@
+"""The port stands alone: no JAX, nothing of the JAX package, and no
+quiet continuation on the CPU when a card was asked for."""
+
+import ast
+import os
+import pathlib
+import shutil
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+PORT = ROOT / "pynqs_tpu_torch"
+SMOKE = ROOT / "chip_smoke.py"
+GPU_TESTS = ROOT / "tests" / "test_torch_gpu.py"  # run where only torch is installed
+
+
+def _sources():
+    return sorted(PORT.rglob("*.py")) + [SMOKE, GPU_TESTS]
+
+
+def _forbidden(name: str) -> bool:
+    return name.split(".")[0] in ("jax", "jaxlib", "pynqs_tpu")
+
+
+@pytest.mark.parametrize("path", _sources(), ids=lambda p: str(p.relative_to(ROOT)))
+def test_source_imports_neither_jax_nor_the_jax_package(path):
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            names = [node.module or ""] if node.level == 0 else []
+        else:
+            continue
+        assert not any(_forbidden(n) for n in names), (path, names)
+
+
+def test_importing_the_port_and_chip_smoke_loads_no_jax():
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "import pynqs_tpu_torch\n"
+        "for m in pkgutil.walk_packages(pynqs_tpu_torch.__path__, 'pynqs_tpu_torch.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "import chip_smoke\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'pynqs_tpu')]\n"
+        "print(len([m for m in sys.modules if m.startswith('pynqs_tpu_torch.')]), bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stdout + r.stderr
+    assert int(r.stdout.split()[0]) >= 15  # every module of the port was imported
+
+
+def test_default_device_entry_points_raise_without_a_card(monkeypatch):
+    from pynqs_tpu_torch.models.graph_mps_rnn import GraphMPSRNN
+    from pynqs_tpu_torch.utils.checkpoint import params_from_numpy
+    from pynqs_tpu_torch.utils.system import System
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        GraphMPSRNN(8, 2, 2, dcut=4)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        System.hubbard_1d(4, 2, 2).tables()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        params_from_numpy({"a": np.zeros(2)})
+    # asked for explicitly, the CPU works
+    assert GraphMPSRNN(8, 2, 2, dcut=4, device="cpu").M_re.device.type == "cpu"
+
+
+@pytest.mark.parametrize("where", ["repo", "alone"])
+def test_chip_smoke_fails_without_a_card(where, tmp_path):
+    """No card (hidden from the process) or no repository beside the
+    script: a non-zero exit and no result line."""
+    if where == "alone":
+        shutil.copy(SMOKE, tmp_path / "chip_smoke.py")
+        cwd = tmp_path
+    else:
+        cwd = ROOT
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    r = subprocess.run([sys.executable, "chip_smoke.py"], cwd=cwd, env=env,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode != 0
+    assert '"ok"' not in r.stdout
