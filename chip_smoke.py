@@ -1,23 +1,37 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's main path once on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's paths once on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
 Phases, one line each (and a few detail lines):
   1. environment probe (torch, CUDA, nvcc, triton, nvidia-smi);
-  2. build of the fused-forward CUDA kernel from pynqs_tpu_torch/csrc;
-  3. kernel against its plain torch version on the card: the dcut-48
-     Fe2S2 chain (checkpoints/fe2s2_dcut48_final.pkl; sorb 40, 15α/15β)
-     on 65,536 random valid rows in f32 and bf16, a small DAG model and
-     the linear/unit modes;
+  2. build of the CUDA kernels (pynqs_tpu_torch/csrc/fused_rnn.cu: the
+     fused forward and the prefix-sharing parent and child passes), with
+     the compiler's register report and each launch's shared memory;
+  3. the fused forward against its plain torch version on the card: the
+     dcut-48 Fe2S2 chain (checkpoints/fe2s2_dcut48_final.pkl; sorb 40,
+     15α/15β) on 65,536 random valid rows in f32 and bf16, a small DAG
+     model, the linear/unit modes, and the structured r5g64 flagship
+     (dcut 64, tensor coupling, 2 predecessors; weights of
+     checkpoints/fe2s2_r3_dcut64_r5g64.pkl on the stand-in graph) on
+     65,536 rows, each comparison held by ``hold_rows``;
   4. local-energy identity: REDUCE with k_det = n_sd equals SIMPLE;
   5. three VMC steps in the flagship configuration (DFS sampling n=1e6,
      capacity 4096, 4 groups, split depth 6, compacted to B = 2048;
-     REDUCE k_det 256 / n_stoch 64; seeded random integrals of the
-     Fe2S2 shape), through the CUDA kernel;
+     REDUCE k_det 256 / n_stoch 64, segmax; seeded random integrals of
+     the Fe2S2 shape), through the CUDA kernel;
   6. the kernel on the 657,408 rows of one step's eloc forward (captured
      in phase 5): agreement with the plain version, then CUDA-event
-     times of both beside the card's bound.
+     times of both beside the card's bound;
+  7. three VMC steps of the r5g64 flagship in the same configuration,
+     through the kernel's tensor-coupling branch; the branch on one
+     step's rows, timed as in phase 6;
+  8. the prefix-sharing path (VMCConfig.eloc_prefix) on the dcut-48
+     chain: the parent and child kernels against their plain versions
+     and the flat kernel on one step's rows, REDUCE with and without it,
+     three VMC steps through it, and CUDA-event times of both forwards;
+  9. the one PyTorch call that computes the (not yet ported) doubles
+     pair selection, timed at the flagship's shapes.
 
 The last two lines are the kernels' JSON summary and the result JSON.
 Any failed check raises, so the script exits non-zero with no result.
@@ -37,10 +51,16 @@ import numpy as np
 import torch
 
 SORB, NOA, NOB, DCUT = 40, 15, 15, 48
+DCUT_R5, MAXP_R5, DCMP_R5 = 64, 2, 4  # the r5g64 structured flagship
 B, K_DET, N_STOCH = 2048, 256, 64
+N_CMP, N_REF = 65536, 4096  # rows of the phase-3 comparisons
+N_ID = 64  # sampled rows of the phase-4 identity
+N_RED = 512  # sampled rows of the phase-8 REDUCE comparison
+STEPS = 3
 H100_BF16_FLOPS = 989e12  # dense tensor-core peak, SXM data sheet
 H100_F32_FLOPS = 67e12  # f32 outside the tensor cores
 H100_BYTES = 3.35e12  # HBM3 bytes/s
+DEV = "cuda"
 
 
 def log(phase, msg):
@@ -50,6 +70,35 @@ def log(phase, msg):
 def check(ok, what):
     if not ok:
         raise AssertionError(what)
+
+
+def sync():
+    torch.cuda.synchronize()
+
+
+def cuda_ms(fn, reps):
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def gpu_info():
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True,
+    ).stdout.strip().splitlines()[0]
+
+
+def reset_peak():
+    torch.cuda.reset_peak_memory_stats()
+
+
+def peak_gib():
+    return torch.cuda.max_memory_allocated() / 2**30
 
 
 def rand_dets(rng, n, sorb, noa, nob):
@@ -63,12 +112,48 @@ def rand_dets(rng, n, sorb, noa, nob):
     return out
 
 
+def row_errs(a, b):
+    """Per row: (|Δ log|ψ||, |e^{iφ_a} − e^{iφ_b}|)."""
+    a, b = a.reshape(-1, 2), b.reshape(-1, 2)
+    return ((a[:, 0] - b[:, 0]).abs(),
+            (torch.polar(torch.ones_like(a[:, 1]), a[:, 1])
+             - torch.polar(torch.ones_like(b[:, 1]), b[:, 1])).abs())
+
+
 def phase_err(a, b):
     """(max |Δ log|ψ||, max |e^{iφ_a} − e^{iφ_b}|)."""
-    da = (a[:, 0] - b[:, 0]).abs().max().item()
-    dp = (torch.polar(torch.ones_like(a[:, 1]), a[:, 1])
-          - torch.polar(torch.ones_like(b[:, 1]), b[:, 1])).abs().max().item()
-    return da, dp
+    da, dp = row_errs(a, b)
+    return da.max().item(), dp.max().item()
+
+
+MED_TOL = 1e-4  # the median row's |Δlog|ψ|| and phase distance
+
+
+def hold_rows(k, p, q, tol):
+    """Hold a kernel's rows ``k`` [N, 2] against the plain version's ``p``
+    at ``tol`` = (log|ψ| tol, phase tol); ``q`` is the plain version
+    with f64 sums, which shows how far summation order alone moves each
+    row.  Returns (ok, what was held, stats).
+
+    Every row is held at the log|ψ| tolerance, and the median row at
+    ``MED_TOL`` in both: summation order alone moves it by f32 ulps, a
+    left-out bf16 rounding point by about a bf16 ulp.  Where ``q`` stays
+    within the phase tolerance, every row is held there too.  Where it
+    does not, the arg-mode phase of some rows is ill-conditioned (a
+    product of unit complex numbers ẑ/|ẑ| with some |ẑ| near 0), any
+    two summation orders can differ by up to 2 on such a row, and at
+    most 1 row in 1000 may differ by more than the phase tolerance."""
+    ta, tp = tol
+    da, dp = row_errs(k, p)
+    dq = row_errs(q, p)[1]
+    st = {"max_a": da.max().item(), "max_p": dp.max().item(), "med_a": da.median().item(),
+          "med_p": dp.median().item(), "q_max_p": dq.max().item(),
+          "q_over": int((dq > tp).sum()), "over": int((dp > tp).sum())}
+    ok = (bool(torch.isfinite(k).all()) and st["max_a"] <= ta
+          and st["med_a"] <= MED_TOL and st["med_p"] <= MED_TOL)
+    if st["q_max_p"] <= tp:
+        return ok and st["max_p"] <= tp, "every row", st
+    return ok and st["over"] <= k.shape[0] // 1000, "ill-conditioned", st
 
 
 def ptxas_report(text):
@@ -92,14 +177,14 @@ def ptxas_report(text):
     return out
 
 
-def cuda_ms(fn, reps):
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
+def build(fused_rnn):
+    """Build the kernels; return a function (d, mp, dcut_cmpr) -> the
+    dynamic shared memory of one launch in bytes."""
+    lib_path = fused_rnn.build_kernel()
+    smem = ctypes.CDLL(lib_path).fused_rnn_smem_bytes
+    smem.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int]
+    smem.restype = ctypes.c_longlong
+    return smem
 
 
 def main():
@@ -111,23 +196,25 @@ def main():
     from pynqs_tpu_torch.grad.energy_grad import energy_and_grad
     from pynqs_tpu_torch.models.graph_mps_rnn import GraphMPSRNN, grid_snake_graph
     from pynqs_tpu_torch.ops import fused_rnn
+    from pynqs_tpu_torch.ops import fused_rnn_prefix as pre
     from pynqs_tpu_torch.ops.cplx import ratio_re_im
     from pynqs_tpu_torch.ops.hamiltonian import comb_hij
     from pynqs_tpu_torch.ops.integrals import triangle_size
     from pynqs_tpu_torch.optim.vmc import VMC, VMCConfig
     from pynqs_tpu_torch.sampler.ar import ar_sampling_dfs, compact_by_count
     from pynqs_tpu_torch.sampler.ar_sampler import ARSampler
-    from pynqs_tpu_torch.utils.checkpoint import load_params
+    from pynqs_tpu_torch.utils.flagship import flagship_model, load_flagship_params
     from pynqs_tpu_torch.utils.system import System
 
-    dev = torch.device("cuda")
+    dev = torch.device(DEV)
     here = os.path.dirname(os.path.abspath(__file__))
+    bf16, f32 = torch.bfloat16, torch.float32
+
+    def mmname(mm):
+        return str(mm).split(".")[-1]
 
     # ---- 1. environment ----
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True,
-    ).stdout.strip().splitlines()[0]
+    smi = gpu_info()
     try:
         nvcc = subprocess.run([fused_rnn._nvcc(), "--version"], capture_output=True,
                               text=True).stdout.strip().splitlines()[-1]
@@ -145,57 +232,15 @@ def main():
 
     # ---- 2. build ----
     t0 = time.perf_counter()
-    lib_path = fused_rnn.build_kernel()
-    log(2, f"built csrc/fused_rnn.cu for sm_90a in {time.perf_counter() - t0:.2f} s")
+    smem = build(fused_rnn)
+    log(2, f"built csrc/fused_rnn.cu (fused forward, prefix parent and child) for sm_90a "
+           f"in {time.perf_counter() - t0:.2f} s")
     for ln in ptxas_report(fused_rnn.BUILD_INFO.get("ptxas", "")):
         log(2, f"  ptxas: {ln}")
-    smem = ctypes.CDLL(lib_path).fused_rnn_smem_bytes
-    smem.argtypes, smem.restype = [ctypes.c_int, ctypes.c_int], ctypes.c_longlong
-    log(2, f"  dynamic shared memory per CTA: {smem(DCUT, 1)} B at dcut {DCUT} (chain), "
-           f"{smem(16, 2)} B at dcut 16 with 2 predecessors")
-
-    # ---- 3. kernel vs plain version on the card ----
-    params = load_params(os.path.join(here, "checkpoints", "fe2s2_dcut48_final.pkl"))
-    model = GraphMPSRNN(SORB, NOA, NOB, dcut=DCUT, phase_mode="arg", norm_mode="mpsrnn",
-                        dtype=torch.float32, device=dev).load_numpy_params(params)
-    rng = np.random.default_rng(0)
-    rows = torch.as_tensor(rand_dets(rng, 65536, SORB, NOA, NOB), device=dev)
-    # f32: the two versions differ only in summation order (a few ulps
-    # per site, 20 sites).  bf16: both round W and h to bf16, but an
-    # f32 difference of one ulp can move h across a bf16 rounding
-    # boundary (a 2^-8 relative step) and such steps compound over the
-    # sites, most on random rows of small amplitude
-    tol = {torch.float32: (1e-4, 1e-3), torch.bfloat16: (1e-1, 1e-1)}
-
-    def compare(name, m, x, mm):
-        k = fused_rnn.graph_mpsrnn_logpsi_fused(m, x, matmul_dtype=mm)
-        p = fused_rnn.graph_mpsrnn_logpsi_fused_plain(m, x, matmul_dtype=mm)
-        torch.cuda.synchronize()
-        check(bool(torch.isfinite(k).all()), f"{name}: non-finite kernel output")
-        da, dp = phase_err(k, p)
-        ta, tp = tol[mm]
-        log(3, f"{name} {str(mm).split('.')[-1]} rows {x.shape[0]}: max|Δlog|ψ|| {da:.3e} "
-               f"(tol {ta:g}), max phase distance {dp:.3e} (tol {tp:g})")
-        check(da <= ta and dp <= tp, f"{name}: kernel disagrees with its plain version")
-
-    for mm in (torch.float32, torch.bfloat16):
-        compare("fe2s2 dcut48 chain arg/mpsrnn", model, rows, mm)
-    ref = model.log_psi(rows[:4096]).detach()
-    da, dp = phase_err(fused_rnn.graph_mpsrnn_logpsi_fused(
-        model, rows[:4096], matmul_dtype=torch.float32), ref)
-    log(3, f"f32 kernel vs model.log_psi on 4096 rows: max|Δlog|ψ|| {da:.3e}, "
-           f"max phase distance {dp:.3e} (tol 1e-4 / 1e-3)")
-    check(da <= 1e-4 and dp <= 1e-3, "kernel disagrees with model.log_psi")
-    g = torch.Generator().manual_seed(1)
-    dag = GraphMPSRNN(SORB, NOA, NOB, dcut=16, graph=grid_snake_graph(4, 5),
-                      phase_mode="arg", norm_mode="mpsrnn", dtype=torch.float32,
-                      device=dev, generator=g)
-    for mm in (torch.float32, torch.bfloat16):
-        compare("dag grid 4x5 dcut16", dag, rows[:8192], mm)
-    lin = GraphMPSRNN(SORB, NOA, NOB, dcut=DCUT, phase_mode="linear", norm_mode="unit",
-                      dtype=torch.float32, device=dev, generator=g)
-    for mm in (torch.float32, torch.bfloat16):
-        compare("chain dcut48 linear/unit", lin, rows[:8192], mm)
+    log(2, f"  dynamic shared memory per CTA: {smem(DCUT, 1, 0)} B at dcut {DCUT} (chain; "
+           f"the prefix passes too), {smem(DCUT_R5, MAXP_R5, DCMP_R5)} B at the r5g64 shape "
+           f"(dcut {DCUT_R5}, {MAXP_R5} predecessors, dcut_cmpr {DCMP_R5}; limit 232,448 B), "
+           f"{smem(16, 2, 0)} B at dcut 16 with 2 predecessors")
 
     # ---- system: bench.py's stand-in for the absent Fe2S2 integrals ----
     irng = np.random.default_rng(0)
@@ -205,106 +250,270 @@ def main():
     system = System.from_integrals(h1e, h2e, SORB, NOA, NOB)
     tabs = system.tables(dev, torch.float32)
     table = system.excitation
+    ops = tabs.astuple()
+
+    # ---- 3. kernel vs plain version on the card ----
+    ck48 = os.path.join(here, "checkpoints", "fe2s2_dcut48_final.pkl")
+    params = load_flagship_params(ck48)
+
+    def chain48():
+        return GraphMPSRNN(SORB, NOA, NOB, dcut=DCUT, phase_mode="arg", norm_mode="mpsrnn",
+                           dtype=torch.float32, device=dev).load_numpy_params(params)
+
+    model = chain48()
+    rng = np.random.default_rng(0)
+    rows = torch.as_tensor(rand_dets(rng, N_CMP, SORB, NOA, NOB), device=dev)
+    # f32: the two versions differ only in summation order (a few ulps
+    # per site, 20 sites).  bf16: both round W and h to bf16, but an
+    # f32 difference of one ulp can move h across a bf16 rounding
+    # boundary (a 2^-8 relative step) and such steps compound over the
+    # sites, most on random rows of small amplitude
+    tol = {torch.float32: (1e-4, 1e-3), torch.bfloat16: (1e-1, 1e-1)}
+
+    def agree(phase, name, m, x, mm, k, p, tables=None):
+        """``hold_rows`` of the kernel's rows ``k`` against the plain
+        version's ``p``; returns max|Δlog|ψ||."""
+        ta, tp = tol[mm]
+        T = fused_rnn.pack_tables(m) if tables is None else tables
+        q = fused_rnn.graph_mpsrnn_logpsi_fused_plain(
+            m, x, matmul_dtype=mm, tables={key: v.double() for key, v in T.items()})
+        ok, held, st = hold_rows(k, p, q, tol[mm])
+        del q
+        msg = (f"{name} {mmname(mm)} rows {x.shape[0]}: max|Δlog|ψ|| {st['max_a']:.3e} "
+               f"(tol {ta:g}), max phase distance {st['max_p']:.3e}, median row "
+               f"{st['med_a']:.3e} / {st['med_p']:.3e} (tol {MED_TOL:g}); plain with f64 sums "
+               f"vs plain: max phase distance {st['q_max_p']:.3e}")
+        if held == "every row":
+            msg += f"; every row held at {tp:g} in phase"
+        else:
+            msg += (f", {st['q_over']} rows over {tp:g}: ill-conditioned phases; kernel rows "
+                    f"over {tp:g} {st['over']} (at most {x.shape[0] // 1000})")
+        log(phase, msg)
+        check(ok, f"{name}: kernel disagrees with its plain version")
+        return st["max_a"]
+
+    def compare(name, m, x, mm):
+        k = fused_rnn.graph_mpsrnn_logpsi_fused(m, x, matmul_dtype=mm)
+        p = fused_rnn.graph_mpsrnn_logpsi_fused_plain(m, x, matmul_dtype=mm)
+        sync()
+        agree(3, name, m, x, mm, k, p)
+
+    def compare_log_psi(name, m, x):
+        ref = m.log_psi(x).detach()
+        da, dp = phase_err(fused_rnn.graph_mpsrnn_logpsi_fused(m, x, matmul_dtype=f32), ref)
+        log(3, f"{name}: f32 kernel vs model.log_psi on {x.shape[0]} rows: max|Δlog|ψ|| "
+               f"{da:.3e}, max phase distance {dp:.3e} (tol 1e-4 / 1e-3)")
+        check(da <= 1e-4 and dp <= 1e-3, f"{name}: kernel disagrees with model.log_psi")
+
+    for mm in (f32, bf16):
+        compare("fe2s2 dcut48 chain arg/mpsrnn", model, rows, mm)
+    compare_log_psi("fe2s2 dcut48 chain", model, rows[:N_REF])
+    g = torch.Generator().manual_seed(1)
+    dag = GraphMPSRNN(SORB, NOA, NOB, dcut=16, graph=grid_snake_graph(4, 5),
+                      phase_mode="arg", norm_mode="mpsrnn", dtype=torch.float32,
+                      device=dev, generator=g)
+    for mm in (f32, bf16):
+        compare("dag grid 4x5 dcut16", dag, rows[:8192], mm)
+    lin = GraphMPSRNN(SORB, NOA, NOB, dcut=DCUT, phase_mode="linear", norm_mode="unit",
+                      dtype=torch.float32, device=dev, generator=g)
+    for mm in (f32, bf16):
+        compare("chain dcut48 linear/unit", lin, rows[:8192], mm)
+
+    ck_r5 = os.path.join(here, "checkpoints", "fe2s2_r3_dcut64_r5g64.pkl")
+    params_r5 = load_flagship_params(ck_r5)
+
+    def r5g64():
+        return flagship_model(system, DCUT_R5, use_tensor=True, max_preds=MAXP_R5,
+                              device=dev).load_numpy_params(params_r5)
+
+    r5 = r5g64()
+    n_tensor = sum(len(p) >= 2 for p in r5.preds)
+    log(3, f"r5g64: the trained graph came from the Fe2S2 exchange matrix, which is not in "
+           f"the repository; the model is built on the stand-in integrals' graph "
+           f"({n_tensor} of {r5.norb} sites with 2 predecessors), and the checkpoint's "
+           f"weights load on it because their shapes depend only on the 2 predecessors")
+    # with the r5g64 weights on the stand-in graph, the arg-mode phase of
+    # some random rows is ill-conditioned (``agree`` shows it and holds
+    # the rows accordingly)
+    for mm in (f32, bf16):
+        compare("r5g64 dcut64 tensor", r5, rows, mm)
+    compare_log_psi("r5g64 dcut64 tensor", r5, rows[:N_REF])
 
     # ---- 4. local-energy identity ----
     gen = torch.Generator(device=dev).manual_seed(2)
     sbits, counts, _ = ar_sampling_dfs(model, 1_000_000, capacity=4096, n_group=4,
                                        split_depth=6, capacity_root=4096, generator=gen)
-    sbits, _ = compact_by_count(sbits, counts, 64)
-    f32fwd = lambda b: fused_rnn.graph_mpsrnn_logpsi_fused(model, b, matmul_dtype=torch.float32)  # noqa: E731
-    e_simple = local_energy_simple(f32fwd, sbits, tabs.astuple(), table,
-                                   hpair_sect=tabs.hpair_sect)
-    e_reduce = local_energy_reduce(f32fwd, sbits, tabs.astuple(), table, gen,
+    sbits, _ = compact_by_count(sbits, counts, N_ID)
+    f32fwd = lambda b: fused_rnn.graph_mpsrnn_logpsi_fused(model, b, matmul_dtype=f32)  # noqa: E731
+    e_simple = local_energy_simple(f32fwd, sbits, ops, table, hpair_sect=tabs.hpair_sect)
+    e_reduce = local_energy_reduce(f32fwd, sbits, ops, table, gen,
                                    k_det=table.n_sd, n_stoch=N_STOCH,
                                    hpair_sect=tabs.hpair_sect)
-    torch.cuda.synchronize()
+    sync()
+
+    def hr_scale(m, x):
+        """Σ_m |h_nm| |ψ(m)/ψ(n)| per row over the whole connected space
+        (f32 forward): the size of the terms an E_loc sums."""
+        comb, hij = comb_hij(x, *ops, tabs.hpair_sect, table=table)
+        lp = fused_rnn.graph_mpsrnn_logpsi_fused(
+            m, comb.reshape(-1, SORB), matmul_dtype=f32).reshape(comb.shape[0], comb.shape[1], 2)
+        rr, ri = ratio_re_im(lp, lp[:, :1])
+        return (hij.abs() * torch.sqrt(rr**2 + ri**2)).sum(-1)
+
     # tolerance: f32 sums of 1 + n_sd terms in two orders differ by a
     # few ulps of Σ|h r|; allow 1e-4 · Σ|h r| per row
-    comb, hij = comb_hij(sbits, *tabs.astuple(), tabs.hpair_sect, table=table)
-    lp = f32fwd(comb.reshape(-1, SORB)).reshape(comb.shape[0], comb.shape[1], 2)
-    rr, ri = ratio_re_im(lp, lp[:, :1])
-    scale = (hij.abs() * torch.sqrt(rr**2 + ri**2)).sum(-1)
+    scale = hr_scale(model, sbits)
     diff = (e_simple - e_reduce).abs().max(-1).values
     check(bool(torch.isfinite(e_simple).all()), "non-finite SIMPLE energies")
-    log(4, f"REDUCE(k_det=n_sd={table.n_sd}) vs SIMPLE on 64 sampled rows: "
+    log(4, f"REDUCE(k_det=n_sd={table.n_sd}) vs SIMPLE on {N_ID} sampled rows: "
            f"max|Δ| {diff.max().item():.3e}, max |Δ|/Σ|h r| "
            f"{(diff / scale).max().item():.3e} (tol 1e-4)")
     check(bool((diff <= 1e-4 * scale).all()), "REDUCE(k_det=n_sd) != SIMPLE")
 
-    # ---- 5. three VMC steps, flagship configuration ----
+    # ---- the flagship step configuration (phases 5, 7 and 8) ----
     sampler = ARSampler(SORB, NOA, NOB, n_sample=1_000_000, capacity=4096,
                         dfs_n_group=4, dfs_split_depth=6, dfs_capacity_root=4096,
                         max_unique=B)
-    vmc = VMC(model, system, sampler, VMCConfig(
-        lr=1e-4, eloc_method="reduce", eloc_k_det=K_DET, eloc_n_stoch=N_STOCH,
-        eloc_topk="segmax", clip_grad=1.0))
-    gen = torch.Generator(device=dev).manual_seed(4)
-    fbits, fw, _ = sampler.sample(model, gen)
-    e_mm = {}
-    # the rows one step's eloc forward hands the kernel, drawn from the
-    # checkpoint's state before any training step, so that they are the
-    # same in every run (phase 6 uses them)
-    step_rows = []
 
-    for mm in (torch.bfloat16, torch.float32):
-        gen_e = torch.Generator(device=dev).manual_seed(5)  # same tail draws
+    def config(**kw):
+        return VMCConfig(lr=1e-4, eloc_method="reduce", eloc_k_det=K_DET,
+                         eloc_n_stoch=N_STOCH, eloc_topk="segmax", clip_grad=1.0, **kw)
 
-        def fwd(b, mm=mm):
-            step_rows.append(b)
-            return fused_rnn.graph_mpsrnn_logpsi_fused(model, b, matmul_dtype=mm)
+    def reduce(fwd, bits, g, **kw):
+        return local_energy_reduce(fwd, bits, ops, table, g, k_det=K_DET, n_stoch=N_STOCH,
+                                   hpair_sect=tabs.hpair_sect, topk="segmax", **kw)
 
-        el = local_energy_reduce(fwd, fbits, tabs.astuple(), table, gen_e, k_det=K_DET,
-                                 n_stoch=N_STOCH, hpair_sect=tabs.hpair_sect, topk="segmax")
-        e_mm[mm] = (fw @ el[:, 0].to(fw.dtype)).item()
-    log(5, f"mean E_loc on one fixed batch: bf16 kernel {e_mm[torch.bfloat16]:.6f}, "
-           f"f32 kernel {e_mm[torch.float32]:.6f}, difference "
-           f"{(e_mm[torch.bfloat16] - e_mm[torch.float32]) * 1e3:+.4f} mHa")
-    torch.cuda.reset_peak_memory_stats()
-    gen = torch.Generator(device=dev).manual_seed(3)
-    steps = []
-    fused_rnn.LAUNCHES.reset()
+    def run_steps(phase, vmc, counters, seed):
+        """STEPS training steps from a fresh launch count; returns the
+        per-step infos with the counts after each step."""
+        steps = []
+        for c in counters.values():
+            c.reset()
 
-    def cb(it, info):
-        torch.cuda.synchronize()
-        info["launches"] = fused_rnn.LAUNCHES.n
-        info["iter_time"] = time.perf_counter() - cb.t0
-        steps.append(info)
-        log(5, f"step {it}: E {info['energy_total']:.6f} w_sum {info['w_sum']:.6f} "
-               f"dropped_frac {info['dropped_frac']:.3e} n_unique {info['n_unique']:.0f} "
-               f"wall {info['iter_time']:.3f} s kernel launches so far {info['launches']}")
+        def cb(it, info):
+            sync()
+            info["iter_time"] = time.perf_counter() - cb.t0
+            info["launches"] = {k: c.n for k, c in counters.items()}
+            steps.append(info)
+            log(phase, f"step {it}: E {info['energy_total']:.6f} w_sum {info['w_sum']:.6f} "
+                       f"dropped_frac {info['dropped_frac']:.3e} n_unique "
+                       f"{info['n_unique']:.0f} wall {info['iter_time']:.3f} s launches so "
+                       f"far {info['launches']}")
+            cb.t0 = time.perf_counter()
+
         cb.t0 = time.perf_counter()
-
-    cb.t0 = time.perf_counter()
-    vmc.run(gen, 3, callback=cb)
-    launches = fused_rnn.LAUNCHES.n
-    check(launches > 0, "the VMC steps never launched the fused kernel")
-    check(all(np.isfinite(s["energy_total"]) and s["w_sum"] > 0 for s in steps),
-          "non-finite energy or dead sampler")
-    log(5, f"3 steps done: kernel launches {launches}; max_memory_allocated "
-           f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+        vmc.run(torch.Generator(device=dev).manual_seed(seed), STEPS, callback=cb)
+        check(all(np.isfinite(s["energy_total"]) and abs(s["w_sum"] - 1.0) <= 1e-5
+                  for s in steps), "non-finite energy or w_sum != 1")
+        return steps
 
     def timed(fn):
-        torch.cuda.synchronize()
+        sync()
         t = time.perf_counter()
         out = fn()
-        torch.cuda.synchronize()
+        sync()
         return out, (time.perf_counter() - t) * 1e3
 
-    # where one step's time goes: its stages once more, each synchronized
-    (sb, sw, _), t_sample = timed(lambda: sampler.sample(model, gen))
-    bf16fwd = lambda b: fused_rnn.graph_mpsrnn_logpsi_fused(model, b, matmul_dtype=torch.bfloat16)  # noqa: E731
-    el, t_eloc = timed(lambda: local_energy_reduce(
-        bf16fwd, sb, tabs.astuple(), table, gen, k_det=K_DET, n_stoch=N_STOCH,
-        hpair_sect=tabs.hpair_sect, topk="segmax"))
-    _, t_grad = timed(lambda: energy_and_grad(model, sb, sw, el))
-    log(5, f"one step's stages (host clock): sample {t_sample:.1f} ms, eloc {t_eloc:.1f} ms "
-           f"(the fused kernel inside), gradient {t_grad:.1f} ms")
+    def stage_times(phase, m, fwd_kw):
+        """One step's stages once more, each synchronized (host clock)."""
+        g = torch.Generator(device=dev).manual_seed(8)
+        (sb, sw, _), t_sample = timed(lambda: sampler.sample(m, g))
+        el, t_eloc = timed(lambda: reduce(**fwd_kw(m), bits=sb, g=g))
+        _, t_grad = timed(lambda: energy_and_grad(m, sb, sw, el))
+        log(phase, f"one step's stages (host clock): sample {t_sample:.1f} ms, eloc "
+                   f"{t_eloc:.1f} ms, gradient {t_grad:.1f} ms")
+
+    def flat_fwd(m, mm=bf16):
+        return {"fwd": lambda b: fused_rnn.graph_mpsrnn_logpsi_fused(m, b, matmul_dtype=mm)}
+
+    def flop_per_site(d, npred, dc=0):
+        """FLOP of one row at one site with npred predecessors: the
+        complex transition of 4 values ([2·npred·d] x [4·2d], 2 FLOP per
+        FMA), the tensor coupling at ≥ 2 predecessors (U·h for every
+        (pred, value, c) as 8 FLOP per complex multiply-add, the product
+        over the predecessors, K·Π into 4·2d outputs), the bias, square
+        and η-weighted sums of 4·2d values and the phase readout."""
+        O = 2 * d
+        fl = 2 * 4 * O * (2 * npred * d) + 3 * 4 * O + 4 * O
+        if dc and npred >= 2:
+            fl += 4 * dc * npred * d * 8 + 6 * (npred - 1) * 4 * dc + 4 * O * dc * 4
+        return fl
+
+    peak = {bf16: H100_BF16_FLOPS, f32: H100_F32_FLOPS}
+
+    def bound(flop, nbytes, mm):
+        op_ms, byte_ms = flop / peak[mm] * 1e3, nbytes / H100_BYTES * 1e3
+        return max(op_ms, byte_ms), ("operations" if op_ms >= byte_ms else "bytes")
+
+    def table_bytes(tables, mm):
+        """Each table read once; W in the matmul type."""
+        n = sum(t.numel() for t in tables.values()) * 4
+        return n - (tables["W"].numel() * 2 if mm == bf16 else 0)
+
+    def alternate(plain, kern, kreps, preps=2):
+        """CUDA-event ms of plain, kernel, kernel, plain: (kernel, plain)."""
+        p1 = cuda_ms(plain, preps)
+        k1 = cuda_ms(kern, kreps)
+        k2 = cuda_ms(kern, kreps)
+        p2 = cuda_ms(plain, preps)
+        return (k1 + k2) / 2, (p1 + p2) / 2
+
+    def capture_rows(m, seed_s, seed_e, mm=bf16):
+        """The rows one step's eloc forward hands the kernel, drawn from
+        the state before any training step, so that they are the same in
+        every run."""
+        seen = []
+        g = torch.Generator(device=dev).manual_seed(seed_s)
+        fb, fw, _ = sampler.sample(m, g)
+
+        def fwd(b):
+            seen.append(b)
+            return fused_rnn.graph_mpsrnn_logpsi_fused(m, b, matmul_dtype=mm)
+
+        el = reduce(fwd, fb, torch.Generator(device=dev).manual_seed(seed_e))
+        return seen[0], fb, fw, el
+
+    def time_flat(phase, name, m, trows, kreps):
+        """Agreement with the plain version (as ``compare``) and CUDA-event
+        times, both modes, on one step's rows: {mm: (kernel ms, plain ms,
+        max|Δlog|ψ||)}."""
+        tables = fused_rnn.pack_tables(m)
+        res = {}
+        for mm in (bf16, f32):
+            kern = lambda mm=mm: fused_rnn.graph_mpsrnn_logpsi_fused(m, trows, matmul_dtype=mm, tables=tables)  # noqa: E731
+            plain = lambda mm=mm: fused_rnn.graph_mpsrnn_logpsi_fused_plain(m, trows, matmul_dtype=mm, tables=tables)  # noqa: E731
+            k_out, p_out = kern(), plain()
+            sync()
+            err = agree(phase, f"{name} step rows", m, trows, mm, k_out, p_out, tables)
+            del k_out, p_out
+            res[mm] = alternate(plain, kern, kreps) + (err,)
+        return res, tables
+
+    # ---- 5. three VMC steps, flagship configuration ----
+    trows, fbits, fw, _ = capture_rows(model, 4, 5)  # phase 6 uses them
+    e_mm = {}
+    for mm in (bf16, f32):
+        el = reduce(**flat_fwd(model, mm), bits=fbits,
+                    g=torch.Generator(device=dev).manual_seed(5))  # same tail draws
+        e_mm[mm] = (fw @ el[:, 0].to(fw.dtype)).item()
+    log(5, f"mean E_loc on one fixed batch: bf16 kernel {e_mm[bf16]:.6f}, "
+           f"f32 kernel {e_mm[f32]:.6f}, difference "
+           f"{(e_mm[bf16] - e_mm[f32]) * 1e3:+.4f} mHa")
+    reset_peak()
+    vmc = VMC(model, system, sampler, config())
+    steps = run_steps(5, vmc, {"flat": fused_rnn.LAUNCHES}, 3)
+    launches = fused_rnn.LAUNCHES.n
+    check(launches > 0, "the VMC steps never launched the fused kernel")
+    log(5, f"{STEPS} steps done: kernel launches {launches}; max_memory_allocated "
+           f"{peak_gib():.3f} GiB")
+    stage_times(5, model, flat_fwd)
     # two more steps, the second under the profiler: the device time of
     # a step by kernel, and its share of an unprofiled step's wall time
     # (the profiler slows the host side, not the kernels)
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    gen = torch.Generator(device=dev).manual_seed(3)
     _, t_step = timed(lambda: vmc.step(gen, 1.0))
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         _, t_prof = timed(lambda: vmc.step(gen, 1.0))
@@ -318,62 +527,227 @@ def main():
         log(5, f"  {e.self_device_time_total / 1e3:8.2f} ms x{e.count:<5d} {e.key[:70]}")
 
     # ---- 6. the kernel on one step's rows: agreement and timing ----
-    trows = step_rows[0]
     n_rows = trows.shape[0]
     check(n_rows == B * (1 + K_DET + N_STOCH), f"one eloc forward of {n_rows} rows")
-    tables = fused_rnn.pack_tables(model)
-    times, errs = {}, {}
-    for mm in (torch.bfloat16, torch.float32):
-        kern = lambda mm=mm: fused_rnn.graph_mpsrnn_logpsi_fused(model, trows, matmul_dtype=mm, tables=tables)  # noqa: E731
-        plain = lambda mm=mm: fused_rnn.graph_mpsrnn_logpsi_fused_plain(model, trows, matmul_dtype=mm, tables=tables)  # noqa: E731
-        k_out, p_out = kern(), plain()
-        torch.cuda.synchronize()
-        da, dp = phase_err(k_out, p_out)
-        ta, tp = tol[mm]
-        log(6, f"step rows {str(mm).split('.')[-1]} rows {n_rows}: max|Δlog|ψ|| {da:.3e} "
-               f"(tol {ta:g}), max phase distance {dp:.3e} (tol {tp:g})")
-        check(bool(torch.isfinite(k_out).all()) and da <= ta and dp <= tp,
-              "kernel disagrees with its plain version on the step's rows")
-        errs[mm] = da
-        # alternate plain, kernel, kernel, plain
-        p1 = cuda_ms(plain, 2)
-        k1 = cuda_ms(kern, 5)
-        k2 = cuda_ms(kern, 5)
-        p2 = cuda_ms(plain, 2)
-        times[mm] = ((k1 + k2) / 2, (p1 + p2) / 2)
+    t6, tables = time_flat(6, "chain dcut48", model, trows, 5)
     norb = SORB // 2
-    K, O = 2 * DCUT, 2 * DCUT
-    # per row and site: 4 values x [K] x [O] products (2 FLOP each), the
-    # bias, square and eta-weighted sums of 4 x [O], and the readout
-    flop = n_rows * norb * (2 * 4 * O * K + 3 * 4 * O + 4 * O)
-    # bits in, (log|ψ|, arg ψ) out, each table read once
-    table_bytes = sum(t.numel() for t in tables.values()) * 4
-    nbytes = {
-        mm: n_rows * SORB + n_rows * 2 * 4 + table_bytes
-        - (tables["W"].numel() * 2 if mm == torch.bfloat16 else 0)
-        for mm in times
-    }
-    peak = {torch.bfloat16: H100_BF16_FLOPS, torch.float32: H100_F32_FLOPS}
-    op_ms = {mm: flop / peak[mm] * 1e3 for mm in times}
-    byte_ms = {mm: nbytes[mm] / H100_BYTES * 1e3 for mm in times}
-    bound = {mm: max(op_ms[mm], byte_ms[mm]) for mm in times}
-    for mm, (k, p) in times.items():
-        log(6, f"fused forward {str(mm).split('.')[-1]} at {n_rows} rows: kernel {k:.3f} ms, "
-               f"plain {p:.3f} ms, bound {bound[mm]:.3f} ms ({flop / 1e12:.3f} TFLOP, "
-               f"{nbytes[mm] / 1e6:.1f} MB), {flop / k / 1e9:.2f} TFLOP/s; gpu {smi}")
-    summary = {"kernels": [{
-        "name": "fused_rnn_forward",
-        "route": "cuda",
-        "source": "pynqs_tpu_torch/csrc/fused_rnn.cu",
-        "replaces": "pynqs_tpu/ops/fused_rnn.py:197",
-        "launches": launches,
-        "max_abs_err": errs[torch.bfloat16],
-        "ms": times[torch.bfloat16][0],
-        "plain_ms": times[torch.bfloat16][1],
-        "bound_ms": bound[torch.bfloat16],
-        "bound_by": "operations" if op_ms[torch.bfloat16] >= byte_ms[torch.bfloat16] else "bytes",
-        "library_ms": None,
-    }]}
+    flop6 = n_rows * norb * flop_per_site(DCUT, 1)
+    nbytes6 = {mm: n_rows * SORB + n_rows * 2 * 4 + table_bytes(tables, mm) for mm in t6}
+    b6 = {mm: bound(flop6, nbytes6[mm], mm) for mm in t6}
+    for mm, (k, p, _) in t6.items():
+        log(6, f"fused forward {mmname(mm)} at {n_rows} rows: kernel {k:.3f} ms, "
+               f"plain {p:.3f} ms, bound {b6[mm][0]:.3f} ms ({flop6 / 1e12:.3f} TFLOP, "
+               f"{nbytes6[mm] / 1e6:.1f} MB), {flop6 / k / 1e9:.2f} TFLOP/s; gpu {smi}")
+    del trows
+
+    # ---- 7. the r5g64 structured flagship: three VMC steps ----
+    r5 = r5g64()
+    trows7, fbits7, fw7, el7 = capture_rows(r5, 6, 7)
+    log(7, f"r5g64 mean E_loc on one fixed batch (bf16 kernel, stand-in integrals): "
+           f"{(fw7 @ el7[:, 0].to(fw7.dtype)).item():.6f}")
+    reset_peak()
+    vmc7 = VMC(r5, system, sampler, config())
+    steps7 = run_steps(7, vmc7, {"flat": fused_rnn.LAUNCHES}, 9)
+    launches7 = fused_rnn.LAUNCHES.n
+    check(launches7 > 0, "the r5g64 steps never launched the fused kernel")
+    walls = ", ".join(f"{s['iter_time']:.3f}" for s in steps7)
+    log(7, f"{STEPS} r5g64 steps done: step walls {walls} s; kernel launches "
+           f"{launches7}; max_memory_allocated {peak_gib():.3f} GiB")
+    stage_times(7, r5, flat_fwd)
+    r5 = r5g64()
+    t7, tables7 = time_flat(7, "r5g64 tensor", r5, trows7, 3)
+    n7 = trows7.shape[0]
+    flop7 = n7 * sum(flop_per_site(DCUT_R5, len(p), DCMP_R5) for p in r5.preds)
+    nbytes7 = {mm: n7 * SORB + n7 * 2 * 4 + table_bytes(tables7, mm) for mm in t7}
+    b7 = {mm: bound(flop7, nbytes7[mm], mm) for mm in t7}
+    for mm, (k, p, _) in t7.items():
+        log(7, f"fused forward with tensor coupling {mmname(mm)} at {n7} rows: kernel "
+               f"{k:.3f} ms, plain {p:.3f} ms, bound {b7[mm][0]:.3f} ms "
+               f"({flop7 / 1e12:.3f} TFLOP, {nbytes7[mm] / 1e6:.1f} MB), "
+               f"{flop7 / k / 1e9:.2f} TFLOP/s; DAG hidden file "
+               f"{n7 * norb * 2 * DCUT_R5 * 4 / 1e9:.2f} GB; gpu {smi}")
+    del trows7
+
+    # ---- 8. the prefix-sharing path on the dcut-48 chain ----
+    model = chain48()
+
+    class Capture(pre.ReducePrefixForward):
+        """Keeps the inputs of each call."""
+
+        def __call__(self, parent_bits, child_bits, t_min):
+            self.seen = (parent_bits, child_bits, t_min)
+            return super().__call__(parent_bits, child_bits, t_min)
+
+    g8 = torch.Generator(device=dev).manual_seed(4)
+    fbits8, _, _ = sampler.sample(model, g8)
+    cap = Capture(model, matmul_dtype=bf16)
+    reduce(None, fbits8, torch.Generator(device=dev).manual_seed(5), prefix_fwd=cap)
+    par_bits, kids, t_min = cap.seen
+    Bp, C = t_min.shape
+    rows8 = torch.cat([par_bits.to(torch.int8), kids.reshape(-1, SORB)])
+    log(8, f"one step's prefix inputs: {Bp} parents x {C} children, t_min mean "
+           f"{t_min.float().mean().item():.3f}, {(t_min == 0).sum().item()} at 0, "
+           f"{(t_min >= norb).sum().item()} at norb")
+    err8 = {}
+    for mm in (f32, bf16):
+        kp, kc = pre.graph_mpsrnn_logpsi_fused_prefix(model, par_bits, kids, t_min,
+                                                      matmul_dtype=mm)
+        pp, pc = pre.graph_mpsrnn_logpsi_fused_prefix_plain(model, par_bits, kids, t_min,
+                                                            matmul_dtype=mm)
+        flat = fused_rnn.graph_mpsrnn_logpsi_fused(model, rows8, matmul_dtype=mm)
+        sync()
+        check(bool(torch.isfinite(kp).all() and torch.isfinite(kc).all()),
+              "non-finite prefix kernel output")
+        ta, tp = tol[mm]
+        e = {"parent vs plain": phase_err(kp, pp), "child vs plain": phase_err(kc, pc),
+             "parent vs flat kernel": phase_err(kp, flat[:Bp]),
+             "child vs flat kernel": phase_err(kc.reshape(-1, 2), flat[Bp:])}
+        for what, (da, dp) in e.items():
+            log(8, f"prefix {what} {mmname(mm)}: max|Δlog|ψ|| {da:.3e} (tol {ta:g}), "
+                   f"max phase distance {dp:.3e} (tol {tp:g})")
+            check(da <= ta and dp <= tp, f"prefix {what} disagrees")
+        err8[mm] = e
+        del kp, kc, pp, pc, flat
+
+    # REDUCE with and without prefix_fwd: the same generator seed draws
+    # the same tail, so only the forwards' rounding differs
+    sub = fbits8[:N_RED]
+    f32fwd = lambda b: fused_rnn.graph_mpsrnn_logpsi_fused(model, b, matmul_dtype=f32)  # noqa: E731
+    e_flat = reduce(f32fwd, sub, torch.Generator(device=dev).manual_seed(9))
+    e_pre = reduce(f32fwd, sub, torch.Generator(device=dev).manual_seed(9),
+                   prefix_fwd=pre.ReducePrefixForward(model, matmul_dtype=f32))
+    scale = hr_scale(model, sub)
+    diff = (e_flat - e_pre).abs().max(-1).values
+    log(8, f"REDUCE with vs without prefix_fwd (f32) on {sub.shape[0]} sampled rows: "
+           f"max|Δ| {diff.max().item():.3e}, max |Δ|/Σ|h r| "
+           f"{(diff / scale).max().item():.3e} (tol 1e-4)")
+    check(bool(torch.isfinite(e_pre).all() and (diff <= 1e-4 * scale).all()),
+          "REDUCE with prefix_fwd != REDUCE without it")
+
+    reset_peak()
+    vmc8 = VMC(chain48(), system, sampler, config(eloc_prefix=True))
+    counts8 = {"parent": pre.PARENT_LAUNCHES, "child": pre.CHILD_LAUNCHES,
+               "flat": fused_rnn.LAUNCHES}
+    steps8 = run_steps(8, vmc8, counts8, 3)
+    l8 = {k: c.n for k, c in counts8.items()}
+    check(l8["parent"] > 0 and l8["child"] > 0, "eloc_prefix steps never launched the "
+                                                "prefix kernels")
+    check(l8["flat"] == 0, "eloc_prefix steps launched the flat kernel")
+    walls = ", ".join(f"{s['iter_time']:.3f}" for s in steps8)
+    log(8, f"{STEPS} eloc_prefix steps done: step walls {walls} s; launches {l8}; "
+           f"max_memory_allocated {peak_gib():.3f} GiB")
+    stage_times(8, chain48(), lambda m: {
+        "fwd": None, "prefix_fwd": pre.ReducePrefixForward(m, matmul_dtype=bf16)})
+
+    # times on the same rows: parent and child passes, the whole prefix
+    # forward, the flat kernel; plain versions beside them
+    tables8 = fused_rnn.pack_tables(model)
+    kids_flat = kids.reshape(-1, SORB)
+    par_idx = torch.arange(Bp, device=dev).repeat_interleave(C)
+    t8 = {}
+    for mm in (bf16, f32):
+        kw = dict(matmul_dtype=mm, tables=tables8)
+        _, hh, sh = pre.prefix_parent(model, par_bits, **kw)
+        _, hh_p, sh_p = pre.prefix_parent_plain(model, par_bits, **kw)
+        sync()
+        dh = (hh - hh_p).abs().max().item()
+        ds = (sh[..., :6] - sh_p[..., :6]).abs().max().item()
+        log(8, f"parent histories {mmname(mm)}: max|Δh| {dh:.3e}, max|Δ state| {ds:.3e}")
+        t8[mm] = {
+            "parent": alternate(lambda: pre.prefix_parent_plain(model, par_bits, **kw),
+                                lambda: pre.prefix_parent(model, par_bits, **kw), 5),
+            "child": alternate(
+                lambda: pre.prefix_child_plain(model, kids_flat, par_idx, t_min.reshape(-1),
+                                               hh, sh, **kw),
+                lambda: pre.prefix_child(model, kids_flat, par_idx, t_min.reshape(-1),
+                                         hh, sh, **kw), 5),
+            "prefix forward": alternate(
+                lambda: pre.graph_mpsrnn_logpsi_fused_prefix_plain(
+                    model, par_bits, kids, t_min, **kw),
+                lambda: pre.graph_mpsrnn_logpsi_fused_prefix(model, par_bits, kids, t_min,
+                                                             **kw), 5),
+            "flat forward": alternate(
+                lambda: fused_rnn.graph_mpsrnn_logpsi_fused_plain(model, rows8, **kw),
+                lambda: fused_rnn.graph_mpsrnn_logpsi_fused(model, rows8, **kw), 5),
+        }
+        del hh, sh, hh_p, sh_p
+    # site-steps: what the data needs (each child from its own t_min)
+    # and what the kernel runs (each block of TR sorted rows from its
+    # smallest t_min)
+    s0 = torch.clamp(t_min.reshape(-1), 0, norb).sort().values
+    TR = 64 if 2 * DCUT <= 128 else 32
+    pad = (-s0.numel()) % TR
+    s0_tile = torch.nn.functional.pad(s0, (0, pad), value=norb).reshape(-1, TR).min(1).values
+    n_child = s0.numel()
+    need_child = (norb - s0).sum().item()
+    run_child = ((norb - s0_tile) * TR).sum().item() - pad * (norb - s0_tile[-1].item())
+    flat_steps = (Bp + n_child) * norb
+    log(8, f"site-steps: flat {flat_steps}; prefix needs {Bp * norb + need_child} "
+           f"(skips {1 - (Bp * norb + need_child) / flat_steps:.2%}), the child kernel's "
+           f"blocks of {TR} sorted rows run {Bp * norb + run_child} "
+           f"(skip {1 - (Bp * norb + run_child) / flat_steps:.2%})")
+    hist_bytes = Bp * norb * (2 * DCUT + pre.NSTATE) * 4
+    fl = flop_per_site(DCUT, 1)
+    b8 = {}
+    for mm in t8:
+        tb = table_bytes(tables8, mm)
+        b8[mm] = {
+            "parent": bound(Bp * norb * fl, Bp * SORB + Bp * 16 + hist_bytes + tb, mm),
+            "child": bound(need_child * fl, n_child * (SORB + 4 + 4 + 16) + hist_bytes + tb,
+                           mm),
+        }
+        b8[mm]["prefix forward"] = bound(
+            (Bp * norb + need_child) * fl,
+            (Bp + n_child) * (SORB + 8) + n_child * 4 + tb, mm)
+        b8[mm]["flat forward"] = bound(flat_steps * fl, (Bp + n_child) * (SORB + 8) + tb, mm)
+        for what, (k, p) in t8[mm].items():
+            log(8, f"{what} {mmname(mm)}: kernel {k:.3f} ms, plain {p:.3f} ms, bound "
+                   f"{b8[mm][what][0]:.3f} ms ({b8[mm][what][1]}); gpu {smi}")
+    log(8, f"prefix forward / flat forward, kernels: bf16 "
+           f"{t8[bf16]['prefix forward'][0] / t8[bf16]['flat forward'][0]:.3f}, f32 "
+           f"{t8[f32]['prefix forward'][0] / t8[f32]['flat forward'][0]:.3f}")
+
+    # ---- 9. the doubles pair selection's PyTorch yardstick ----
+    # kernels #4/#5 (pynqs_tpu/ops/pallas_hij.py) are not ported: one
+    # PyTorch gather at the flagship's shapes, W[b,u,v] = hpair[po[b,u], pv[b,v]]
+    npair, n_u, n_v = SORB * (SORB - 1) // 2, 435, 45
+    g9 = torch.Generator(device=dev).manual_seed(10)
+    hp = torch.randn(npair, npair, generator=g9, device=dev)
+    hp = hp + hp.T
+    po = torch.randint(0, npair, (B, n_u), generator=g9, device=dev)
+    pv = torch.randint(0, npair, (B, n_v), generator=g9, device=dev)
+    sel = lambda: hp[po[..., None], pv[:, None, :]]  # noqa: E731
+    w9 = sel()
+    sync()
+    check(bool((w9[3, 5, 7] == hp[po[3, 5], pv[3, 7]]).item()), "pair selection")
+    ms9 = cuda_ms(sel, 10)
+    out9 = B * n_u * n_v * 4
+    log(9, f"pair selection hpair[po[..., None], pv[:, None, :]] at [{B}, {n_u}, {n_v}] "
+           f"(P = {npair}): {ms9:.3f} ms; output {out9 / 1e6:.1f} MB, bound "
+           f"{(out9 + sum(t.numel() * t.element_size() for t in (po, pv, hp))) / H100_BYTES * 1e3:.3f}"
+           f" ms (bytes); gpu {smi}")
+    del w9
+
+    def entry(name, replaces, launches_n, err, times, bnd):
+        return {
+            "name": name, "route": "cuda", "source": "pynqs_tpu_torch/csrc/fused_rnn.cu",
+            "replaces": replaces, "launches": launches_n, "max_abs_err": err,
+            "ms": times[0], "plain_ms": times[1], "bound_ms": bnd[0], "bound_by": bnd[1],
+            "library_ms": None,
+        }
+
+    summary = {"kernels": [
+        entry("fused_rnn_forward", "pynqs_tpu/ops/fused_rnn.py:197", launches,
+              t6[bf16][2], t6[bf16], b6[bf16]),
+        entry("fused_rnn_forward_tensor", "pynqs_tpu/ops/fused_rnn.py:254", launches7,
+              t7[bf16][2], t7[bf16], b7[bf16]),
+        entry("fused_rnn_prefix_parent", "pynqs_tpu/ops/fused_rnn_prefix.py:226",
+              l8["parent"], err8[bf16]["parent vs plain"][0], t8[bf16]["parent"],
+              b8[bf16]["parent"]),
+        entry("fused_rnn_prefix_child", "pynqs_tpu/ops/fused_rnn_prefix.py:264",
+              l8["child"], err8[bf16]["child vs plain"][0], t8[bf16]["child"],
+              b8[bf16]["child"]),
+    ]}
     print(json.dumps(summary))
     print(f"gpu: {smi}")
     print(json.dumps({"ok": True, "device": {

@@ -80,6 +80,7 @@ def local_energy_reduce(
     batch: int | None = None,
     hpair_sect: tuple | None = None,
     topk: str = "exact",
+    prefix_fwd=None,
 ) -> torch.Tensor:
     """Semi-stochastic screened E_loc (reference ElocMethod.REDUCE).
 
@@ -89,6 +90,14 @@ def local_energy_reduce(
     n_stoch stratified draws ∝ |H_nm|:
         Σ_tail H r ≈ (S/n) Σ_s sign(H_s) r_s,   S = Σ_tail |H|.
     ψ forwards per sample: 1 + k_det + n_stoch.  bits [B, sorb] -> [B, 2].
+
+    ``prefix_fwd``: optional prefix-sharing forward
+    (``ops/fused_rnn_prefix.ReducePrefixForward``): ``(parent_bits [b, s],
+    child_bits [b, C, s], t_min [b, C]) -> (lp_parent [b, 2], lp_children
+    [b, C, 2])`` with a ``t_min_orbitals(orbs)`` method.  When set, the
+    deterministic and tail children go through it, each reusing its
+    sample's recurrence up to its first changed site; the children, the
+    tail draws and the generator's use are the same as without it.
     """
     if topk not in ("exact", "segmax"):
         raise ValueError(f"unknown topk {topk!r}")
@@ -128,8 +137,16 @@ def local_energy_reduce(
         st_orbs = torch.gather(orbs_all, 1, draw[..., None].expand(b, n_stoch, 4))
         st_bits = excite_bits(chunk, st_orbs, draw >= ns)
 
-        all_bits = torch.cat([chunk.to(torch.int8)[:, None, :], det_bits, st_bits], 1)
-        lp = log_psi_fn(all_bits.reshape(-1, sorb)).reshape(b, 1 + kd + n_stoch, 2)
+        if prefix_fwd is not None:
+            kids = torch.cat([det_bits, st_bits], 1)
+            t_min = torch.cat(
+                [prefix_fwd.t_min_orbitals(det_orbs), prefix_fwd.t_min_orbitals(st_orbs)], 1
+            )
+            lp_p, lp_c = prefix_fwd(chunk, kids, t_min)
+            lp = torch.cat([lp_p[:, None, :], lp_c], 1)
+        else:
+            all_bits = torch.cat([chunk.to(torch.int8)[:, None, :], det_bits, st_bits], 1)
+            lp = log_psi_fn(all_bits.reshape(-1, sorb)).reshape(b, 1 + kd + n_stoch, 2)
         r_re, r_im = cplx.ratio_re_im(lp, lp[:, :1])
         dt = r_re.dtype
         det_hr = det_h.to(dt)

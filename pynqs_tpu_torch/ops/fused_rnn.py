@@ -122,7 +122,7 @@ def pack_tables(model) -> dict:
 
 
 def _round(x, mmdt):
-    return x.to(torch.bfloat16).to(torch.float32) if mmdt == torch.bfloat16 else x
+    return x.to(torch.bfloat16).to(x.dtype) if mmdt == torch.bfloat16 else x
 
 
 def _finish(model, bits, out4):
@@ -137,14 +137,92 @@ def _finish(model, bits, out4):
     return torch.stack([out4[:, 0], phase], dim=-1)
 
 
+def init_state(n: int, dev, f=torch.float32) -> tuple:
+    """Per-row scalar state before the first site: (log_amp, Re Π, Im Π,
+    linear phase, α count, β count)."""
+    z = torch.zeros(n, dtype=f, device=dev)
+    return (z, torch.ones(n, dtype=f, device=dev), z, z,
+            torch.zeros(n, dtype=torch.long, device=dev),
+            torch.zeros(n, dtype=torch.long, device=dev))
+
+
+def plain_site(model, T, W, t: int, x, u, state, matmul_dtype):
+    """One site t of the plain forward for all rows.
+
+    x [N] the rows' values at site t; u [N, 2·mp·d] the transition
+    inputs (pred-major, re then im; the hidden itself for chains); W the
+    transition table already rounded to the matmul type; state as
+    ``init_state``.  Returns (h [N, 2d], state after site t)."""
+    norb, d = model.norb, model.dcut
+    log_amp, pr_re, pr_im, ph_lin, used_a, used_b = state
+    rows = torch.arange(x.shape[0], device=x.device)
+    u_mm = _round(u, matmul_dtype)
+    z = torch.einsum("nk,xko->nxo", u_mm, W[t]) + T["vcat"][t]  # [N, 4, 2d]
+    npred = len(model.preds[t])
+    if model.use_tensor and npred >= 2:
+        pr_c_re = pr_c_im = None
+        for j in range(npred):
+            hj = u_mm[:, j * 2 * d : (j + 1) * 2 * d]
+            Ur = _round(T["U_re"][t, j], matmul_dtype)  # [4, dc, d]
+            Ui = _round(T["U_im"][t, j], matmul_dtype)
+            h_re, h_im = hj[:, :d], hj[:, d:]
+            u_re = torch.einsum("xcd,nd->nxc", Ur, h_re) - torch.einsum("xcd,nd->nxc", Ui, h_im)
+            u_im = torch.einsum("xcd,nd->nxc", Ur, h_im) + torch.einsum("xcd,nd->nxc", Ui, h_re)
+            if pr_c_re is None:
+                pr_c_re, pr_c_im = u_re, u_im
+            else:
+                pr_c_re, pr_c_im = (
+                    pr_c_re * u_re - pr_c_im * u_im,
+                    pr_c_re * u_im + pr_c_im * u_re,
+                )
+        pr_c_re = _round(pr_c_re, matmul_dtype)
+        pr_c_im = _round(pr_c_im, matmul_dtype)
+        Kr = _round(T["K_re"][t], matmul_dtype)  # [4, d, dc]
+        Ki = _round(T["K_im"][t], matmul_dtype)
+        d_re = torch.einsum("xdc,nxc->nxd", Kr, pr_c_re) - torch.einsum("xdc,nxc->nxd", Ki, pr_c_im)
+        d_im = torch.einsum("xdc,nxc->nxd", Kr, pr_c_im) + torch.einsum("xdc,nxc->nxd", Ki, pr_c_re)
+        z = z + torch.cat([d_re, d_im], dim=-1)
+    zsq = z * z
+    sums = (zsq * T["E"][t]).sum(-1)  # [N, 4]
+    rem = norb - t - 1
+    occ_a = used_a + 1 <= model.noa
+    emp_a = model.noa - used_a <= rem
+    occ_b = used_b + 1 <= model.nob
+    emp_b = model.nob - used_b <= rem
+    m = torch.stack([emp_a & emp_b, occ_a & emp_b, emp_a & occ_b, occ_a & occ_b], -1)
+    lw = torch.where(m, torch.log(torch.clamp(sums, min=1e-30)), torch.full_like(sums, _NEG))
+    lse = torch.logsumexp(lw, dim=-1)
+    log_amp = log_amp + 0.5 * (lw[rows, x] - lse)
+    sel = z[rows, x]  # [N, 2d]
+    if model.norm_mode == "mpsrnn":
+        nrm = torch.rsqrt(torch.clamp(zsq.sum((-2, -1)) / (4 * d), min=1e-30))
+    else:
+        nrm = torch.rsqrt(torch.clamp((sel * sel).sum(-1), min=1e-30))
+    h = sel * nrm[:, None]
+    if model.phase_mode == "arg":
+        zr = h @ T["PW"][t, 0] + T["SC"][t, 0]
+        zi = h @ T["PW"][t, 1] + T["SC"][t, 1]
+        m2 = zr * zr + zi * zi
+        ok = m2 > 1e-30
+        mag = torch.rsqrt(torch.clamp(m2, min=1e-30))
+        fr = torch.where(ok, zr * mag, torch.ones_like(zr))
+        fi = torch.where(ok, zi * mag, torch.zeros_like(zi))
+        pr_re, pr_im = pr_re * fr - pr_im * fi, pr_re * fi + pr_im * fr
+    else:
+        ph_lin = ph_lin + (h * T["PW"][t][x]).sum(-1) + T["SC"][t][x]
+    return h, (log_amp, pr_re, pr_im, ph_lin, used_a + (x & 1), used_b + (x >> 1))
+
+
 @torch.no_grad()
 def graph_mpsrnn_logpsi_fused_plain(
     model, bits: torch.Tensor, *, matmul_dtype=torch.bfloat16, tables=None
 ) -> torch.Tensor:
     """The kernel's arithmetic in plain torch (rows on the leading axis).
-    bits [N, sorb] -> [N, 2]."""
+    bits [N, sorb] -> [N, 2], in the dtype of ``tables`` (f32 from
+    ``pack_tables``; f64 tables give the same rounding points with f64
+    sums)."""
     T = pack_tables(model) if tables is None else tables
-    f = torch.float32
+    f = T["W"].dtype
     norb, d, mp = model.norb, model.dcut, model.maxp
     N = bits.shape[0]
     dev = bits.device
@@ -152,16 +230,9 @@ def graph_mpsrnn_logpsi_fused_plain(
     W = _round(T["W"], matmul_dtype)
     hid = {}  # site id -> [N, 2d] normalized hidden
     h = torch.zeros(N, 2 * d, dtype=f, device=dev)
-    log_amp = torch.zeros(N, dtype=f, device=dev)
-    pr_re = torch.ones(N, dtype=f, device=dev)
-    pr_im = torch.zeros(N, dtype=f, device=dev)
-    ph_lin = torch.zeros(N, dtype=f, device=dev)
-    used_a = torch.zeros(N, dtype=torch.long, device=dev)
-    used_b = torch.zeros(N, dtype=torch.long, device=dev)
-    rows = torch.arange(N, device=dev)
+    state = init_state(N, dev, f)
     for t in range(norb):
         s = model.site_order[t]
-        x = vals[:, s]
         if model.is_chain:
             u = h
         else:
@@ -170,66 +241,10 @@ def graph_mpsrnn_logpsi_fused_plain(
                 torch.zeros(N, 2 * d, dtype=f, device=dev)
             ] * (mp - len(ps))
             u = torch.cat(parts, dim=-1)  # [N, 2·mp·d]
-        u_mm = _round(u, matmul_dtype)
-        z = torch.einsum("nk,xko->nxo", u_mm, W[t]) + T["vcat"][t]  # [N, 4, 2d]
-        npred = len(model.preds[t])
-        if model.use_tensor and npred >= 2:
-            pr_c_re = pr_c_im = None
-            for j in range(npred):
-                hj = u_mm[:, j * 2 * d : (j + 1) * 2 * d]
-                Ur = _round(T["U_re"][t, j], matmul_dtype)  # [4, dc, d]
-                Ui = _round(T["U_im"][t, j], matmul_dtype)
-                h_re, h_im = hj[:, :d], hj[:, d:]
-                u_re = torch.einsum("xcd,nd->nxc", Ur, h_re) - torch.einsum("xcd,nd->nxc", Ui, h_im)
-                u_im = torch.einsum("xcd,nd->nxc", Ur, h_im) + torch.einsum("xcd,nd->nxc", Ui, h_re)
-                if pr_c_re is None:
-                    pr_c_re, pr_c_im = u_re, u_im
-                else:
-                    pr_c_re, pr_c_im = (
-                        pr_c_re * u_re - pr_c_im * u_im,
-                        pr_c_re * u_im + pr_c_im * u_re,
-                    )
-            pr_c_re = _round(pr_c_re, matmul_dtype)
-            pr_c_im = _round(pr_c_im, matmul_dtype)
-            Kr = _round(T["K_re"][t], matmul_dtype)  # [4, d, dc]
-            Ki = _round(T["K_im"][t], matmul_dtype)
-            d_re = torch.einsum("xdc,nxc->nxd", Kr, pr_c_re) - torch.einsum("xdc,nxc->nxd", Ki, pr_c_im)
-            d_im = torch.einsum("xdc,nxc->nxd", Kr, pr_c_im) + torch.einsum("xdc,nxc->nxd", Ki, pr_c_re)
-            z = z + torch.cat([d_re, d_im], dim=-1)
-        zsq = z * z
-        sums = (zsq * T["E"][t]).sum(-1)  # [N, 4]
-        rem = norb - t - 1
-        occ_a = used_a + 1 <= model.noa
-        emp_a = model.noa - used_a <= rem
-        occ_b = used_b + 1 <= model.nob
-        emp_b = model.nob - used_b <= rem
-        m = torch.stack([emp_a & emp_b, occ_a & emp_b, emp_a & occ_b, occ_a & occ_b], -1)
-        lw = torch.where(m, torch.log(torch.clamp(sums, min=1e-30)), torch.full_like(sums, _NEG))
-        lse = torch.logsumexp(lw, dim=-1)
-        log_amp = log_amp + 0.5 * (lw[rows, x] - lse)
-        sel = z[rows, x]  # [N, 2d]
-        if model.norm_mode == "mpsrnn":
-            nrm = torch.rsqrt(torch.clamp(zsq.sum((-2, -1)) / (4 * d), min=1e-30))
-        else:
-            nrm = torch.rsqrt(torch.clamp((sel * sel).sum(-1), min=1e-30))
-        h = sel * nrm[:, None]
+        h, state = plain_site(model, T, W, t, vals[:, s], u, state, matmul_dtype)
         if not model.is_chain:
             hid[s] = h
-        if model.phase_mode == "arg":
-            zr = h @ T["PW"][t, 0] + T["SC"][t, 0]
-            zi = h @ T["PW"][t, 1] + T["SC"][t, 1]
-            m2 = zr * zr + zi * zi
-            ok = m2 > 1e-30
-            mag = torch.rsqrt(torch.clamp(m2, min=1e-30))
-            fr = torch.where(ok, zr * mag, torch.ones_like(zr))
-            fi = torch.where(ok, zi * mag, torch.zeros_like(zi))
-            pr_re, pr_im = pr_re * fr - pr_im * fi, pr_re * fi + pr_im * fr
-        else:
-            ph_lin = ph_lin + (h * T["PW"][t][x]).sum(-1) + T["SC"][t][x]
-        used_a = used_a + (x & 1)
-        used_b = used_b + (x >> 1)
-    out4 = torch.stack([log_amp, pr_re, pr_im, ph_lin], dim=-1)
-    return _finish(model, bits, out4)
+    return _finish(model, bits, torch.stack(state[:4], dim=-1))
 
 
 # ---------------- the CUDA kernel ----------------
@@ -255,11 +270,12 @@ def build_kernel(build_dir: str = _BUILD_DIR) -> str:
     lib = os.path.join(build_dir, f"libfused_rnn_{digest}.so")
     if os.path.exists(lib):
         return lib
+    nvcc = _nvcc()
     os.makedirs(build_dir, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=build_dir)
     os.close(fd)
     cmd = [
-        _nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+        nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
         "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-o", tmp, _SRC,
     ]
     r = subprocess.run(cmd, capture_output=True, text=True)
@@ -271,68 +287,96 @@ def build_kernel(build_dir: str = _BUILD_DIR) -> str:
     return lib
 
 
-def _lib():
+def lib():
+    """The built library with the argument types of its three entry
+    points (fused_rnn_forward, fused_rnn_prefix_parent/_child)."""
     global _LIB
     with _LIB_LOCK:
         if _LIB is None:
-            lib = ctypes.CDLL(build_kernel())
-            fn = lib.fused_rnn_forward
+            so = ctypes.CDLL(build_kernel())
             P, I = ctypes.c_void_p, ctypes.c_int
-            fn.argtypes = [
-                P, I, I, I, I,           # vals, N, norb, d, mp
+            head = [
+                P, I, I, I,              # vals, N, norb, d
                 P, P, P,                 # order, pred, npred
                 P, I,                    # W, w_bf16
                 P, P, P, P,              # vcat, E, PW, SC
-                I, I, I, I, I,           # noa, nob, phase_arg, norm_mpsrnn, chain
+                I, I, I, I,              # noa, nob, phase_arg, norm_mpsrnn
+            ]
+            so.fused_rnn_forward.argtypes = head[:4] + [I] + head[4:] + [
+                I,                       # chain
+                P, P, P, P, I, I,        # Ure, Uim, Kre, Kim, dc, use_tensor
                 P, P, P,                 # hbuf, out, stream
             ]
-            fn.restype = I
-            _LIB = fn
+            so.fused_rnn_prefix_parent.argtypes = head + [P, P, P, P]  # hh, sh, out, stream
+            so.fused_rnn_prefix_child.argtypes = head + [
+                P, P, P, P, P, P,        # s0, parent, hh, sh, out, stream
+            ]
+            for fn in (so.fused_rnn_forward, so.fused_rnn_prefix_parent,
+                       so.fused_rnn_prefix_child):
+                fn.restype = I
+            _LIB = so
     return _LIB
 
 
-@torch.no_grad()
-def _launch(model, bits, matmul_dtype, tables):
-    if model.use_tensor:
-        raise NotImplementedError(
-            "the CUDA fused forward has no tensor-coupling branch yet "
-            "(ROADMAP Queue B: kernel #1, tensor-coupling branch)"
-        )
+def site_values(model, bits: torch.Tensor) -> torch.Tensor:
+    """bits [N, sorb] 0/1 -> the kernel's site values [N, norb] int8."""
+    if bits.dim() != 2 or bits.shape[1] != model.sorb:
+        raise ValueError(f"bits must be [N, {model.sorb}], got {tuple(bits.shape)}")
+    return (bits[:, 0::2].to(torch.int8) + 2 * bits[:, 1::2].to(torch.int8)).contiguous()
+
+
+def operands(model, matmul_dtype, tables, dev) -> tuple:
+    """(tables, W in the matmul type, order, pred, npred) on ``dev``,
+    checked for the kernel: the launch arguments every entry point shares."""
     if matmul_dtype not in (torch.bfloat16, torch.float32):
         raise ValueError(f"matmul_dtype must be bf16 or f32, not {matmul_dtype}")
-    dev = bits.device
     T = pack_tables(model) if tables is None else tables
     for k, v in T.items():
         if v.device != dev or v.dtype != torch.float32 or not v.is_contiguous():
             raise ValueError(f"table {k} must be contiguous f32 on {dev}")
-    norb, d, mp = model.norb, model.dcut, model.maxp
-    N = bits.shape[0]
-    if bits.dim() != 2 or bits.shape[1] != model.sorb:
-        raise ValueError(f"bits must be [N, {model.sorb}], got {tuple(bits.shape)}")
-    vals = (bits[:, 0::2].to(torch.int8) + 2 * bits[:, 1::2].to(torch.int8)).contiguous()
     W = T["W"].to(matmul_dtype).contiguous()
     order = torch.as_tensor(model.site_order, dtype=torch.int32, device=dev)
     pred = torch.as_tensor(model._pred, dtype=torch.int32, device=dev).contiguous()
     npred = torch.as_tensor([len(p) for p in model.preds], dtype=torch.int32, device=dev)
+    return T, W, order, pred, npred
+
+
+def check_launch(err: int, what: str):
+    if err != 0:
+        raise RuntimeError(f"{what} kernel launch failed: CUDA error {err}")
+
+
+@torch.no_grad()
+def _launch(model, bits, matmul_dtype, tables):
+    dev = bits.device
+    T, W, order, pred, npred = operands(model, matmul_dtype, tables, dev)
+    vals = site_values(model, bits)
+    norb, d, mp = model.norb, model.dcut, model.maxp
+    N = bits.shape[0]
     out = torch.empty(N, 4, dtype=torch.float32, device=dev)
+    # DAG hidden file: [N, norb, 2d] f32 (6.7 GB at the r5g64 step's 657,408 rows)
     hbuf = (
         torch.empty(0, dtype=torch.float32, device=dev)
         if model.is_chain
         else torch.empty(N, norb, 2 * d, dtype=torch.float32, device=dev)
     )
-    fn = _lib()
+    none = torch.empty(0, dtype=torch.float32, device=dev)
+    U_re, U_im, K_re, K_im = (
+        (T["U_re"], T["U_im"], T["K_re"], T["K_im"]) if model.use_tensor else (none,) * 4
+    )
     if N > 0:
-        err = fn(
+        err = lib().fused_rnn_forward(
             vals.data_ptr(), N, norb, d, mp,
             order.data_ptr(), pred.data_ptr(), npred.data_ptr(),
             W.data_ptr(), int(matmul_dtype == torch.bfloat16),
             T["vcat"].data_ptr(), T["E"].data_ptr(), T["PW"].data_ptr(), T["SC"].data_ptr(),
             model.noa, model.nob, int(model.phase_mode == "arg"),
             int(model.norm_mode == "mpsrnn"), int(model.is_chain),
+            U_re.data_ptr(), U_im.data_ptr(), K_re.data_ptr(), K_im.data_ptr(),
+            model.dcut_cmpr, int(model.use_tensor),
             hbuf.data_ptr(), out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
         )
-        if err != 0:
-            raise RuntimeError(f"fused_rnn kernel launch failed: CUDA error {err}")
+        check_launch(err, "fused_rnn")
         LAUNCHES.n += 1
     return _finish(model, bits, out)
 

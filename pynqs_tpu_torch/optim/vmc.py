@@ -25,6 +25,7 @@ from pynqs_tpu_torch.ops.fused_rnn import (
     graph_mpsrnn_logpsi_fused,
     pack_tables,
 )
+from pynqs_tpu_torch.ops.fused_rnn_prefix import ReducePrefixForward, prefix_available
 
 __all__ = ["VMC", "VMCConfig"]
 
@@ -47,6 +48,11 @@ class VMCConfig:
     # False = model.log_psi
     fused_forward: bool | None = None
     fused_matmul_dtype: str = "bf16"  # "bf16" | "f32"
+    # REDUCE: the screened and tail children through the prefix-sharing
+    # forward (ops/fused_rnn_prefix), which reuses each sample's
+    # recurrence up to the child's first changed site; chain models only
+    # (others take the flat forward)
+    eloc_prefix: bool = False
 
 
 class VMC:
@@ -68,21 +74,28 @@ class VMC:
         self.opt = opt(model.parameters(), lr=self.cfg.lr)
         self.history: list[float] = []
 
+    def _matmul_dtype(self):
+        return {"bf16": torch.bfloat16, "f32": torch.float32}[self.cfg.fused_matmul_dtype]
+
     def _eloc_forward(self):
         """log ψ closure for the gradient-free eloc forwards."""
         use = self.cfg.fused_forward
         if use is None or use:
             if fused_forward_available(self.model):
-                mm = {"bf16": torch.bfloat16, "f32": torch.float32}[
-                    self.cfg.fused_matmul_dtype
-                ]
                 return partial(
                     graph_mpsrnn_logpsi_fused, self.model,
-                    matmul_dtype=mm, tables=pack_tables(self.model),
+                    matmul_dtype=self._matmul_dtype(), tables=pack_tables(self.model),
                 )
             if use:
                 raise ValueError("fused_forward=True needs a GraphMPSRNN model")
         return lambda b: self.model.log_psi(b).detach()
+
+    def _eloc_prefix_fwd(self):
+        """ReducePrefixForward for the REDUCE eloc (``cfg.eloc_prefix``);
+        None where it is off or the model is not a plain chain."""
+        if not self.cfg.eloc_prefix or not prefix_available(self.model):
+            return None
+        return ReducePrefixForward(self.model, matmul_dtype=self._matmul_dtype())
 
     def step(self, generator: torch.Generator, clip_val: float | None):
         """One training step; returns a dict of 0-d tensors (energy
@@ -95,7 +108,7 @@ class VMC:
                 fwd, bits, self._ops, self._table, generator,
                 k_det=self.cfg.eloc_k_det, n_stoch=self.cfg.eloc_n_stoch,
                 batch=self.cfg.eloc_batch, hpair_sect=self._hpair,
-                topk=self.cfg.eloc_topk,
+                topk=self.cfg.eloc_topk, prefix_fwd=self._eloc_prefix_fwd(),
             )
         else:
             eloc = local_energy_simple(

@@ -20,15 +20,28 @@ from pynqs_tpu_torch.utils.device import resolve_device
 __all__ = ["load_params", "params_from_numpy"]
 
 
+def _to_numpy(tree):
+    if isinstance(tree, dict):
+        return {k: _to_numpy(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to_numpy(v) for v in tree]
+    if isinstance(tree, tuple):
+        vals = [_to_numpy(v) for v in tree]
+        return type(tree)(*vals) if hasattr(tree, "_fields") else tuple(vals)
+    return np.asarray(tree)
+
+
 def load_params(path: str) -> dict:
-    """Read a pickled parameter tree (numpy leaves) written by the JAX
-    package.  Unpickling runs code: read only the repository's files."""
+    """Read a pickled tree written by the JAX package, keeping its
+    nesting (a structured run's file holds ``{"params": {...}}``), with
+    numpy leaves all the way down.  Unpickling runs code: read only the
+    repository's files."""
     path = os.path.abspath(path)
     if not path.endswith(".pkl"):
         path += ".pkl"
     with open(path, "rb") as f:
         tree = pickle.load(f)
-    return {k: np.asarray(v) for k, v in tree.items()}
+    return _to_numpy(tree)
 
 
 def params_from_numpy(tree: dict, device="cuda", dtype=torch.float32) -> dict:

@@ -97,6 +97,25 @@ def test_plain_bf16_matches_pallas_bf16(graph):
            jmm=jnp.bfloat16, tol=1e-4)
 
 
+@pytest.mark.parametrize("mm", [torch.float32, torch.bfloat16])
+def test_plain_follows_the_tables_dtype(mm):
+    """f64 tables: the same rounding points with f64 sums, the reference
+    against which the card's comparisons measure how far summation order
+    alone moves a row."""
+    jm, p, tm = _pair(12, 3, 8, 4, graph=grid_snake_graph(3, 2), jgraph=jgrid(3, 2),
+                      use_tensor=True, dcut_cmpr=4, phase_mode="arg", norm_mode="mpsrnn")
+    bits = torch.as_tensor(fci.fci_bits(12, 3, 3)[:100])
+    tables = fused_rnn.pack_tables(tm)
+    out = fused_rnn.graph_mpsrnn_logpsi_fused_plain(tm, bits, matmul_dtype=mm, tables=tables)
+    out64 = fused_rnn.graph_mpsrnn_logpsi_fused_plain(
+        tm, bits, matmul_dtype=mm, tables={k: v.double() for k, v in tables.items()})
+    assert out64.dtype == torch.float64 and out64.shape == out.shape
+    tol = TOL if mm == torch.float32 else 1e-4
+    np.testing.assert_allclose(out64[:, 0].numpy(), out[:, 0].numpy(), atol=tol, rtol=0)
+    d = np.abs(np.exp(1j * out64[:, 1].numpy()) - np.exp(1j * out[:, 1].numpy()))
+    assert d.max() < 10 * tol, d.max()
+
+
 def test_cpu_rows_take_the_plain_version_and_count_no_launch():
     tm = GraphMPSRNN(8, 2, 2, dcut=4, dtype=torch.float32, device="cpu",
                      generator=torch.Generator().manual_seed(0))
@@ -107,9 +126,3 @@ def test_cpu_rows_take_the_plain_version_and_count_no_launch():
     assert torch.equal(a, b)
     assert fused_rnn.LAUNCHES.n == before
 
-
-def test_kernel_rejects_tensor_coupling():
-    tm = GraphMPSRNN(12, 3, 3, dcut=4, graph=grid_snake_graph(3, 2), use_tensor=True,
-                     dtype=torch.float32, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        fused_rnn._launch(tm, torch.zeros(1, 12, dtype=torch.int8), torch.float32, None)

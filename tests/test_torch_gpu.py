@@ -1,5 +1,6 @@
-"""Card-only tests of the port: the fused forward's CUDA kernel against
-its plain version, and VMC steps that go through the kernel.
+"""Card-only tests of the port: the fused forward's CUDA kernel (tensor
+coupling included) and the prefix-sharing kernels against their plain
+versions, and VMC steps that go through the kernels.
 
 They import neither JAX nor the JAX package, so they also run where only
 PyTorch for CUDA is installed.  On a machine with a card:
@@ -20,6 +21,7 @@ import torch
 
 from pynqs_tpu_torch.models.graph_mps_rnn import GraphMPSRNN, grid_snake_graph
 from pynqs_tpu_torch.ops import fused_rnn
+from pynqs_tpu_torch.ops import fused_rnn_prefix as pre
 from pynqs_tpu_torch.optim.vmc import VMC, VMCConfig
 from pynqs_tpu_torch.sampler.ar_sampler import ARSampler
 from pynqs_tpu_torch.utils.checkpoint import load_params
@@ -70,8 +72,11 @@ def _model(case, dev):
         "dag-arg-mpsrnn-d10": (grid_snake_graph(3, 2), "arg", "mpsrnn", 10),
         "chain-linear-unit-d24": (None, "linear", "unit", 24),
         "dag-linear-unit-d100": (grid_snake_graph(3, 2), "linear", "unit", 100),
+        "dag-tensor-arg-mpsrnn-d10": (grid_snake_graph(3, 2), "arg", "mpsrnn", 10),
+        "dag-tensor-linear-unit-d64": (grid_snake_graph(3, 2), "linear", "unit", 64),
     }[case]
     m = GraphMPSRNN(12, 3, 3, dcut=dcut, graph=graph, phase_mode=phase, norm_mode=norm,
+                    use_tensor="tensor" in case, dcut_cmpr=4,
                     dtype=torch.float32, device=dev, generator=g)
     return m, _all_dets(12, 3, 3)
 
@@ -79,7 +84,8 @@ def _model(case, dev):
 @pytest.mark.parametrize("mm", ["f32", "bf16"])
 @pytest.mark.parametrize("case", ["chain-arg-mpsrnn-d10", "dag-arg-mpsrnn-d10",
                                   "chain-linear-unit-d24", "dag-linear-unit-d100",
-                                  "fe2s2-dcut48"])
+                                  "fe2s2-dcut48", "dag-tensor-arg-mpsrnn-d10",
+                                  "dag-tensor-linear-unit-d64"])
 def test_cuda_kernel_matches_plain(case, mm, dev):
     """One launch per call, and the plain version's values: 1e-4 on
     log|ψ| and 1e-3 on the unit-circle phase in f32 (the sums differ in
@@ -99,6 +105,84 @@ def test_cuda_kernel_matches_plain(case, mm, dev):
     d = (torch.polar(torch.ones_like(k[:, 1]), k[:, 1])
          - torch.polar(torch.ones_like(p[:, 1]), p[:, 1])).abs().max().item()
     assert d < tp
+
+
+def _close(a, b, tol):
+    da = (a[..., 0] - b[..., 0]).abs().max().item()
+    dp = (torch.polar(torch.ones_like(a[..., 1]), a[..., 1])
+          - torch.polar(torch.ones_like(b[..., 1]), b[..., 1])).abs().max().item()
+    assert da < tol[0] and dp < tol[1], (da, dp)
+
+
+def _excitations(parents, C, seed):
+    """C children per parent: singles and doubles that keep each spin's
+    electron count, child 0 equal to its parent, child 1 a random
+    determinant (first changed site usually 0)."""
+    rng = np.random.default_rng(seed)
+    B, sorb = parents.shape
+    kids = np.repeat(parents[:, None, :], C, axis=1)
+    for b in range(B):
+        for c in range(2, C):
+            for _ in range(rng.integers(1, 3)):
+                s = rng.integers(0, 2)
+                occ = np.flatnonzero(kids[b, c, s::2]) * 2 + s
+                vir = np.flatnonzero(1 - kids[b, c, s::2]) * 2 + s
+                kids[b, c, rng.choice(occ)] = 0
+                kids[b, c, rng.choice(vir)] = 1
+    kids[:, 1] = _rand_dets(B, sorb, int(parents[0, 0::2].sum()), int(parents[0, 1::2].sum()),
+                            seed + 1)
+    return kids
+
+
+@pytest.mark.parametrize("mm", ["f32", "bf16"])
+def test_cuda_prefix_kernels_match_plain_and_flat(mm, dev):
+    """One parent and one child launch per call; the values of the plain
+    version and of the flat kernel on the same rows, at the tolerances
+    above."""
+    model, _ = _model("fe2s2-dcut48", dev)
+    parents = torch.as_tensor(_rand_dets(96, 40, 15, 15, 3), device=dev)
+    kids = torch.as_tensor(_excitations(parents.cpu().numpy(), 50, 4), device=dev)
+    t_min = pre.t_min_process_order(model, parents, kids)
+    assert (t_min == 0).any() and (t_min == 20).any()
+    dt = {"f32": torch.float32, "bf16": torch.bfloat16}[mm]
+    tol = (1e-4, 1e-3) if mm == "f32" else (1e-1, 1e-1)
+    before = (pre.PARENT_LAUNCHES.n, pre.CHILD_LAUNCHES.n, fused_rnn.LAUNCHES.n)
+    kp, kc = pre.graph_mpsrnn_logpsi_fused_prefix(model, parents, kids, t_min, matmul_dtype=dt)
+    torch.cuda.synchronize()
+    assert (pre.PARENT_LAUNCHES.n, pre.CHILD_LAUNCHES.n, fused_rnn.LAUNCHES.n) == (
+        before[0] + 1, before[1] + 1, before[2])
+    pp, pc = pre.graph_mpsrnn_logpsi_fused_prefix_plain(model, parents, kids, t_min,
+                                                        matmul_dtype=dt)
+    assert torch.isfinite(kp).all() and torch.isfinite(kc).all()
+    _close(kp, pp, tol)
+    _close(kc, pc, tol)
+    flat = fused_rnn.graph_mpsrnn_logpsi_fused(
+        model, torch.cat([parents, kids.reshape(-1, 40).to(parents.dtype)]), matmul_dtype=dt)
+    _close(kp, flat[:96], tol)
+    _close(kc.reshape(-1, 2), flat[96:], tol)
+
+
+def test_vmc_step_with_eloc_prefix_on_card(dev):
+    """The REDUCE children through the prefix kernels (one parent and one
+    child launch, no flat launch), and the same energy as the flat step
+    on the same generator (f32 forwards, 1e-4)."""
+    system = System.hubbard_1d(4, 2, 2, u=4.0)
+    out = {}
+    for prefix in (False, True):
+        model = GraphMPSRNN(8, 2, 2, dcut=4, phase_mode="arg", norm_mode="mpsrnn",
+                            dtype=torch.float32, device=dev,
+                            generator=torch.Generator().manual_seed(0))
+        sampler = ARSampler(8, 2, 2, n_sample=20_000, capacity=36)
+        vmc = VMC(model, system, sampler, VMCConfig(
+            lr=0.05, eloc_method="reduce", eloc_k_det=8, eloc_n_stoch=4,
+            fused_matmul_dtype="f32", eloc_prefix=prefix))
+        before = (pre.PARENT_LAUNCHES.n, pre.CHILD_LAUNCHES.n, fused_rnn.LAUNCHES.n)
+        out[prefix] = vmc.step(torch.Generator(device=dev).manual_seed(1), 1.0)
+        torch.cuda.synchronize()
+        after = (pre.PARENT_LAUNCHES.n, pre.CHILD_LAUNCHES.n, fused_rnn.LAUNCHES.n)
+        assert [a - b for a, b in zip(after, before)] == ([1, 1, 0] if prefix else [0, 0, 1])
+    assert math.isfinite(out[True]["energy"].item())
+    assert abs(out[True]["energy"].item() - out[False]["energy"].item()) < 1e-4
 
 
 def test_cuda_kernel_f32_matches_log_psi(dev):

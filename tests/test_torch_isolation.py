@@ -58,7 +58,9 @@ def test_importing_the_port_and_chip_smoke_loads_no_jax():
 
 def test_default_device_entry_points_raise_without_a_card(monkeypatch):
     from pynqs_tpu_torch.models.graph_mps_rnn import GraphMPSRNN
+    from pynqs_tpu_torch.ops.fused_rnn_prefix import ReducePrefixForward
     from pynqs_tpu_torch.utils.checkpoint import params_from_numpy
+    from pynqs_tpu_torch.utils.flagship import flagship_model
     from pynqs_tpu_torch.utils.system import System
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -68,8 +70,16 @@ def test_default_device_entry_points_raise_without_a_card(monkeypatch):
         System.hubbard_1d(4, 2, 2).tables()
     with pytest.raises(RuntimeError, match="no CUDA device"):
         params_from_numpy({"a": np.zeros(2)})
-    # asked for explicitly, the CPU works
+    system = System.hubbard_1d(4, 2, 2)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        flagship_model(system, 4)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        flagship_model(system, 4, use_tensor=True, max_preds=2)
+    # asked for explicitly, the CPU works, and the prefix forward follows
+    # its model's device
     assert GraphMPSRNN(8, 2, 2, dcut=4, device="cpu").M_re.device.type == "cpu"
+    pf = ReducePrefixForward(flagship_model(system, 4, device="cpu"))
+    assert pf.tables["W"].device.type == "cpu"
 
 
 @pytest.mark.parametrize("where", ["repo", "alone"])

@@ -26,8 +26,11 @@ SPACE = fci.fci_bits(SORB, NOA, NOB)  # 36 determinants
 
 
 def _model(graph):
+    """"chain", "dag" (2x2 snake grid) or "dag-tensor" (the same grid with
+    the tensor coupling at its 2-predecessor site)."""
     return GraphMPSRNN(SORB, NOA, NOB, dcut=4, phase_mode="arg", norm_mode="mpsrnn",
-                       graph=grid_snake_graph(2, 2) if graph == "dag" else None,
+                       graph=grid_snake_graph(2, 2) if graph != "chain" else None,
+                       use_tensor=graph == "dag-tensor", dcut_cmpr=3,
                        device="cpu", generator=torch.Generator().manual_seed(0))
 
 
@@ -53,7 +56,7 @@ def _check_counts(bits, counts, n, p):
     assert (np.abs(freq - p) <= 5 * np.sqrt(p * (1 - p) / n) + 1e-9).all(), (freq - p)
 
 
-@pytest.mark.parametrize("graph", ["chain", "dag"])
+@pytest.mark.parametrize("graph", ["chain", "dag", "dag-tensor"])
 def test_ar_sampling_counts_follow_psi2(graph):
     model = _model(graph)
     n = 200_000
@@ -63,7 +66,7 @@ def test_ar_sampling_counts_follow_psi2(graph):
     _check_counts(bits, counts, n, _p_exact(model))
 
 
-@pytest.mark.parametrize("graph", ["chain", "dag"])
+@pytest.mark.parametrize("graph", ["chain", "dag", "dag-tensor"])
 def test_ar_sampling_dfs_counts_follow_psi2(graph):
     """Prefix groups are disjoint: rows stay globally unique and the
     concatenated counts are one exact multinomial."""
