@@ -5,9 +5,11 @@
 
 Phases, one line each (and a few detail lines):
   1. environment probe (torch, CUDA, nvcc, triton, nvidia-smi);
-  2. build of the CUDA kernels (pynqs_tpu_torch/csrc/fused_rnn.cu: the
-     fused forward and the prefix-sharing parent and child passes), with
-     the compiler's register report and each launch's shared memory;
+  2. build of the CUDA kernels, one nvcc per source, started together
+     (pynqs_tpu_torch/csrc/fused_rnn.cu: the fused forward and the
+     prefix-sharing parent and child passes; csrc/pair_select.cu: the
+     doubles pair selection), with the compiler's register report and
+     each fused launch's shared memory;
   3. the fused forward against its plain torch version on the card: the
      dcut-48 Fe2S2 chain (checkpoints/fe2s2_dcut48_final.pkl; sorb 40,
      15α/15β) on 65,536 random valid rows in f32 and bf16, a small DAG
@@ -30,8 +32,24 @@ Phases, one line each (and a few detail lines):
      chain: the parent and child kernels against their plain versions
      and the flat kernel on one step's rows, REDUCE with and without it,
      three VMC steps through it, and CUDA-event times of both forwards;
-  9. the one PyTorch call that computes the (not yet ported) doubles
-     pair selection, timed at the flagship's shapes.
+  9. the doubles pair selection W[b,u,v] = hpair[po[b,u], pv[b,v]] at
+     the flagship's [2048, 435, 45]: both variants bitwise equal to the
+     plain version (pair indices of phase 5's samples and random ones,
+     the system's symmetric hpair and a random asymmetric one), CUDA-event
+     times of the kernel, the plain version and one PyTorch gather beside
+     the bound; pair_select_w(variant="rowrow") once on the samples, its
+     launch counted; then comb_hij on the 2048 samples, the dense pair
+     matrix through the kernel bitwise equal to the sector blocks, both
+     timed;
+ 10. the final-state evaluation (pynqs_tpu_torch/scripts/
+     eval_fe2s2_final.evaluate) of the r5g64 flagship at full width: DFS
+     sampling as phase 5 (at most 16,384 rows), REDUCE E_loc and the
+     spin-raising monitor <S-S+> with k_det 1024 / n_stoch 256 in chunks
+     of 256 samples, both through the dense pair matrix, bf16 forward,
+     one repetition, its launches counted; the same rep again with each
+     stage synchronized at every call, for the time split between the
+     pair selection, comb_hij and the fused forward; both variants of the
+     pair selection at the evaluation's chunk shape, bitwise and timed.
 
 The last two lines are the kernels' JSON summary and the result JSON.
 Any failed check raises, so the script exits non-zero with no result.
@@ -40,6 +58,7 @@ Any failed check raises, so the script exits non-zero with no result.
 from __future__ import annotations
 
 import ctypes
+import itertools
 import json
 import os
 import re
@@ -164,8 +183,16 @@ def ptxas_report(text):
         m = re.search(r"Compiling entry function '(\S+)'", ln)
         if m:
             t = re.search(r"ILi(\d+)ELi(\d+)ELb([01])E", m.group(1))
-            name = (f"rows/warp {t.group(1)}, outputs/lane {t.group(2)}, "
-                    f"W {'bf16' if t.group(3) == '1' else 'f32'}") if t else m.group(1)
+            u = re.search(r"pair_select_kernelI([fd])([il])Lb([01])E", m.group(1))
+            if t:
+                name = (f"rows/warp {t.group(1)}, outputs/lane {t.group(2)}, "
+                        f"W {'bf16' if t.group(3) == '1' else 'f32'}")
+            elif u:
+                name = (f"{'f32' if u.group(1) == 'f' else 'f64'}, "
+                        f"{'int32' if u.group(2) == 'i' else 'int64'} indices, "
+                        f"{'rowrow' if u.group(3) == '1' else 'lane'}")
+            else:
+                name = m.group(1)
             spill = ""
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
         if m:
@@ -177,10 +204,16 @@ def ptxas_report(text):
     return out
 
 
-def build(fused_rnn):
-    """Build the kernels; return a function (d, mp, dcut_cmpr) -> the
-    dynamic shared memory of one launch in bytes."""
-    lib_path = fused_rnn.build_kernel()
+def build(fused_rnn, pair_select):
+    """Build the kernels, one nvcc per source, all started together;
+    return a function (d, mp, dcut_cmpr) -> the dynamic shared memory of
+    one fused launch in bytes."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    with ThreadPoolExecutor(2) as pool:
+        fut = pool.submit(fused_rnn.build_kernel)
+        pool.submit(pair_select.build_kernel).result()
+        lib_path = fut.result()
     smem = ctypes.CDLL(lib_path).fused_rnn_smem_bytes
     smem.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int]
     smem.restype = ctypes.c_longlong
@@ -192,17 +225,21 @@ def main():
         print("no CUDA device: chip_smoke.py needs one GPU", file=sys.stderr)
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from pynqs_tpu_torch.energy import eloc as eloc_mod
     from pynqs_tpu_torch.energy.eloc import local_energy_reduce, local_energy_simple
     from pynqs_tpu_torch.grad.energy_grad import energy_and_grad
     from pynqs_tpu_torch.models.graph_mps_rnn import GraphMPSRNN, grid_snake_graph
-    from pynqs_tpu_torch.ops import fused_rnn
+    from pynqs_tpu_torch.ops import cuda_build, fused_rnn
+    from pynqs_tpu_torch.ops import hamiltonian as ham_mod
+    from pynqs_tpu_torch.ops import pair_select as ps
     from pynqs_tpu_torch.ops import fused_rnn_prefix as pre
     from pynqs_tpu_torch.ops.cplx import ratio_re_im
-    from pynqs_tpu_torch.ops.hamiltonian import comb_hij
+    from pynqs_tpu_torch.ops.hamiltonian import comb_hij, pair_indices
     from pynqs_tpu_torch.ops.integrals import triangle_size
     from pynqs_tpu_torch.optim.vmc import VMC, VMCConfig
     from pynqs_tpu_torch.sampler.ar import ar_sampling_dfs, compact_by_count
     from pynqs_tpu_torch.sampler.ar_sampler import ARSampler
+    from pynqs_tpu_torch.scripts.eval_fe2s2_final import evaluate
     from pynqs_tpu_torch.utils.flagship import flagship_model, load_flagship_params
     from pynqs_tpu_torch.utils.system import System
 
@@ -216,7 +253,7 @@ def main():
     # ---- 1. environment ----
     smi = gpu_info()
     try:
-        nvcc = subprocess.run([fused_rnn._nvcc(), "--version"], capture_output=True,
+        nvcc = subprocess.run([cuda_build.nvcc(), "--version"], capture_output=True,
                               text=True).stdout.strip().splitlines()[-1]
     except RuntimeError as e:
         nvcc = str(e)
@@ -232,11 +269,12 @@ def main():
 
     # ---- 2. build ----
     t0 = time.perf_counter()
-    smem = build(fused_rnn)
-    log(2, f"built csrc/fused_rnn.cu (fused forward, prefix parent and child) for sm_90a "
-           f"in {time.perf_counter() - t0:.2f} s")
-    for ln in ptxas_report(fused_rnn.BUILD_INFO.get("ptxas", "")):
-        log(2, f"  ptxas: {ln}")
+    smem = build(fused_rnn, ps)
+    log(2, f"built csrc/fused_rnn.cu (fused forward, prefix parent and child) and "
+           f"csrc/pair_select.cu (pair selection) for sm_90a in {time.perf_counter() - t0:.2f} s")
+    for name in ("fused_rnn", "pair_select"):
+        for ln in ptxas_report(cuda_build.BUILD_INFO.get(name, "")):
+            log(2, f"  ptxas {name}: {ln}")
     log(2, f"  dynamic shared memory per CTA: {smem(DCUT, 1, 0)} B at dcut {DCUT} (chain; "
            f"the prefix passes too), {smem(DCUT_R5, MAXP_R5, DCMP_R5)} B at the r5g64 shape "
            f"(dcut {DCUT_R5}, {MAXP_R5} predecessors, dcut_cmpr {DCMP_R5}; limit 232,448 B), "
@@ -345,10 +383,10 @@ def main():
                                        split_depth=6, capacity_root=4096, generator=gen)
     sbits, _ = compact_by_count(sbits, counts, N_ID)
     f32fwd = lambda b: fused_rnn.graph_mpsrnn_logpsi_fused(model, b, matmul_dtype=f32)  # noqa: E731
-    e_simple = local_energy_simple(f32fwd, sbits, ops, table, hpair_sect=tabs.hpair_sect)
+    e_simple = local_energy_simple(f32fwd, sbits, ops, table, hpair=tabs.hpair_sect)
     e_reduce = local_energy_reduce(f32fwd, sbits, ops, table, gen,
                                    k_det=table.n_sd, n_stoch=N_STOCH,
-                                   hpair_sect=tabs.hpair_sect)
+                                   hpair=tabs.hpair_sect)
     sync()
 
     def hr_scale(m, x):
@@ -381,7 +419,7 @@ def main():
 
     def reduce(fwd, bits, g, **kw):
         return local_energy_reduce(fwd, bits, ops, table, g, k_det=K_DET, n_stoch=N_STOCH,
-                                   hpair_sect=tabs.hpair_sect, topk="segmax", **kw)
+                                   hpair=tabs.hpair_sect, topk="segmax", **kw)
 
     def run_steps(phase, vmc, counters, seed):
         """STEPS training steps from a fresh launch count; returns the
@@ -707,33 +745,162 @@ def main():
            f"{t8[bf16]['prefix forward'][0] / t8[bf16]['flat forward'][0]:.3f}, f32 "
            f"{t8[f32]['prefix forward'][0] / t8[f32]['flat forward'][0]:.3f}")
 
-    # ---- 9. the doubles pair selection's PyTorch yardstick ----
-    # kernels #4/#5 (pynqs_tpu/ops/pallas_hij.py) are not ported: one
-    # PyTorch gather at the flagship's shapes, W[b,u,v] = hpair[po[b,u], pv[b,v]]
-    npair, n_u, n_v = SORB * (SORB - 1) // 2, 435, 45
+    # ---- 9. the doubles pair selection at the flagship's shapes ----
+    po_s, pv_s = pair_indices(fbits, table)  # phase 5's 2048 samples, int64
+    Bs, n_u = po_s.shape
+    n_v = pv_s.shape[1]
+    npair = tabs.hpair.shape[0]
     g9 = torch.Generator(device=dev).manual_seed(10)
-    hp = torch.randn(npair, npair, generator=g9, device=dev)
-    hp = hp + hp.T
-    po = torch.randint(0, npair, (B, n_u), generator=g9, device=dev)
-    pv = torch.randint(0, npair, (B, n_v), generator=g9, device=dev)
-    sel = lambda: hp[po[..., None], pv[:, None, :]]  # noqa: E731
-    w9 = sel()
-    sync()
-    check(bool((w9[3, 5, 7] == hp[po[3, 5], pv[3, 7]]).item()), "pair selection")
-    ms9 = cuda_ms(sel, 10)
-    out9 = B * n_u * n_v * 4
-    log(9, f"pair selection hpair[po[..., None], pv[:, None, :]] at [{B}, {n_u}, {n_v}] "
-           f"(P = {npair}): {ms9:.3f} ms; output {out9 / 1e6:.1f} MB, bound "
-           f"{(out9 + sum(t.numel() * t.element_size() for t in (po, pv, hp))) / H100_BYTES * 1e3:.3f}"
-           f" ms (bytes); gpu {smi}")
-    del w9
+    hp_asym = torch.randn(npair, npair, generator=g9, device=dev)
+    idx_sets = {
+        "samples": (po_s, pv_s),
+        "random": (torch.randint(0, npair, (Bs, n_u), generator=g9, device=dev),
+                   torch.randint(0, npair, (Bs, n_v), generator=g9, device=dev)),
+    }
+    for (iname, (po, pv)), (hname, hp) in itertools.product(
+            idx_sets.items(), (("symmetric", tabs.hpair), ("asymmetric", hp_asym))):
+        lib9 = hp[po[..., None], pv[:, None, :]]
+        for v in ps.VARIANTS:
+            k9 = ps.pair_select_w(po, pv, hp, variant=v)
+            p9 = ps.pair_select_w_plain(po, pv, hp, variant=v)
+            sync()
+            check(torch.equal(k9, p9) and torch.equal(k9, lib9),
+                  f"pair selection {v} != plain ({iname} indices, {hname} hpair)")
+        log(9, f"pair selection [{Bs}, {n_u}, {n_v}] (npair {npair}), {iname} indices, "
+               f"{hname} hpair: lane and rowrow kernels bitwise equal to the plain version "
+               f"and to hpair[po, pv]")
+        del lib9, k9, p9
+    check(bool(torch.equal(tabs.hpair, tabs.hpair.T)), "the system's hpair is not symmetric")
+    po, pv, hp = po_s, pv_s, tabs.hpair
+    nbytes9 = (Bs * n_u * n_v * hp.element_size()
+               + sum(t.numel() * t.element_size() for t in (po, pv, hp)))
+    b9 = (nbytes9 / H100_BYTES * 1e3, "bytes")
+    lib_ms9 = cuda_ms(lambda: hp[po[..., None], pv[:, None, :]], 10)
+    t9, err9 = {}, {}
+    for v in ps.VARIANTS:
+        t9[v] = alternate(lambda v=v: ps.pair_select_w_plain(po, pv, hp, variant=v),
+                          lambda v=v: ps.pair_select_w(po, pv, hp, variant=v), 20, 10)
+        err9[v] = (ps.pair_select_w(po, pv, hp, variant=v)
+                   - ps.pair_select_w_plain(po, pv, hp, variant=v)).abs().max().item()
+        log(9, f"pair selection {v} on the samples' indices: kernel {t9[v][0]:.4f} ms, plain "
+               f"{t9[v][1]:.4f} ms, one gather hpair[po[..., None], pv[:, None, :]] "
+               f"{lib_ms9:.4f} ms, bound {b9[0]:.4f} ms ({nbytes9 / 1e6:.1f} MB, bytes); "
+               f"gpu {smi}")
 
-    def entry(name, replaces, launches_n, err, times, bnd):
+    # the rowrow variant's path: pair_select_w(variant="rowrow") on the
+    # samples' indices, from a fresh launch count
+    for c in ps.LAUNCHES.values():
+        c.reset()
+    w_rr = ps.pair_select_w(po, pv, hp, variant="rowrow")
+    sync()
+    l9 = {k: c.n for k, c in ps.LAUNCHES.items()}
+    check(l9 == {"lane": 0, "rowrow": 1}, f"pair_select_w(variant='rowrow') launches {l9}")
+    check(torch.equal(w_rr, ps.pair_select_w_plain(po, pv, hp, variant="rowrow")),
+          "pair selection rowrow != plain on the samples' indices")
+    del w_rr
+
+    # comb_hij on the 2048 samples: the dense pair matrix through the
+    # kernel against the sector blocks
+    _, h_sect = comb_hij(fbits, *ops, tabs.hpair_sect, table=table, with_comb=False)
+    for c in ps.LAUNCHES.values():
+        c.reset()
+    _, h_dense = comb_hij(fbits, *ops, tabs.hpair, table=table, with_comb=False)
+    sync()
+    l9c = {k: c.n for k, c in ps.LAUNCHES.items()}
+    check(l9c == {"lane": 1, "rowrow": 0}, f"dense comb_hij launches {l9c}")
+    check(torch.equal(h_dense, h_sect), "dense comb_hij != sector form")
+    t_sect = cuda_ms(lambda: comb_hij(fbits, *ops, tabs.hpair_sect, table=table,
+                                      with_comb=False), 10)
+    t_dense = cuda_ms(lambda: comb_hij(fbits, *ops, tabs.hpair, table=table, with_comb=False),
+                      10)
+    log(9, f"comb_hij on {Bs} samples ({1 + table.n_sd} elements each): dense pair matrix "
+           f"bitwise equal to the sector blocks (launches {l9c}); sector blocks {t_sect:.3f} "
+           f"ms, dense {t_dense:.3f} ms; gpu {smi}")
+    del h_sect, h_dense, hp_asym, idx_sets
+
+    # ---- 10. the final-state evaluation of the r5g64 flagship ----
+    r5 = r5g64()
+    eval_kw = dict(n_sample=1_000_000, capacity=4096, n_group=4, split_depth=6, k_det=1024,
+                   n_stoch=256, batch=256, n_rep=1, fwd_dtype="bf16", device=dev)
+    for c in (*ps.LAUNCHES.values(), fused_rnn.LAUNCHES):
+        c.reset()
+    reset_peak()
+    (rep,) = evaluate(r5, system, generator=torch.Generator(device=dev).manual_seed(11),
+                      **eval_kw)
+    sync()
+    l10 = {"pair_select_lane": ps.LAUNCHES["lane"].n,
+           "pair_select_rowrow": ps.LAUNCHES["rowrow"].n, "fused": fused_rnn.LAUNCHES.n}
+    log(10, rep.line(0, system.e_ref))
+    log(10, f"r5g64 evaluation (stand-in integrals, k_det 1024, n_stoch 256, batch 256, bf16 "
+            f"forward): {rep.seconds:.3f} s per rep; E {rep.e:.6f} ± {rep.e_se:.2e}, <S-S+> "
+            f"{rep.s:.6f} ± {rep.s_se:.2e}; launches {l10}; max_memory_allocated "
+            f"{peak_gib():.3f} GiB; gpu {smi}")
+    check(np.isfinite(rep.e) and np.isfinite(rep.s) and np.isfinite(rep.var),
+          "non-finite evaluation")
+    check(rep.s > -5 * rep.s_se, f"<S-S+> = {rep.s} below -5 se ({rep.s_se})")
+    check(l10["pair_select_lane"] > 0 and l10["fused"] > 0,
+          f"the evaluation did not launch the pair selection and the fused forward: {l10}")
+
+    # the same rep again, each stage synchronized at every call, for the
+    # time split; it also keeps the pair selection's first operands
+    spent = {"pair selection": 0.0, "comb_hij": 0.0, "fused forward": 0.0}
+    first = {}
+
+    def clocked(key, fn):
+        def run(*a, **k):
+            first.setdefault(key, a)
+            sync()
+            t = time.perf_counter()
+            out = fn(*a, **k)
+            sync()
+            spent[key] += time.perf_counter() - t
+            return out
+        return run
+
+    patched = ((ham_mod, "pair_select_w", "pair selection"), (eloc_mod, "comb_hij", "comb_hij"),
+               (fused_rnn, "graph_mpsrnn_logpsi_fused", "fused forward"))
+    saved = [getattr(mod, name) for mod, name, _ in patched]
+    for mod, name, key in patched:
+        setattr(mod, name, clocked(key, getattr(mod, name)))
+    try:
+        (rep_c,) = evaluate(r5, system, generator=torch.Generator(device=dev).manual_seed(11),
+                            **eval_kw)
+        sync()
+    finally:
+        for (mod, name, _), fn in zip(patched, saved):
+            setattr(mod, name, fn)
+    check(rep_c.n_live == rep.n_live, "the synchronized rep sampled other rows")
+    log(10, f"time of the synchronized rep ({rep_c.seconds:.3f} s; host clock, synchronized "
+            f"at each call) in: " + ", ".join(
+                f"{k} {v:.3f} s ({v / rep_c.seconds:.1%})" for k, v in spent.items())
+        + " (comb_hij includes the pair selection)")
+
+    # the lane kernel at the evaluation's chunk shape: the first chunk's
+    # operands (256 r5g64 samples, the system's f32 hpair)
+    po, pv, hp = first["pair selection"][:3]
+    Be = po.shape[0]
+    for v in ps.VARIANTS:
+        check(torch.equal(ps.pair_select_w(po, pv, hp, variant=v),
+                          ps.pair_select_w_plain(po, pv, hp, variant=v)),
+              f"pair selection {v} != plain at the evaluation's chunk shape")
+    nbytes10 = (Be * n_u * n_v * hp.element_size()
+                + sum(t.numel() * t.element_size() for t in (po, pv, hp)))
+    b10 = (nbytes10 / H100_BYTES * 1e3, "bytes")
+    lib_ms10 = cuda_ms(lambda: hp[po[..., None], pv[:, None, :]], 20)
+    t10 = alternate(lambda: ps.pair_select_w_plain(po, pv, hp),
+                    lambda: ps.pair_select_w(po, pv, hp), 50, 20)
+    err10 = (ps.pair_select_w(po, pv, hp) - ps.pair_select_w_plain(po, pv, hp)).abs().max().item()
+    log(10, f"pair selection lane at the evaluation's chunk [{Be}, {n_u}, {n_v}]: both variants "
+            f"bitwise equal to the plain version; kernel {t10[0]:.4f} ms, plain {t10[1]:.4f} "
+            f"ms, one gather {lib_ms10:.4f} ms, bound {b10[0]:.4f} ms ({nbytes10 / 1e6:.2f} MB, "
+            f"bytes); gpu {smi}")
+
+    def entry(name, replaces, launches_n, err, times, bnd, source="fused_rnn.cu", lib=None):
         return {
-            "name": name, "route": "cuda", "source": "pynqs_tpu_torch/csrc/fused_rnn.cu",
+            "name": name, "route": "cuda", "source": f"pynqs_tpu_torch/csrc/{source}",
             "replaces": replaces, "launches": launches_n, "max_abs_err": err,
             "ms": times[0], "plain_ms": times[1], "bound_ms": bnd[0], "bound_by": bnd[1],
-            "library_ms": None,
+            "library_ms": lib,
         }
 
     summary = {"kernels": [
@@ -747,6 +914,12 @@ def main():
         entry("fused_rnn_prefix_child", "pynqs_tpu/ops/fused_rnn_prefix.py:264",
               l8["child"], err8[bf16]["child vs plain"][0], t8[bf16]["child"],
               b8[bf16]["child"]),
+        # lane: the evaluation's launches and chunk shape (phase 10);
+        # rowrow: pair_select_w(variant="rowrow") at [2048, 435, 45] (phase 9)
+        entry("pair_select_lane", "pynqs_tpu/ops/pallas_hij.py:48", l10["pair_select_lane"],
+              err10, t10, b10, "pair_select.cu", lib_ms10),
+        entry("pair_select_rowrow", "pynqs_tpu/ops/pallas_hij.py:82", l9["rowrow"],
+              err9["rowrow"], t9["rowrow"], b9, "pair_select.cu", lib_ms9),
     ]}
     print(json.dumps(summary))
     print(f"gpu: {smi}")

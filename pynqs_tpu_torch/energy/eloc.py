@@ -36,15 +36,17 @@ def local_energy_simple(
     table: ExcitationTable,
     *,
     batch: int | None = None,
-    hpair_sect: tuple | None = None,
+    hpair=None,
 ) -> torch.Tensor:
     """E_loc for a batch: bits [B, sorb] -> [B, 2] (Re, Im).
 
     ``log_psi_fn`` maps rows [N, sorb] to (log|ψ|, arg ψ) [N, 2];
-    ``tables`` = (h1e, h2e, diag1, K, J); ``batch`` chunks the samples."""
+    ``tables`` = (h1e, h2e, diag1, K, J); ``batch`` chunks the samples;
+    ``hpair`` is ``comb_hij``'s doubles operand (sector-block tuple,
+    dense matrix or None)."""
     out = []
     for s, e in _chunks(bits.shape[0], batch):
-        comb, hij = comb_hij(bits[s:e], *tables, hpair_sect, table=table, with_comb=True)
+        comb, hij = comb_hij(bits[s:e], *tables, hpair, table=table, with_comb=True)
         b, m, sorb = comb.shape
         lp = log_psi_fn(comb.reshape(b * m, sorb)).reshape(b, m, 2)
         r_re, r_im = cplx.ratio_re_im(lp, lp[:, :1])
@@ -78,18 +80,20 @@ def local_energy_reduce(
     k_det: int = 256,
     n_stoch: int = 64,
     batch: int | None = None,
-    hpair_sect: tuple | None = None,
+    hpair=None,
     topk: str = "exact",
     prefix_fwd=None,
 ) -> torch.Tensor:
     """Semi-stochastic screened E_loc (reference ElocMethod.REDUCE).
 
-    The k_det largest |H_nm| terms (``topk="exact"``), or the per-segment
-    winners of a strided split into k_det segments (``"segmax"``), are
-    summed exactly; the remaining tail is estimated unbiasedly with
+    The k_det largest |H_nm| terms (``topk="exact"``, or ``"approx"``:
+    the JAX package's ``lax.approx_max_k``, an exact top-k off the TPU,
+    hence the same set here), or the per-segment winners of a strided
+    split into k_det segments (``"segmax"``), are summed exactly; the remaining tail is estimated unbiasedly with
     n_stoch stratified draws ∝ |H_nm|:
         Σ_tail H r ≈ (S/n) Σ_s sign(H_s) r_s,   S = Σ_tail |H|.
     ψ forwards per sample: 1 + k_det + n_stoch.  bits [B, sorb] -> [B, 2].
+    ``hpair``: as ``local_energy_simple``.
 
     ``prefix_fwd``: optional prefix-sharing forward
     (``ops/fused_rnn_prefix.ReducePrefixForward``): ``(parent_bits [b, s],
@@ -99,14 +103,14 @@ def local_energy_reduce(
     sample's recurrence up to its first changed site; the children, the
     tail draws and the generator's use are the same as without it.
     """
-    if topk not in ("exact", "segmax"):
+    if topk not in ("exact", "approx", "segmax"):
         raise ValueError(f"unknown topk {topk!r}")
     ns = table.n_singles
     pos = torch.as_tensor(table.pos, dtype=torch.long, device=bits.device)
     out = []
     for s, e in _chunks(bits.shape[0], batch):
         chunk = bits[s:e]
-        _, hij = comb_hij(chunk, *tables, hpair_sect, table=table, with_comb=False)
+        _, hij = comb_hij(chunk, *tables, hpair, table=table, with_comb=False)
         b, sorb = chunk.shape
         n_off = hij.shape[1] - 1
         kd = min(k_det, n_off)

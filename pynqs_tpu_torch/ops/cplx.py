@@ -17,6 +17,7 @@ __all__ = [
     "to_np_complex",
     "exp_pair",
     "ratio_re_im",
+    "add_exp",
     "safe_atan2",
 ]
 
@@ -73,3 +74,14 @@ class _SafeAtan2(torch.autograd.Function):
 
 def safe_atan2(y, x):
     return _SafeAtan2.apply(y, x)
+
+
+def add_exp(lp1, lp2, c1=1.0, c2=1.0):
+    """log(c1·exp(lp1) + c2·exp(lp2)) as a pair, overflow-safe."""
+    m = torch.maximum(lp1[..., 0], lp2[..., 0])
+    r1 = c1 * torch.exp(lp1[..., 0] - m)
+    r2 = c2 * torch.exp(lp2[..., 0] - m)
+    re = r1 * torch.cos(lp1[..., 1]) + r2 * torch.cos(lp2[..., 1])
+    im = r1 * torch.sin(lp1[..., 1]) + r2 * torch.sin(lp2[..., 1])
+    mag2 = re**2 + im**2
+    return make(m + 0.5 * torch.log(torch.clamp(mag2, min=1e-30)), safe_atan2(im, re))

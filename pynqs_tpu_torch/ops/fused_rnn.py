@@ -21,17 +21,13 @@ launches the kernel or raises.  ``LAUNCHES`` counts kernel launches.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import tempfile
-import threading
 
 import torch
 import torch.nn.functional as F
 
 from pynqs_tpu_torch.models.graph_mps_rnn import GraphMPSRNN
+from pynqs_tpu_torch.ops import cuda_build
+from pynqs_tpu_torch.ops.cuda_build import Counter, check_launch
 
 __all__ = [
     "graph_mpsrnn_logpsi_fused",
@@ -43,23 +39,7 @@ __all__ = [
 ]
 
 _NEG = -1e30
-_SRC = os.path.join(os.path.dirname(os.path.dirname(__file__)), "csrc", "fused_rnn.cu")
-_BUILD_DIR = os.path.join(
-    os.path.dirname(os.path.dirname(os.path.dirname(__file__))), "build"
-)
-
-
-class _Counter:
-    """Kernel launch count: one per launch of the CUDA kernel, nowhere else."""
-
-    def __init__(self):
-        self.n = 0
-
-    def reset(self):
-        self.n = 0
-
-
-LAUNCHES = _Counter()
+LAUNCHES = Counter()
 
 
 def fused_forward_available(model) -> bool:
@@ -249,73 +229,41 @@ def graph_mpsrnn_logpsi_fused_plain(
 
 # ---------------- the CUDA kernel ----------------
 
-_LIB = None
-_LIB_LOCK = threading.Lock()
-BUILD_INFO: dict = {}
+
+def build_kernel() -> str:
+    """Compile csrc/fused_rnn.cu for sm_90a into ``build/`` (once per
+    source version) and return the library path; the compiler's report
+    is kept in ``cuda_build.BUILD_INFO["fused_rnn"]``."""
+    return cuda_build.build_library("fused_rnn")
 
 
-def _nvcc() -> str:
-    for cand in (shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"):
-        if cand and os.path.exists(cand):
-            return cand
-    raise RuntimeError("nvcc not found: the fused forward's CUDA kernel cannot be built")
-
-
-def build_kernel(build_dir: str = _BUILD_DIR) -> str:
-    """Compile csrc/fused_rnn.cu for sm_90a into ``build_dir`` (once per
-    source version) and return the library path.  The compiler's
-    ``-Xptxas -v`` report is kept in ``BUILD_INFO["ptxas"]``."""
-    with open(_SRC, "rb") as f:
-        digest = hashlib.sha1(f.read()).hexdigest()[:12]
-    lib = os.path.join(build_dir, f"libfused_rnn_{digest}.so")
-    if os.path.exists(lib):
-        return lib
-    nvcc = _nvcc()
-    os.makedirs(build_dir, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=build_dir)
-    os.close(fd)
-    cmd = [
-        nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-        "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-o", tmp, _SRC,
+def _bind(so):
+    P, I = ctypes.c_void_p, ctypes.c_int
+    head = [
+        P, I, I, I,              # vals, N, norb, d
+        P, P, P,                 # order, pred, npred
+        P, I,                    # W, w_bf16
+        P, P, P, P,              # vcat, E, PW, SC
+        I, I, I, I,              # noa, nob, phase_arg, norm_mpsrnn
     ]
-    r = subprocess.run(cmd, capture_output=True, text=True)
-    if r.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({r.returncode}):\n{r.stderr}")
-    os.replace(tmp, lib)
-    BUILD_INFO["ptxas"] = r.stderr
-    return lib
+    so.fused_rnn_forward.argtypes = head[:4] + [I] + head[4:] + [
+        I,                       # chain
+        P, P, P, P, I, I,        # Ure, Uim, Kre, Kim, dc, use_tensor
+        P, P, P,                 # hbuf, out, stream
+    ]
+    so.fused_rnn_prefix_parent.argtypes = head + [P, P, P, P]  # hh, sh, out, stream
+    so.fused_rnn_prefix_child.argtypes = head + [
+        P, P, P, P, P, P,        # s0, parent, hh, sh, out, stream
+    ]
+    for fn in (so.fused_rnn_forward, so.fused_rnn_prefix_parent,
+               so.fused_rnn_prefix_child):
+        fn.restype = I
 
 
 def lib():
     """The built library with the argument types of its three entry
     points (fused_rnn_forward, fused_rnn_prefix_parent/_child)."""
-    global _LIB
-    with _LIB_LOCK:
-        if _LIB is None:
-            so = ctypes.CDLL(build_kernel())
-            P, I = ctypes.c_void_p, ctypes.c_int
-            head = [
-                P, I, I, I,              # vals, N, norb, d
-                P, P, P,                 # order, pred, npred
-                P, I,                    # W, w_bf16
-                P, P, P, P,              # vcat, E, PW, SC
-                I, I, I, I,              # noa, nob, phase_arg, norm_mpsrnn
-            ]
-            so.fused_rnn_forward.argtypes = head[:4] + [I] + head[4:] + [
-                I,                       # chain
-                P, P, P, P, I, I,        # Ure, Uim, Kre, Kim, dc, use_tensor
-                P, P, P,                 # hbuf, out, stream
-            ]
-            so.fused_rnn_prefix_parent.argtypes = head + [P, P, P, P]  # hh, sh, out, stream
-            so.fused_rnn_prefix_child.argtypes = head + [
-                P, P, P, P, P, P,        # s0, parent, hh, sh, out, stream
-            ]
-            for fn in (so.fused_rnn_forward, so.fused_rnn_prefix_parent,
-                       so.fused_rnn_prefix_child):
-                fn.restype = I
-            _LIB = so
-    return _LIB
+    return cuda_build.load_library("fused_rnn", _bind)
 
 
 def site_values(model, bits: torch.Tensor) -> torch.Tensor:
@@ -339,11 +287,6 @@ def operands(model, matmul_dtype, tables, dev) -> tuple:
     pred = torch.as_tensor(model._pred, dtype=torch.int32, device=dev).contiguous()
     npred = torch.as_tensor([len(p) for p in model.preds], dtype=torch.int32, device=dev)
     return T, W, order, pred, npred
-
-
-def check_launch(err: int, what: str):
-    if err != 0:
-        raise RuntimeError(f"{what} kernel launch failed: CUDA error {err}")
 
 
 @torch.no_grad()

@@ -36,7 +36,8 @@ import torch
 
 from pynqs_tpu_torch.models.graph_mps_rnn import GraphMPSRNN
 from pynqs_tpu_torch.ops import fused_rnn
-from pynqs_tpu_torch.ops.fused_rnn import _Counter, _finish, _round
+from pynqs_tpu_torch.ops.cuda_build import Counter, check_launch
+from pynqs_tpu_torch.ops.fused_rnn import _finish, _round
 
 __all__ = [
     "ReducePrefixForward",
@@ -56,8 +57,8 @@ __all__ = [
 ]
 
 NSTATE = 8  # scalar state slots per site in sh (the kernel's layout)
-PARENT_LAUNCHES = _Counter()
-CHILD_LAUNCHES = _Counter()
+PARENT_LAUNCHES = Counter()
+CHILD_LAUNCHES = Counter()
 
 
 def prefix_available(model) -> bool:
@@ -226,7 +227,7 @@ def prefix_parent(model, parent_bits, *, matmul_dtype=torch.bfloat16, tables=Non
             hh.data_ptr(), sh.data_ptr(), out.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream,
         )
-        fused_rnn.check_launch(err, "fused_rnn_prefix_parent")
+        check_launch(err, "fused_rnn_prefix_parent")
         PARENT_LAUNCHES.n += 1
     return out, hh, sh
 
@@ -272,7 +273,7 @@ def prefix_child(model, child_rows, parent, s0, hh, sh, *,
             s0_s.data_ptr(), par_s.data_ptr(), hh.data_ptr(), sh.data_ptr(),
             out_s.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
         )
-        fused_rnn.check_launch(err, "fused_rnn_prefix_child")
+        check_launch(err, "fused_rnn_prefix_child")
         CHILD_LAUNCHES.n += 1
         out[perm] = out_s
     return out

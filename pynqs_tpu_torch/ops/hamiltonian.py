@@ -8,8 +8,11 @@ package's one-hot selections and three-way bf16 splits are not ported:
   * singles   <n|H|n_i^a> = (h1e[i,a] + Σ_{k∈occ} <ik||ak>) · sign,
     one product occ @ J for all (i, a), then a gather per sample;
   * doubles   <n|H|n_ij^ab> = <ij||ab> · sign, a direct gather from the
-    spin-sector pair blocks (H_aa, H_bb, H_ab), or from the compressed
-    triangle where the pair blocks are not built;
+    spin-sector pair blocks (H_aa, H_bb, H_ab); or, given the dense pair
+    matrix, the pair selection W[b, u, v] = Hpair[po[b, u], pv[b, v]]
+    (``ops/pair_select.py``, a CUDA kernel on the card) and one static
+    gather of each double's entry; or the compressed triangle where no
+    pair matrix is built;
   * signs from one exclusive prefix count per sample.
 
 The operands' dtype is the arithmetic's: f32 on the card, f64 in the
@@ -25,8 +28,14 @@ import torch
 
 from pynqs_tpu_torch.ops import onv
 from pynqs_tpu_torch.ops.excitation import ExcitationTable, make_comb_bits
+from pynqs_tpu_torch.ops.pair_select import pair_select_w
 
-__all__ = ["hij_diagonal", "comb_hij"]
+__all__ = ["hij_diagonal", "comb_hij", "pair_indices", "PAIR_SELECT"]
+
+# comb_hij's ``pair_select`` values, the JAX package's names: all read the
+# dense matrix through pair_select_w (the kernel for CUDA rows, the plain
+# version for CPU rows); "pallas" with the sector blocks raises
+PAIR_SELECT = ("auto", "xla", "pallas")
 
 
 def hij_diagonal(bits: torch.Tensor, diag1: torch.Tensor, K: torch.Tensor) -> torch.Tensor:
@@ -82,6 +91,39 @@ def _doubles_values(i, a, j, b, sector, hpair_sect, norb):
     return flat[off[sector] + po * nps[sector] + pv]
 
 
+@lru_cache(maxsize=16)
+def _pair_static(table: ExcitationTable, device: str):
+    """Device copies of the doubles' pair tables: the occupied and
+    virtual slot pairs, and each double's flat index u·n_v + v into W."""
+    dev = torch.device(device)
+    up = torch.as_tensor(table.upairs.astype(np.int64), device=dev)
+    vp = torch.as_tensor(table.vpairs.astype(np.int64), device=dev)
+    uv = table.u_of_k.astype(np.int64) * table.vpairs.shape[0] + table.v_of_k
+    return up, vp, torch.as_tensor(uv, device=dev)
+
+
+def _pair_operands(merged, table: ExcitationTable, device: str):
+    """(po [B, n_u], pv [B, n_v], uv [n_d]): each sample's canonical
+    occupied and virtual pair indices hi(hi-1)/2 + lo, from its merged
+    orbital list, and each double's flat index into W."""
+    up, vp, uv = _pair_static(table, device)
+
+    def canon(slots):
+        o1, o2 = merged[:, slots[:, 0]], merged[:, slots[:, 1]]
+        hi = torch.maximum(o1, o2)
+        lo = torch.minimum(o1, o2)
+        return hi * (hi - 1) // 2 + lo
+
+    return canon(up), canon(vp), uv
+
+
+def pair_indices(bits: torch.Tensor, table: ExcitationTable):
+    """(po [B, n_u], pv [B, n_v]) int64: each sample's canonical occupied
+    and virtual pair indices, the operands of the pair selection."""
+    merged = onv.merged_orbital_list(bits, table.noa, table.nob)
+    return _pair_operands(merged, table, str(bits.device))[:2]
+
+
 def _tri_index(p0, p1, q0, q1):
     """Compressed-triangle flat index for canonical (p0>p1, q0>q1)."""
     ij = p0 * (p0 - 1) // 2 + p1
@@ -98,21 +140,31 @@ def comb_hij(
     diag1: torch.Tensor,
     K: torch.Tensor,
     J: torch.Tensor,
-    hpair_sect: tuple | None = None,
+    hpair=None,
     *,
     table: ExcitationTable,
     with_comb: bool = True,
+    pair_select: str = "auto",
 ):
     """Connected determinants and their matrix elements.
 
     bits [B, sorb] 0/1.  Returns (comb, hij): ``comb`` [B, 1 + n_sd,
     sorb] int8 with row 0 the sample itself (None when with_comb is
     False) and ``hij`` [B, 1 + n_sd] with hij[:, 0] = <n|H|n>.
-    ``hpair_sect``: the spin-sector pair blocks; None reads the doubles
-    from the compressed triangle ``h2e``.
+    ``hpair``: the doubles operand, as in the JAX package: a tuple of
+    the spin-sector pair blocks, a tensor for the dense pair matrix
+    [npair, npair], or None for the compressed triangle ``h2e``.
+    ``pair_select`` is one of ``PAIR_SELECT``; the dense matrix is read
+    through ``pair_select_w`` whatever its value.
     """
+    if pair_select not in PAIR_SELECT:
+        raise ValueError(f"pair_select must be one of {PAIR_SELECT}, not {pair_select!r}")
+    sectors = isinstance(hpair, (tuple, list))
+    if sectors and pair_select == "pallas":
+        raise ValueError("pair_select='pallas' needs the dense hpair matrix, not sector blocks")
     sorb = table.sorb
     ns = table.n_singles
+    nd = table.n_doubles
     dtype = K.dtype
     pos, sector, is_double = _static(table, str(bits.device))
 
@@ -137,8 +189,11 @@ def comb_hij(
     p1 = torch.minimum(i_d, j_d)
     q0 = torch.maximum(a_d, b_d)
     q1 = torch.minimum(a_d, b_d)
-    if hpair_sect is not None:
-        val_d = _doubles_values(i_d, a_d, j_d, b_d, sector, hpair_sect, sorb // 2)
+    if sectors:
+        val_d = _doubles_values(i_d, a_d, j_d, b_d, sector, hpair, sorb // 2)
+    elif hpair is not None and nd > 0:
+        po, pv, uv = _pair_operands(merged, table, str(bits.device))
+        val_d = pair_select_w(po, pv, hpair).reshape(bits.shape[0], -1)[:, uv].to(dtype)
     else:
         val_d = h2e[_tri_index(p0, p1, q0, q1)]
     base = cnts[:, ns:, :].sum(-1)

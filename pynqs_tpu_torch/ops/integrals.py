@@ -28,6 +28,7 @@ __all__ = [
     "sector_pair_index",
     "hpair_sector_blocks",
     "precompute_hij_tables",
+    "spin_raising",
 ]
 
 
@@ -212,3 +213,18 @@ def precompute_hij_tables(
         Hpair=Hpair,
         Hpair_sect=Hpair_sect,
     )
+
+
+def spin_raising(sorb: int, c1: float = 1.0) -> tuple[np.ndarray, np.ndarray]:
+    """S⁻S⁺ as (dense h1e, compressed h2e): the one-body part
+    c1·Spᵀ Sp with Sp[2i, 2i+1] = 1, the two-body part the doubly
+    antisymmetrized v[prqs] = Sp[q, p] Sp[r, s]."""
+    nbas = sorb // 2
+    sp = np.zeros((sorb, sorb))
+    for i in range(nbas):
+        sp[2 * i, 2 * i + 1] = 1.0
+    h1e = c1 * (sp.T @ sp)
+    v = np.einsum("qp,rs->prqs", sp, sp)
+    v = v - v.transpose(0, 1, 3, 2)
+    v = v - v.transpose(1, 0, 2, 3)
+    return h1e, compress_h2e(c1 * v, sorb)

@@ -17,6 +17,8 @@ __all__ = [
     "merged_orbital_list",
     "permute_sgn_matrix",
     "permute_sgn",
+    "spin_flip_bits",
+    "spin_flip_sign",
 ]
 
 
@@ -82,3 +84,20 @@ def permute_sgn(bits: torch.Tensor, A) -> torch.Tensor:
     A = torch.as_tensor(np.asarray(A), dtype=torch.float64, device=bits.device)
     inv = ((occ @ A) * occ).sum(-1).long()
     return 1 - 2 * (inv & 1)
+
+
+def _spin_flip_perm(sorb: int) -> np.ndarray:
+    return np.arange(sorb).reshape(-1, 2)[:, ::-1].reshape(-1)
+
+
+def spin_flip_bits(bits: torch.Tensor) -> torch.Tensor:
+    """α↔β spin flip: swap each even position with the odd one above it."""
+    return bits[..., torch.as_tensor(_spin_flip_perm(bits.shape[-1]), device=bits.device)]
+
+
+def spin_flip_sign(bits: torch.Tensor) -> torch.Tensor:
+    """±1 fermionic sign of the spin flip applied to |n⟩: the reordering
+    parity of the pairwise even/odd swap (as ``permute_sgn``)."""
+    perm = _spin_flip_perm(bits.shape[-1])
+    return permute_sgn(bits[..., torch.as_tensor(perm, device=bits.device)],
+                       permute_sgn_matrix(perm))

@@ -3,7 +3,8 @@
 Counterpart of ``pynqs_tpu/optim/vmc.py`` (``VMC``, ``VMCConfig``),
 restricted to the fields of the flagship step.  One step: AR sampling
 → local energy (SIMPLE or REDUCE; the ψ ratio forwards go through the
-fused forward) → pair-form gradient → clip → Adam/AdamW update.  Not
+fused forward) → pair-form gradient → clip → Adam/AdamW update;
+``operator_expected`` measures any operator on the state.  Not
 ported yet (ROADMAP): SR, freeze-and-sweep, EMA, profiling,
 checkpoint resume, the sample-count ramp, 3σ clipping, the mesh.
 """
@@ -16,6 +17,7 @@ from dataclasses import dataclass
 from functools import partial
 from typing import Callable
 
+import numpy as np
 import torch
 
 from pynqs_tpu_torch.energy.eloc import local_energy_reduce, local_energy_simple
@@ -26,6 +28,8 @@ from pynqs_tpu_torch.ops.fused_rnn import (
     pack_tables,
 )
 from pynqs_tpu_torch.ops.fused_rnn_prefix import ReducePrefixForward, prefix_available
+from pynqs_tpu_torch.ops.integrals import precompute_hij_tables
+from pynqs_tpu_torch.utils.stats import operator_stats
 
 __all__ = ["VMC", "VMCConfig"]
 
@@ -39,7 +43,7 @@ class VMCConfig:
     eloc_method: str = "simple"  # "simple" | "reduce"
     eloc_k_det: int = 256  # REDUCE: deterministic terms per sample
     eloc_n_stoch: int = 64  # REDUCE: stochastic tail draws per sample
-    eloc_topk: str = "exact"  # REDUCE deterministic set: "exact" | "segmax"
+    eloc_topk: str = "exact"  # REDUCE deterministic set: "exact" | "approx" | "segmax"
     grad_batch: int | None = None  # backward microbatch rows
     clip_grad: float | None = 1.0  # global-norm clip; None = off
     clip_schedule: Callable[[int], float] | None = None  # iteration -> max-norm
@@ -68,7 +72,7 @@ class VMC:
         # card, f64 in the CPU tests); never bf16
         tabs = system.tables(dev, model.M_re.dtype)
         self._ops = tabs.astuple()
-        self._hpair = tabs.hpair_sect
+        self._hpair = tabs.hpair_best
         self._table = system.excitation
         opt = {"adam": torch.optim.Adam, "adamw": torch.optim.AdamW}[self.cfg.optimizer]
         self.opt = opt(model.parameters(), lr=self.cfg.lr)
@@ -107,13 +111,13 @@ class VMC:
             eloc = local_energy_reduce(
                 fwd, bits, self._ops, self._table, generator,
                 k_det=self.cfg.eloc_k_det, n_stoch=self.cfg.eloc_n_stoch,
-                batch=self.cfg.eloc_batch, hpair_sect=self._hpair,
+                batch=self.cfg.eloc_batch, hpair=self._hpair,
                 topk=self.cfg.eloc_topk, prefix_fwd=self._eloc_prefix_fwd(),
             )
         else:
             eloc = local_energy_simple(
                 fwd, bits, self._ops, self._table,
-                batch=self.cfg.eloc_batch, hpair_sect=self._hpair,
+                batch=self.cfg.eloc_batch, hpair=self._hpair,
             )
         e, grads, var = energy_and_grad(
             self.model, bits, w, eloc, grad_batch=self.cfg.grad_batch
@@ -136,6 +140,37 @@ class VMC:
             "dropped_frac": diag["dropped_frac"],
             "n_unique": diag["n_unique"],
         }
+
+    def operator_expected(self, operator_tables, generator: torch.Generator, sampler=None):
+        """⟨O⟩ ± se for an operator given as (dense h1e, compressed h2e),
+        e.g. ``ops.integrals.spin_raising`` for ⟨S⁻S⁺⟩: the operator's
+        tables on the model's device and dtype, with the dense pair
+        matrix as the doubles operand; samples from ``sampler`` (default
+        the VMC's own; an ``ExactSampler`` gives the exact measure); the
+        local operator by ``cfg.eloc_method``.  Returns ``OperatorStats``."""
+        dev, dt = self.model.M_re.device, self.model.M_re.dtype
+        h1e_o, h2e_o = operator_tables
+        t = precompute_hij_tables(np.asarray(h1e_o), np.asarray(h2e_o), self.system.sorb,
+                                  self.system.dtype)
+
+        def put(a):
+            return torch.as_tensor(np.asarray(a), device=dev).to(dt)
+
+        ops = tuple(put(x) for x in (t.h1e, t.h2e, t.diag1, t.K, t.J))
+        hp = None if t.Hpair is None else put(t.Hpair)
+        bits, w, _ = (sampler or self.sampler).sample(self.model, generator)
+        fwd = self._eloc_forward()
+        if self.cfg.eloc_method == "reduce":
+            oloc = local_energy_reduce(
+                fwd, bits, ops, self._table, generator,
+                k_det=self.cfg.eloc_k_det, n_stoch=self.cfg.eloc_n_stoch,
+                batch=self.cfg.eloc_batch, hpair=hp, topk=self.cfg.eloc_topk,
+                prefix_fwd=self._eloc_prefix_fwd(),
+            )
+        else:
+            oloc = local_energy_simple(fwd, bits, ops, self._table,
+                                       batch=self.cfg.eloc_batch, hpair=hp)
+        return operator_stats(oloc[:, 0], w)
 
     def run(
         self,

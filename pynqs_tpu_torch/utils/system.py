@@ -8,6 +8,7 @@ ported: its molecule files are not in the repository.
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass, field
 from functools import cached_property
 
@@ -30,12 +31,22 @@ class DeviceTables:
     diag1: torch.Tensor
     K: torch.Tensor
     J: torch.Tensor
-    # spin-sector pair blocks (H_aa, H_bb, H_ab): the doubles operand of
-    # comb_hij; None when the pair space is too large (> 4096 pairs)
+    # the dense pair matrix [npair, npair] (2.4 MB f32 at sorb 40): the
+    # doubles operand of the final-state evaluation; None when the pair
+    # space is too large (> 4096 pairs)
+    hpair: torch.Tensor | None = None
+    # its spin-sector blocks (H_aa, H_bb, H_ab): the training step's
+    # doubles operand
     hpair_sect: tuple | None = None
 
     def astuple(self):
         return (self.h1e, self.h2e, self.diag1, self.K, self.J)
+
+    @property
+    def hpair_best(self):
+        """comb_hij's doubles operand for the training step: the sector
+        blocks where there are any, else the dense matrix."""
+        return self.hpair_sect if self.hpair_sect is not None else self.hpair
 
 
 @dataclass(frozen=True)
@@ -84,11 +95,27 @@ class System:
                 diag1=put(t.diag1),
                 K=put(t.K),
                 J=put(t.J),
+                hpair=None if t.Hpair is None else put(t.Hpair),
                 hpair_sect=None
                 if t.Hpair_sect is None
                 else tuple(put(b) for b in t.Hpair_sect),
             )
         return self._dev_cache[key]
+
+    def with_operator(self, h1e_p, h2e_p, coeff: float = 1.0) -> "System":
+        """The system whose Hamiltonian is H + coeff·O, with O given as
+        (dense h1e, compressed h2e), e.g. ``ops.integrals.spin_raising``:
+        the Slater–Condon tables are linear in the integrals.  ``e_ref``
+        is kept; the new system builds its own device tables."""
+        h1e_p = np.asarray(h1e_p, dtype=np.float64)
+        if h1e_p.ndim == 1:
+            h1e_p = h1e_p.reshape(self.sorb, self.sorb)
+        return dataclasses.replace(
+            self,
+            h1e=self.h1e + coeff * h1e_p,
+            h2e=self.h2e + coeff * np.asarray(h2e_p, dtype=np.float64),
+            _dev_cache={},
+        )
 
     # ---------------- constructors ----------------
 

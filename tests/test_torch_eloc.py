@@ -61,7 +61,7 @@ def test_local_energy_simple_matches_jax(kind, batch):
                   js.excitation, hpair=js.tables.hpair_sect)
     tt = ts.tables("cpu")
     out = local_energy_simple(_fwd(tm), torch.as_tensor(bits), tt.astuple(), ts.excitation,
-                              batch=batch, hpair_sect=tt.hpair_sect)
+                              batch=batch, hpair=tt.hpair_sect)
     assert out.shape == (bits.shape[0], 2)
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=1e-10, rtol=0)
 
@@ -74,10 +74,10 @@ def test_reduce_without_tail_equals_simple(topk):
     bits = torch.as_tensor(fci.fci_bits(SORB, NOA, NOB))
     tt = ts.tables("cpu")
     e_simple = local_energy_simple(_fwd(tm), bits, tt.astuple(), ts.excitation,
-                                   hpair_sect=tt.hpair_sect)
+                                   hpair=tt.hpair_sect)
     e_red = local_energy_reduce(_fwd(tm), bits, tt.astuple(), ts.excitation,
                                 torch.Generator().manual_seed(1), k_det=ts.excitation.n_sd,
-                                n_stoch=4, batch=11, hpair_sect=tt.hpair_sect, topk=topk)
+                                n_stoch=4, batch=11, hpair=tt.hpair_sect, topk=topk)
     np.testing.assert_allclose(e_red.numpy(), e_simple.numpy(), atol=1e-10, rtol=0)
 
 
@@ -90,11 +90,11 @@ def test_reduce_is_unbiased(topk):
     rows = torch.as_tensor(fci.fci_bits(SORB, NOA, NOB)[::17][:6])
     tt = ts.tables("cpu")
     ref = local_energy_simple(_fwd(tm), rows, tt.astuple(), ts.excitation,
-                              hpair_sect=tt.hpair_sect).numpy()
+                              hpair=tt.hpair_sect).numpy()
     reps = 400
     es = local_energy_reduce(_fwd(tm), rows.repeat(reps, 1), tt.astuple(), ts.excitation,
                              torch.Generator().manual_seed(2), k_det=8, n_stoch=16,
-                             hpair_sect=tt.hpair_sect, topk=topk)
+                             hpair=tt.hpair_sect, topk=topk)
     es = es.numpy().reshape(reps, rows.shape[0], 2)
     mean, se = es.mean(0), es.std(0) / np.sqrt(reps)
     assert (se[:, 0] > 0).all(), "the tail must be stochastic at k_det < n_sd"

@@ -1,6 +1,7 @@
 """Card-only tests of the port: the fused forward's CUDA kernel (tensor
-coupling included) and the prefix-sharing kernels against their plain
-versions, and VMC steps that go through the kernels.
+coupling included), the prefix-sharing kernels and the doubles pair
+selection against their plain versions, and VMC steps and the dense
+``comb_hij`` that go through the kernels.
 
 They import neither JAX nor the JAX package, so they also run where only
 PyTorch for CUDA is installed.  On a machine with a card:
@@ -22,6 +23,9 @@ import torch
 from pynqs_tpu_torch.models.graph_mps_rnn import GraphMPSRNN, grid_snake_graph
 from pynqs_tpu_torch.ops import fused_rnn
 from pynqs_tpu_torch.ops import fused_rnn_prefix as pre
+from pynqs_tpu_torch.ops import pair_select as ps
+from pynqs_tpu_torch.ops.hamiltonian import comb_hij
+from pynqs_tpu_torch.ops.integrals import triangle_size
 from pynqs_tpu_torch.optim.vmc import VMC, VMCConfig
 from pynqs_tpu_torch.sampler.ar_sampler import ARSampler
 from pynqs_tpu_torch.utils.checkpoint import load_params
@@ -211,3 +215,65 @@ def test_vmc_steps_on_card_launch_the_kernel(dev):
     assert fused_rnn.LAUNCHES.n - before == 20
     assert all(math.isfinite(e) for e in hist)
     assert np.mean(hist[-5:]) < np.mean(hist[:5]) - 0.05, hist
+
+
+def _pair_inputs(sym, dt, idx, dev, B=64, n_u=435, n_v=45, npair=780, seed=0):
+    rng = np.random.default_rng(seed)
+    h = rng.standard_normal((npair, npair))
+    if sym:
+        h = h + h.T
+    po = rng.integers(0, npair, (B, n_u))
+    pv = rng.integers(0, npair, (B, n_v))
+    return (torch.as_tensor(po, dtype=idx, device=dev), torch.as_tensor(pv, dtype=idx, device=dev),
+            torch.as_tensor(h, dtype=dt, device=dev), h, po, pv)
+
+
+@pytest.mark.parametrize("idx", [torch.int32, torch.int64], ids=["i32", "i64"])
+@pytest.mark.parametrize("dt", [torch.float32, torch.float64], ids=["f32", "f64"])
+@pytest.mark.parametrize("sym", [True, False], ids=["sym", "asym"])
+@pytest.mark.parametrize("variant", ps.VARIANTS)
+def test_pair_select_kernel_equals_plain_bitwise(variant, sym, dt, idx, dev):
+    """One launch per call; bitwise the plain version (a gather does no
+    arithmetic) and the advertised hpair[po, pv], also for a
+    non-symmetric hpair."""
+    po, pv, h, h_np, po_np, pv_np = _pair_inputs(sym, dt, idx, dev)
+    before = ps.LAUNCHES[variant].n
+    k = ps.pair_select_w(po, pv, h, variant=variant)
+    torch.cuda.synchronize()
+    assert ps.LAUNCHES[variant].n == before + 1
+    assert k.shape == (64, 435, 45) and k.dtype == dt
+    assert torch.equal(k, ps.pair_select_w_plain(po, pv, h, variant=variant))
+    ref = h_np[po_np[:, :, None], pv_np[:, None, :]]
+    assert torch.equal(k.cpu(), torch.as_tensor(ref, dtype=dt))
+
+
+def test_pair_select_on_cuda_never_calls_the_plain_version(dev, monkeypatch):
+    def boom(*a, **k):
+        raise AssertionError("the plain version ran on CUDA tensors")
+
+    monkeypatch.setattr(ps, "pair_select_w_plain", boom)
+    po, pv, h, *_ = _pair_inputs(True, torch.float32, torch.int64, dev)
+    for variant in ps.VARIANTS:
+        ps.pair_select_w(po, pv, h, variant=variant)
+    torch.cuda.synchronize()
+
+
+def test_comb_hij_dense_on_card_equals_sector_form(dev):
+    """f32 tables at sorb 20: the dense pair matrix through the kernel
+    (one launch of its lane variant, whatever ``pair_select`` names)
+    gives bitwise the sector blocks' matrix elements."""
+    rng = np.random.default_rng(1)
+    h1e = rng.standard_normal((20, 20)) * 0.1
+    system = System.from_integrals((h1e + h1e.T) / 2,
+                                   rng.standard_normal(triangle_size(20)) * 0.01, 20, 5, 5)
+    t = system.tables(dev, torch.float32)
+    bits = torch.as_tensor(_rand_dets(512, 20, 5, 5, 2), device=dev)
+    _, ref = comb_hij(bits, *t.astuple(), t.hpair_sect, table=system.excitation)
+    for pair_select in ("auto", "xla", "pallas"):
+        before = {v: c.n for v, c in ps.LAUNCHES.items()}
+        _, out = comb_hij(bits, *t.astuple(), t.hpair, table=system.excitation,
+                          pair_select=pair_select)
+        torch.cuda.synchronize()
+        assert ps.LAUNCHES["lane"].n == before["lane"] + 1
+        assert ps.LAUNCHES["rowrow"].n == before["rowrow"]
+        assert torch.equal(out, ref)

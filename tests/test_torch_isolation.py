@@ -82,6 +82,32 @@ def test_default_device_entry_points_raise_without_a_card(monkeypatch):
     assert pf.tables["W"].device.type == "cpu"
 
 
+def test_evaluation_entry_points_raise_without_a_card(monkeypatch):
+    """ExactSampler's space, the device tables with the dense pair matrix
+    and the final-state evaluation default to the card; asked for the
+    CPU, they run there."""
+    from pynqs_tpu_torch.models.graph_mps_rnn import GraphMPSRNN
+    from pynqs_tpu_torch.sampler.exact import ExactSampler
+    from pynqs_tpu_torch.scripts.eval_fe2s2_final import evaluate
+    from pynqs_tpu_torch.utils.system import System
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    system = System.hubbard_1d(4, 2, 2)
+    model = GraphMPSRNN(8, 2, 2, dcut=4, device="cpu")
+    kw = dict(n_sample=1000, capacity=36, n_group=1, split_depth=2, k_det=0, n_rep=1)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ExactSampler(8, 2, 2).space()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        system.tables()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        evaluate(model, system, **kw)
+    assert ExactSampler(8, 2, 2).space("cpu").shape == (36, 8)
+    t = system.tables("cpu")
+    assert t.hpair.shape == (28, 28) and t.hpair.device.type == "cpu"
+    (rep,) = evaluate(model, system, device="cpu", **kw)
+    assert np.isfinite(rep.e) and rep.n_live > 0 and rep.rows.device.type == "cpu"
+
+
 @pytest.mark.parametrize("where", ["repo", "alone"])
 def test_chip_smoke_fails_without_a_card(where, tmp_path):
     """No card (hidden from the process) or no repository beside the

@@ -171,7 +171,7 @@ def test_reduce_prefix_matches_jax(topk):
     got = local_energy_reduce(
         None, torch.as_tensor(rows), tt.astuple(), ts.excitation,
         torch.Generator().manual_seed(3), k_det=n_sd, n_stoch=8, batch=4,
-        hpair_sect=tt.hpair_sect, topk=topk, prefix_fwd=pf)
+        hpair=tt.hpair_sect, topk=topk, prefix_fwd=pf)
     np.testing.assert_allclose(got.numpy(), want, atol=2e-5, rtol=0)
 
 
