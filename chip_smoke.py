@@ -6,11 +6,14 @@
 Phases, one line each (and a few detail lines):
   1. environment probe (torch, CUDA, nvcc, triton, nvidia-smi);
   2. build of the CUDA kernels, one nvcc per source, started together
-     (pynqs_tpu_torch/csrc/fused_rnn.cu: the fused forward and the
-     prefix-sharing parent and child passes; csrc/pair_select.cu: the
-     doubles pair selection), with the compiler's register report and
-     each fused launch's shared memory;
-  3. the fused forward against its plain torch version on the card: the
+     (pynqs_tpu_torch/csrc/fused_rnn_mma.cu: the fused forward's bf16
+     mode on the tensor cores; csrc/fused_rnn.cu: its f32 mode on the
+     CUDA cores and the prefix-sharing parent and child passes;
+     csrc/pair_select.cu: the doubles pair selection), with the
+     compiler's register report and the shared memory of each fused
+     launch, the tensor-core kernel's at the chain and r5g64 shapes;
+  3. the fused forward against its plain torch version on the card (bf16
+     through the tensor-core kernel, f32 through the CUDA-core one): the
      dcut-48 Fe2S2 chain (checkpoints/fe2s2_dcut48_final.pkl; sorb 40,
      15α/15β) on 65,536 random valid rows in f32 and bf16, a small DAG
      model, the linear/unit modes, and the structured r5g64 flagship
@@ -21,17 +24,22 @@ Phases, one line each (and a few detail lines):
   5. three VMC steps in the flagship configuration (DFS sampling n=1e6,
      capacity 4096, 4 groups, split depth 6, compacted to B = 2048;
      REDUCE k_det 256 / n_stoch 64, segmax; seeded random integrals of
-     the Fe2S2 shape), through the CUDA kernel;
+     the Fe2S2 shape), through the tensor-core kernel (checked by its
+     launch count, as in phases 7 and 10);
   6. the kernel on the 657,408 rows of one step's eloc forward (captured
      in phase 5): agreement with the plain version, then CUDA-event
-     times of both beside the card's bound;
+     times beside the card's bound: in bf16 of the tensor-core kernel,
+     of the CUDA-core kernel in bf16 (``_launch_simt``, its time before
+     the tensor cores) and of the plain version; in f32 of the CUDA-core
+     kernel and the plain version;
   7. three VMC steps of the r5g64 flagship in the same configuration,
-     through the kernel's tensor-coupling branch; the branch on one
-     step's rows, timed as in phase 6;
+     through the tensor-core kernel's tensor coupling; the kernel on one
+     step's rows, held and timed as in phase 6, with W's L2 traffic;
   8. the prefix-sharing path (VMCConfig.eloc_prefix) on the dcut-48
      chain: the parent and child kernels against their plain versions
-     and the flat kernel on one step's rows, REDUCE with and without it,
-     three VMC steps through it, and CUDA-event times of both forwards;
+     and the flat CUDA-core kernel on one step's rows, REDUCE with and
+     without it, three VMC steps through it, and CUDA-event times of both
+     forwards (the flat one in bf16 on the tensor cores);
   9. the doubles pair selection W[b,u,v] = hpair[po[b,u], pv[b,v]] at
      the flagship's [2048, 435, 45]: both variants bitwise equal to the
      plain version (pair indices of phase 5's samples and random ones,
@@ -183,8 +191,12 @@ def ptxas_report(text):
         m = re.search(r"Compiling entry function '(\S+)'", ln)
         if m:
             t = re.search(r"ILi(\d+)ELi(\d+)ELb([01])E", m.group(1))
+            w = re.search(r"fused_rnn_mma_kernelILi(\d+)ELi(\d+)EE", m.group(1))
             u = re.search(r"pair_select_kernelI([fd])([il])Lb([01])E", m.group(1))
-            if t:
+            if w:
+                name = (f"tensor cores, O {16 * int(w.group(1))} outputs (dp "
+                        f"{8 * int(w.group(1))}), {w.group(2)} warps of 16 rows")
+            elif t:
                 name = (f"rows/warp {t.group(1)}, outputs/lane {t.group(2)}, "
                         f"W {'bf16' if t.group(3) == '1' else 'f32'}")
             elif u:
@@ -207,12 +219,14 @@ def ptxas_report(text):
 def build(fused_rnn, pair_select):
     """Build the kernels, one nvcc per source, all started together;
     return a function (d, mp, dcut_cmpr) -> the dynamic shared memory of
-    one fused launch in bytes."""
+    one launch of the CUDA-core fused kernel in bytes."""
     from concurrent.futures import ThreadPoolExecutor
 
-    with ThreadPoolExecutor(2) as pool:
+    with ThreadPoolExecutor(3) as pool:
         fut = pool.submit(fused_rnn.build_kernel)
+        fut_mma = pool.submit(fused_rnn.build_mma_kernel)
         pool.submit(pair_select.build_kernel).result()
+        fut_mma.result()
         lib_path = fut.result()
     smem = ctypes.CDLL(lib_path).fused_rnn_smem_bytes
     smem.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int]
@@ -267,25 +281,37 @@ def main():
            f"triton import: {has_triton} | gpu: {smi} | "
            f"devices {torch.cuda.device_count()} | {sys.version.split()[0]}")
 
-    # ---- 2. build ----
-    t0 = time.perf_counter()
-    smem = build(fused_rnn, ps)
-    log(2, f"built csrc/fused_rnn.cu (fused forward, prefix parent and child) and "
-           f"csrc/pair_select.cu (pair selection) for sm_90a in {time.perf_counter() - t0:.2f} s")
-    for name in ("fused_rnn", "pair_select"):
-        for ln in ptxas_report(cuda_build.BUILD_INFO.get(name, "")):
-            log(2, f"  ptxas {name}: {ln}")
-    log(2, f"  dynamic shared memory per CTA: {smem(DCUT, 1, 0)} B at dcut {DCUT} (chain; "
-           f"the prefix passes too), {smem(DCUT_R5, MAXP_R5, DCMP_R5)} B at the r5g64 shape "
-           f"(dcut {DCUT_R5}, {MAXP_R5} predecessors, dcut_cmpr {DCMP_R5}; limit 232,448 B), "
-           f"{smem(16, 2, 0)} B at dcut 16 with 2 predecessors")
-
     # ---- system: bench.py's stand-in for the absent Fe2S2 integrals ----
     irng = np.random.default_rng(0)
     h1e = irng.standard_normal((SORB, SORB)) * 0.1
     h1e = (h1e + h1e.T) / 2
     h2e = irng.standard_normal(triangle_size(SORB)) * 0.01
     system = System.from_integrals(h1e, h2e, SORB, NOA, NOB)
+
+    # ---- 2. build ----
+    t0 = time.perf_counter()
+    smem = build(fused_rnn, ps)
+    log(2, f"built csrc/fused_rnn_mma.cu (the fused forward on the tensor cores), "
+           f"csrc/fused_rnn.cu (the fused forward on the CUDA cores, prefix parent and child) "
+           f"and csrc/pair_select.cu (pair selection) for sm_90a in "
+           f"{time.perf_counter() - t0:.2f} s")
+    for name in ("fused_rnn_mma", "fused_rnn", "pair_select"):
+        for ln in ptxas_report(cuda_build.BUILD_INFO.get(name, "")):
+            log(2, f"  ptxas {name}: {ln}")
+    log(2, f"  CUDA-core kernel, dynamic shared memory per CTA: {smem(DCUT, 1, 0)} B at dcut "
+           f"{DCUT} (chain; the prefix passes too), {smem(DCUT_R5, MAXP_R5, DCMP_R5)} B at the "
+           f"r5g64 shape (dcut {DCUT_R5}, {MAXP_R5} predecessors, dcut_cmpr {DCMP_R5}; limit "
+           f"232,448 B), {smem(16, 2, 0)} B at dcut 16 with 2 predecessors")
+    for what, m in (("chain dcut 48", GraphMPSRNN(SORB, NOA, NOB, dcut=DCUT, device=dev)),
+                    ("r5g64 (dcut 64, tensor coupling, stand-in graph)",
+                     flagship_model(system, DCUT_R5, use_tensor=True, max_preds=MAXP_R5,
+                                    device=dev))):
+        sh = fused_rnn.mma_launch_shape(m)
+        log(2, f"  tensor-core kernel at {what}: dp {fused_rnn.mma_width(m.dcut)}, "
+               f"{sh['warps']} warps = {16 * sh['warps']} rows per CTA, {sh['nslots']} hidden "
+               f"slot(s) in {sh['slots']} memory, dynamic shared memory {sh['smem_bytes']} B "
+               f"per CTA (3 weight stages of 24,576 B + the slots)")
+
     tabs = system.tables(dev, torch.float32)
     table = system.excitation
     ops = tabs.astuple()
@@ -331,9 +357,12 @@ def main():
         return st["max_a"]
 
     def compare(name, m, x, mm):
+        before = fused_rnn.MMA_LAUNCHES.n
         k = fused_rnn.graph_mpsrnn_logpsi_fused(m, x, matmul_dtype=mm)
         p = fused_rnn.graph_mpsrnn_logpsi_fused_plain(m, x, matmul_dtype=mm)
         sync()
+        check(fused_rnn.MMA_LAUNCHES.n == before + (mm == bf16),
+              f"{name} {mmname(mm)}: the tensor-core kernel ran in f32 or not in bf16")
         agree(3, name, m, x, mm, k, p)
 
     def compare_log_psi(name, m, x):
@@ -514,18 +543,34 @@ def main():
     def time_flat(phase, name, m, trows, kreps):
         """Agreement with the plain version (as ``compare``) and CUDA-event
         times, both modes, on one step's rows: {mm: (kernel ms, plain ms,
-        max|Δlog|ψ||)}."""
+        max|Δlog|ψ||, the CUDA-core kernel's ms in bf16 or None)}.  The
+        kernel of bf16 mode is the tensor-core one; the CUDA-core kernel
+        in bf16 (``_launch_simt``) is timed before and after it."""
         tables = fused_rnn.pack_tables(m)
         res = {}
         for mm in (bf16, f32):
             kern = lambda mm=mm: fused_rnn.graph_mpsrnn_logpsi_fused(m, trows, matmul_dtype=mm, tables=tables)  # noqa: E731
             plain = lambda mm=mm: fused_rnn.graph_mpsrnn_logpsi_fused_plain(m, trows, matmul_dtype=mm, tables=tables)  # noqa: E731
+            simt = lambda: fused_rnn._launch_simt(m, trows, tables)  # noqa: E731
             k_out, p_out = kern(), plain()
             sync()
             err = agree(phase, f"{name} step rows", m, trows, mm, k_out, p_out, tables)
             del k_out, p_out
-            res[mm] = alternate(plain, kern, kreps) + (err,)
+            if mm == bf16:
+                s1 = cuda_ms(simt, kreps)
+                k, p = alternate(plain, kern, kreps)
+                prev = (s1 + cuda_ms(simt, kreps)) / 2
+            else:
+                (k, p), prev = alternate(plain, kern, kreps), None
+            res[mm] = (k, p, err, prev)
         return res, tables
+
+    def w_traffic(m, tables, n):
+        """(launch shape, bytes of W every CTA streams, the L2 traffic of
+        W over all CTAs) of the tensor-core kernel at n rows."""
+        sh = fused_rnn.mma_launch_shape(m)
+        w = fused_rnn.pack_mma_tables(m, tables)["tab"].numel() * 2
+        return sh, w, w * -(-n // (16 * sh["warps"]))
 
     # ---- 5. three VMC steps, flagship configuration ----
     trows, fbits, fw, _ = capture_rows(model, 4, 5)  # phase 6 uses them
@@ -539,9 +584,10 @@ def main():
            f"{(e_mm[bf16] - e_mm[f32]) * 1e3:+.4f} mHa")
     reset_peak()
     vmc = VMC(model, system, sampler, config())
-    steps = run_steps(5, vmc, {"flat": fused_rnn.LAUNCHES}, 3)
-    launches = fused_rnn.LAUNCHES.n
-    check(launches > 0, "the VMC steps never launched the fused kernel")
+    steps = run_steps(5, vmc, {"flat": fused_rnn.LAUNCHES, "mma": fused_rnn.MMA_LAUNCHES}, 3)
+    launches = fused_rnn.MMA_LAUNCHES.n
+    check(launches > 0 and launches == fused_rnn.LAUNCHES.n,
+          "the VMC steps did not launch the tensor-core kernel alone")
     log(5, f"{STEPS} steps done: kernel launches {launches}; max_memory_allocated "
            f"{peak_gib():.3f} GiB")
     stage_times(5, model, flat_fwd)
@@ -572,10 +618,17 @@ def main():
     flop6 = n_rows * norb * flop_per_site(DCUT, 1)
     nbytes6 = {mm: n_rows * SORB + n_rows * 2 * 4 + table_bytes(tables, mm) for mm in t6}
     b6 = {mm: bound(flop6, nbytes6[mm], mm) for mm in t6}
-    for mm, (k, p, _) in t6.items():
-        log(6, f"fused forward {mmname(mm)} at {n_rows} rows: kernel {k:.3f} ms, "
-               f"plain {p:.3f} ms, bound {b6[mm][0]:.3f} ms ({flop6 / 1e12:.3f} TFLOP, "
+    for mm, (k, p, _, prev) in t6.items():
+        log(6, f"fused forward {mmname(mm)} at {n_rows} rows: "
+               + (f"tensor-core kernel {k:.3f} ms, CUDA-core kernel {prev:.3f} ms "
+                  f"({prev / k:.2f}x), " if prev else f"CUDA-core kernel {k:.3f} ms, ")
+               + f"plain {p:.3f} ms, bound {b6[mm][0]:.3f} ms ({flop6 / 1e12:.3f} TFLOP, "
                f"{nbytes6[mm] / 1e6:.1f} MB), {flop6 / k / 1e9:.2f} TFLOP/s; gpu {smi}")
+    sh6, w6, l2_6 = w_traffic(model, tables, n_rows)
+    log(6, f"tensor-core kernel at {n_rows} rows: {16 * sh6['warps']} rows per CTA, "
+           f"{sh6['nslots']} slot(s) in {sh6['slots']} memory, {sh6['smem_bytes']} B shared "
+           f"memory per CTA; every CTA streams {w6 / 1e6:.3f} MB of W, "
+           f"{l2_6 / 1e9:.2f} GB through L2 in all")
     del trows
 
     # ---- 7. the r5g64 structured flagship: three VMC steps ----
@@ -585,9 +638,10 @@ def main():
            f"{(fw7 @ el7[:, 0].to(fw7.dtype)).item():.6f}")
     reset_peak()
     vmc7 = VMC(r5, system, sampler, config())
-    steps7 = run_steps(7, vmc7, {"flat": fused_rnn.LAUNCHES}, 9)
-    launches7 = fused_rnn.LAUNCHES.n
-    check(launches7 > 0, "the r5g64 steps never launched the fused kernel")
+    steps7 = run_steps(7, vmc7, {"flat": fused_rnn.LAUNCHES, "mma": fused_rnn.MMA_LAUNCHES}, 9)
+    launches7 = fused_rnn.MMA_LAUNCHES.n
+    check(launches7 > 0 and launches7 == fused_rnn.LAUNCHES.n,
+          "the r5g64 steps did not launch the tensor-core kernel alone")
     walls = ", ".join(f"{s['iter_time']:.3f}" for s in steps7)
     log(7, f"{STEPS} r5g64 steps done: step walls {walls} s; kernel launches "
            f"{launches7}; max_memory_allocated {peak_gib():.3f} GiB")
@@ -598,12 +652,19 @@ def main():
     flop7 = n7 * sum(flop_per_site(DCUT_R5, len(p), DCMP_R5) for p in r5.preds)
     nbytes7 = {mm: n7 * SORB + n7 * 2 * 4 + table_bytes(tables7, mm) for mm in t7}
     b7 = {mm: bound(flop7, nbytes7[mm], mm) for mm in t7}
-    for mm, (k, p, _) in t7.items():
-        log(7, f"fused forward with tensor coupling {mmname(mm)} at {n7} rows: kernel "
-               f"{k:.3f} ms, plain {p:.3f} ms, bound {b7[mm][0]:.3f} ms "
+    for mm, (k, p, _, prev) in t7.items():
+        log(7, f"fused forward with tensor coupling {mmname(mm)} at {n7} rows: "
+               + (f"tensor-core kernel {k:.3f} ms, CUDA-core kernel {prev:.3f} ms "
+                  f"({prev / k:.2f}x), " if prev else f"CUDA-core kernel {k:.3f} ms, ")
+               + f"plain {p:.3f} ms, bound {b7[mm][0]:.3f} ms "
                f"({flop7 / 1e12:.3f} TFLOP, {nbytes7[mm] / 1e6:.1f} MB), "
-               f"{flop7 / k / 1e9:.2f} TFLOP/s; DAG hidden file "
-               f"{n7 * norb * 2 * DCUT_R5 * 4 / 1e9:.2f} GB; gpu {smi}")
+               f"{flop7 / k / 1e9:.2f} TFLOP/s; gpu {smi}")
+    sh7, w7, l2_7 = w_traffic(r5, tables7, n7)
+    log(7, f"tensor-core kernel at {n7} rows: {16 * sh7['warps']} rows per CTA, "
+           f"{sh7['nslots']} hidden slots in {sh7['slots']} memory (no DAG hidden file; the "
+           f"CUDA-core kernel's f32 file would be {n7 * norb * 2 * DCUT_R5 * 4 / 1e9:.2f} GB), "
+           f"{sh7['smem_bytes']} B shared memory per CTA; every CTA streams "
+           f"{w7 / 1e6:.3f} MB of W, {l2_7 / 1e9:.2f} GB through L2 in all")
     del trows7
 
     # ---- 8. the prefix-sharing path on the dcut-48 chain ----
@@ -632,14 +693,18 @@ def main():
                                                       matmul_dtype=mm)
         pp, pc = pre.graph_mpsrnn_logpsi_fused_prefix_plain(model, par_bits, kids, t_min,
                                                             matmul_dtype=mm)
-        flat = fused_rnn.graph_mpsrnn_logpsi_fused(model, rows8, matmul_dtype=mm)
+        # the flat forward of the same CUDA-core design (the prefix passes
+        # share its loop; the tensor-core kernel sums in another order and
+        # is held to the plain version in phases 3 and 6)
+        flat = (fused_rnn._launch_simt(model, rows8) if mm == bf16
+                else fused_rnn.graph_mpsrnn_logpsi_fused(model, rows8, matmul_dtype=mm))
         sync()
         check(bool(torch.isfinite(kp).all() and torch.isfinite(kc).all()),
               "non-finite prefix kernel output")
         ta, tp = tol[mm]
         e = {"parent vs plain": phase_err(kp, pp), "child vs plain": phase_err(kc, pc),
-             "parent vs flat kernel": phase_err(kp, flat[:Bp]),
-             "child vs flat kernel": phase_err(kc.reshape(-1, 2), flat[Bp:])}
+             "parent vs flat CUDA-core kernel": phase_err(kp, flat[:Bp]),
+             "child vs flat CUDA-core kernel": phase_err(kc.reshape(-1, 2), flat[Bp:])}
         for what, (da, dp) in e.items():
             log(8, f"prefix {what} {mmname(mm)}: max|Δlog|ψ|| {da:.3e} (tol {ta:g}), "
                    f"max phase distance {dp:.3e} (tol {tp:g})")
@@ -741,7 +806,8 @@ def main():
         for what, (k, p) in t8[mm].items():
             log(8, f"{what} {mmname(mm)}: kernel {k:.3f} ms, plain {p:.3f} ms, bound "
                    f"{b8[mm][what][0]:.3f} ms ({b8[mm][what][1]}); gpu {smi}")
-    log(8, f"prefix forward / flat forward, kernels: bf16 "
+    log(8, f"prefix forward / flat forward, kernels (the flat one in bf16 on the tensor "
+           f"cores): bf16 "
            f"{t8[bf16]['prefix forward'][0] / t8[bf16]['flat forward'][0]:.3f}, f32 "
            f"{t8[f32]['prefix forward'][0] / t8[f32]['flat forward'][0]:.3f}")
 
@@ -822,14 +888,15 @@ def main():
     r5 = r5g64()
     eval_kw = dict(n_sample=1_000_000, capacity=4096, n_group=4, split_depth=6, k_det=1024,
                    n_stoch=256, batch=256, n_rep=1, fwd_dtype="bf16", device=dev)
-    for c in (*ps.LAUNCHES.values(), fused_rnn.LAUNCHES):
+    for c in (*ps.LAUNCHES.values(), fused_rnn.LAUNCHES, fused_rnn.MMA_LAUNCHES):
         c.reset()
     reset_peak()
     (rep,) = evaluate(r5, system, generator=torch.Generator(device=dev).manual_seed(11),
                       **eval_kw)
     sync()
     l10 = {"pair_select_lane": ps.LAUNCHES["lane"].n,
-           "pair_select_rowrow": ps.LAUNCHES["rowrow"].n, "fused": fused_rnn.LAUNCHES.n}
+           "pair_select_rowrow": ps.LAUNCHES["rowrow"].n, "fused": fused_rnn.LAUNCHES.n,
+           "fused_mma": fused_rnn.MMA_LAUNCHES.n}
     log(10, rep.line(0, system.e_ref))
     log(10, f"r5g64 evaluation (stand-in integrals, k_det 1024, n_stoch 256, batch 256, bf16 "
             f"forward): {rep.seconds:.3f} s per rep; E {rep.e:.6f} ± {rep.e_se:.2e}, <S-S+> "
@@ -838,8 +905,9 @@ def main():
     check(np.isfinite(rep.e) and np.isfinite(rep.s) and np.isfinite(rep.var),
           "non-finite evaluation")
     check(rep.s > -5 * rep.s_se, f"<S-S+> = {rep.s} below -5 se ({rep.s_se})")
-    check(l10["pair_select_lane"] > 0 and l10["fused"] > 0,
-          f"the evaluation did not launch the pair selection and the fused forward: {l10}")
+    check(l10["pair_select_lane"] > 0 and l10["fused_mma"] > 0
+          and l10["fused_mma"] == l10["fused"],
+          f"the evaluation did not launch the pair selection and the tensor-core kernel: {l10}")
 
     # the same rep again, each stage synchronized at every call, for the
     # time split; it also keeps the pair selection's first operands
@@ -895,19 +963,22 @@ def main():
             f"ms, one gather {lib_ms10:.4f} ms, bound {b10[0]:.4f} ms ({nbytes10 / 1e6:.2f} MB, "
             f"bytes); gpu {smi}")
 
-    def entry(name, replaces, launches_n, err, times, bnd, source="fused_rnn.cu", lib=None):
+    def entry(name, replaces, launches_n, err, times, bnd, source="fused_rnn.cu", lib=None,
+              **extra):
         return {
             "name": name, "route": "cuda", "source": f"pynqs_tpu_torch/csrc/{source}",
             "replaces": replaces, "launches": launches_n, "max_abs_err": err,
             "ms": times[0], "plain_ms": times[1], "bound_ms": bnd[0], "bound_by": bnd[1],
-            "library_ms": lib,
+            "library_ms": lib, **extra,
         }
 
+    # kernel #1 in bf16: the tensor-core kernel; prev_ms is the CUDA-core
+    # kernel's time in bf16 on the same rows in this run
     summary = {"kernels": [
-        entry("fused_rnn_forward", "pynqs_tpu/ops/fused_rnn.py:197", launches,
-              t6[bf16][2], t6[bf16], b6[bf16]),
-        entry("fused_rnn_forward_tensor", "pynqs_tpu/ops/fused_rnn.py:254", launches7,
-              t7[bf16][2], t7[bf16], b7[bf16]),
+        entry("fused_rnn_forward_mma", "pynqs_tpu/ops/fused_rnn.py:197", launches,
+              t6[bf16][2], t6[bf16], b6[bf16], "fused_rnn_mma.cu", prev_ms=t6[bf16][3]),
+        entry("fused_rnn_forward_mma_tensor", "pynqs_tpu/ops/fused_rnn.py:254", launches7,
+              t7[bf16][2], t7[bf16], b7[bf16], "fused_rnn_mma.cu", prev_ms=t7[bf16][3]),
         entry("fused_rnn_prefix_parent", "pynqs_tpu/ops/fused_rnn_prefix.py:226",
               l8["parent"], err8[bf16]["parent vs plain"][0], t8[bf16]["parent"],
               b8[bf16]["parent"]),

@@ -1,0 +1,540 @@
+// Fused teacher-forced Graph-MPS-RNN forward on Hopper's tensor cores
+// (sm_90a), bf16 operands with f32 sums: the bf16 mode of kernel #1.
+//
+// Replaces the Pallas TPU kernel pynqs_tpu/ops/fused_rnn.py::_kernel
+// (graph_mpsrnn_logpsi_fused), chain and DAG, with and without the
+// tensor coupling.  Its f32 mode stays on the CUDA cores
+// (csrc/fused_rnn.cu: TF32 would not keep f32 agreement).  For N rows of
+// site values it returns, per row, (log|psi|, Re and Im of the unit phase
+// product, linear phase); the wrapper (pynqs_tpu_torch/ops/fused_rnn.py)
+// turns them into (log|psi|, arg psi).  It rounds at the points of
+// graph_mpsrnn_logpsi_fused_plain in bf16 mode: W, h, U, the tensor
+// product and K to bf16; vcat, eta, the phase rows and all sums in f32;
+// the phase readout from the unrounded h.
+//
+// What bounds it: arithmetic.  Per row and site the complex transition
+// of all 4 values is a [2*mp*d] x [8d] product (74 kFLOP at d 48, mp 1;
+// 262 kFLOP at d 64, mp 2 with the coupling), against at most 9 bytes of
+// input and output per row and site: about 1 TFLOP (chain) and 3.5 TFLOP
+// (r5g64) per 657,408-row step forward, 1.0 and 3.5 ms at the card's
+// 989 TFLOP/s bf16 peak.  The weights are read by every CTA, so the
+// second limit is L2: every CTA streams all of W once per call.
+//
+// What the design does about it:
+//  * Rows on the M dimension of mma.sync.m16n8k16 (bf16 -> f32): each
+//    warp owns 16 rows and walks the sites.  For each site and value x,
+//    z_x[16, O] = u[16, K] @ W[t, x][K, O] with O = 2 dp outputs
+//    ([re | im], d padded to dp so that O / 16 is whole) and K = 2 dp per
+//    predecessor; the f32 accumulators stay in registers.
+//  * Epilogue in registers: in the m16n8 C layout a row's outputs sit in
+//    one quad of lanes, so each lane sums its own columns and two
+//    __shfl_xor_sync finish the eta-weighted and plain square sums; a
+//    per-row select keeps the row's own block in registers.  The [4 O] z
+//    is never stored.  The per-row scalar work (masks, logsumexp, norm,
+//    phase) runs redundantly on the 4 lanes of the row's quad, whose
+//    state stays in registers.
+//  * The hidden file on chip.  A lane of the C fragments of n-tiles 2k,
+//    2k+1 holds exactly the bf16 pairs that the same lane reads as the A
+//    fragment of k-step k, so a row's normalized h, rounded to bf16, is
+//    stored by each lane into its own 16-byte A fragments: the slot file
+//    [slot][k-step][lane] (uint4) is lane-private and needs no barrier.
+//    The host (hidden_slots) gives each site a slot live from its own
+//    site to its last reader; a chain needs one slot, the r5g64 stand-in
+//    graph 7.  The slots sit in shared memory where they fit beside the
+//    weight stages (8 warps, else 4 warps per CTA), else in a bf16 file in
+//    global memory, half the CUDA-core kernel's f32 file.  A
+//    multi-predecessor site reads each predecessor's k-block straight
+//    from its slot.
+//  * Weights packed once (pack_mma_tables) in bf16, in the order the
+//    fragments read them: per k-step and pair of n-tiles, lane l's four
+//    B registers are 16 consecutive bytes, so a warp loads a tile with one
+//    conflict-free 16-byte shared load per lane and each stage is one
+//    straight copy.  The whole table is one stream in consumption order
+//    (per site: UW, then per value W_x and KW_x), cut into chunks of at
+//    most 24 KB (a host table of offsets), fed through a ring of 3
+//    shared-memory stages by cp.async: the next chunks are in flight
+//    while the current one's MMAs run, one __syncthreads per chunk.
+//  * Accumulation.  The tensor cores add the 16 products of a k-step and
+//    the accumulator with their own alignment and truncation, not the
+//    round-to-nearest f32 adds of the plain version; kept across all
+//    k-steps inside the MMA, the sums drift from the plain version's far
+//    enough that the bf16 rounding of h flips more often and compounds
+//    over the sites (chip_smoke.py phase 3, r5g64 on an H100: 63 of the
+//    65 rows hold_rows allows left the phase tolerance, against 23 for
+//    the plain version with f64 sums).  So each k-step's MMA starts from
+//    zero and the CUDA cores add it to the f32 sums (24 rows), at the
+//    cost of those adds.
+//  * Tensor coupling as two more products, as the JAX kernel: uo_j = h_j
+//    @ UW_j on the tensor cores, each predecessor's k-block against its
+//    own 8*dcp columns, laid out (x, c, re|im) so that a lane holds re and
+//    im of the same c; the complex product over predecessors in
+//    registers, rounded to bf16, is then the A fragment of one more
+//    k-step z_x += pr_x @ KW_x (k = 2 dcp, zero-padded to 16).
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int STAGES = 3;
+constexpr int STAGE_U4 = 24576 / 16;  // one stage, in 16-byte units
+constexpr float NEG = -1e30f;
+constexpr int SMEM_LIMIT = 232448;
+
+struct Args {
+  const int8_t* vals;  // [N, norb] site values by site id
+  int N, norb, d, mp;
+  const int* order;   // [norb] site id at process position t
+  const int* npred;   // [norb]
+  const int* slot_w;  // [norb] slot that keeps site t's hidden, or -1
+  const int* slot_r;  // [norb, mp] slots of site t's predecessors
+  int nslots;
+  const uint4* tab;   // packed bf16 weight stream
+  const int* chunks;  // [nchunks, 2] (offset, length) in 16-byte units
+  int nchunks;
+  const float *vcat, *E, *PW, *SC;  // [norb, 4, O] x3, [norb, 4]
+  int noa, nob, phase_arg, norm_mpsrnn, use_tensor, dcp;
+  uint4* gslots;  // global slot file, or null: slots in shared memory
+  float* out;     // [N, 4]
+};
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// c += a (16x16 bf16, row) * b (16x8 bf16, col): the k16 product on the
+// tensor cores from a zero accumulator, then added to c by the CUDA
+// cores in round-to-nearest f32 (see the note on accumulation above)
+__device__ __forceinline__ void mma(float (&c)[4], const uint4& a, uint32_t b0, uint32_t b1) {
+  float d[4];
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%10,%11,%12,%13};\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
+      : "r"(a.x), "r"(a.y), "r"(a.z), "r"(a.w), "r"(b0), "r"(b1), "f"(0.f), "f"(0.f), "f"(0.f),
+        "f"(0.f));
+#pragma unroll
+  for (int e = 0; e < 4; ++e) c[e] += d[e];
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  v += __shfl_xor_sync(0xffffffffu, v, 2);
+  return v;
+}
+
+// The ring of weight stages.  Every thread of the CTA takes part; the
+// chunks are consumed in the order the host packed them.
+struct Pipe {
+  uint4* stage;
+  const uint4* tab;
+  const int* chunks;
+  int nchunks, next, cur;
+
+  __device__ __forceinline__ void fetch(int nthreads) {
+    if (next < nchunks) {
+      const int off = chunks[2 * next], n = chunks[2 * next + 1];
+      uint4* dst = stage + (next % STAGES) * STAGE_U4;
+      for (int i = threadIdx.x; i < n; i += nthreads) cp_async16(dst + i, tab + off + i);
+    }
+    cp_async_commit();  // an empty group keeps the count
+    ++next;
+  }
+  // wait for the next chunk; the stage read before it is free again
+  __device__ __forceinline__ const uint4* acquire(int nthreads) {
+    cp_async_wait<STAGES - 2>();
+    __syncthreads();
+    fetch(nthreads);
+    return stage + (cur++ % STAGES) * STAGE_U4;
+  }
+};
+
+// Walk a segment of nks k-steps of ksz 16-byte units each, chunk by chunk
+// (at most STAGE_U4 / ksz k-steps per chunk, as the host cut them).
+template <class F>
+__device__ __forceinline__ void walk(Pipe& p, int nthreads, int nks, int ksz, F&& body) {
+  const int maxks = STAGE_U4 / ksz;
+  for (int k0 = 0; k0 < nks; k0 += maxks) {
+    const uint4* buf = p.acquire(nthreads);
+    const int n = min(maxks, nks - k0);
+    for (int i = 0; i < n; ++i) body(k0 + i, buf + i * ksz);
+  }
+}
+
+// NP = O / 16 pairs of n-tiles; WARPS warps of 16 rows per CTA
+template <int NP, int WARPS>
+__global__ void __launch_bounds__(WARPS * 32) fused_rnn_mma_kernel(const Args a) {
+  constexpr int NT = 2 * NP;  // n8 tiles of one value's outputs
+  constexpr int O = 16 * NP;
+  constexpr int THREADS = WARPS * 32;
+  extern __shared__ __align__(16) uint4 smem[];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, cq = lane & 3;
+  const int rg = (blockIdx.x * WARPS + warp) * 16 + g, rh = rg + 8;  // this lane's rows
+  const int norb = a.norb, N = a.N, mp = a.mp;
+  const size_t slot_u4 = (size_t)NP * 32;  // one slot of one warp
+  uint4* slots = a.gslots ? a.gslots + ((size_t)blockIdx.x * WARPS + warp) * a.nslots * slot_u4
+                          : smem + STAGES * STAGE_U4 + (size_t)warp * a.nslots * slot_u4;
+  const int ntu = a.dcp / 4;  // n-tiles of one (pred, value) block of UW: 1 or 2
+  const int uw_ksz = a.dcp * 16;
+
+  Pipe pipe{smem, a.tab, a.chunks, a.nchunks, 0, 0};
+  for (int s = 0; s < STAGES - 1; ++s) pipe.fetch(THREADS);
+
+  // per-row state, the same in the 4 lanes of the row's quad
+  float la[2] = {0.f, 0.f}, ppr[2] = {1.f, 1.f}, ppi[2] = {0.f, 0.f}, pl[2] = {0.f, 0.f};
+  int ua[2] = {0, 0}, ub[2] = {0, 0};
+
+  for (int t = 0; t < norb; ++t) {
+    const int s = a.order[t];
+    const int np = a.npred[t];
+    const int xr[2] = {rg < N ? (int)a.vals[(size_t)rg * norb + s] : 0,
+                       rh < N ? (int)a.vals[(size_t)rh * norb + s] : 0};
+    const bool tensor = a.use_tensor && np >= 2;
+    const int* sr = a.slot_r + t * mp;
+
+    // ---- tensor coupling: pr_x = prod_j (h_j @ UW_j)_x, bf16 A fragments ----
+    uint4 pra[4];
+#pragma unroll
+    for (int x = 0; x < 4; ++x) pra[x] = make_uint4(0u, 0u, 0u, 0u);
+    if (tensor) {
+      float pr[4][2][4], uo[4][2][4];
+#pragma unroll
+      for (int x = 0; x < 4; ++x)
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) uo[x][i][e] = pr[x][i][e] = 0.f;
+      walk(pipe, THREADS, np * NP, uw_ksz, [&](int ks, const uint4* tile) {
+        const int j = ks / NP, kl = ks - j * NP;
+        const uint4 A = slots[(sr[j] * NP + kl) * 32 + lane];
+        // n-pair p covers tiles 2p, 2p+1; tile x * ntu + i is value x's
+        // i-th tile of (c, re|im) columns
+#pragma unroll
+        for (int p = 0; p < 4; ++p) {
+          if (p < 2 * ntu) {
+            const uint4 B = tile[p * 32 + lane];
+            if (ntu == 1) {
+              mma(uo[(2 * p) & 3][0], A, B.x, B.y);
+              mma(uo[(2 * p + 1) & 3][0], A, B.z, B.w);
+            } else {
+              mma(uo[p][0], A, B.x, B.y);
+              mma(uo[p][1], A, B.z, B.w);
+            }
+          }
+        }
+        if (kl == NP - 1) {  // predecessor j done: fold it into the product
+#pragma unroll
+          for (int x = 0; x < 4; ++x)
+#pragma unroll
+            for (int i = 0; i < 2; ++i)
+#pragma unroll
+              for (int e = 0; e < 4; e += 2) {
+                const float ur = uo[x][i][e], ui = uo[x][i][e + 1];
+                if (j == 0) {
+                  pr[x][i][e] = ur;
+                  pr[x][i][e + 1] = ui;
+                } else {  // as the plain version: products, then the sum
+                  const float qr = __fsub_rn(__fmul_rn(pr[x][i][e], ur), __fmul_rn(pr[x][i][e + 1], ui));
+                  const float qi = __fadd_rn(__fmul_rn(pr[x][i][e], ui), __fmul_rn(pr[x][i][e + 1], ur));
+                  pr[x][i][e] = qr;
+                  pr[x][i][e + 1] = qi;
+                }
+                uo[x][i][e] = 0.f;
+                uo[x][i][e + 1] = 0.f;
+              }
+        }
+      });
+      // columns (c, re|im) of tile i are k = 8 i + (2c + re|im) of KW's k-step
+#pragma unroll
+      for (int x = 0; x < 4; ++x) {
+        pra[x].x = pack_bf16(pr[x][0][0], pr[x][0][1]);
+        pra[x].y = pack_bf16(pr[x][0][2], pr[x][0][3]);
+        if (ntu == 2) {
+          pra[x].z = pack_bf16(pr[x][1][0], pr[x][1][1]);
+          pra[x].w = pack_bf16(pr[x][1][2], pr[x][1][3]);
+        }
+      }
+    }
+
+    // ---- the transition of each value, its epilogue in registers ----
+    float zsel[NT][4];
+    float ws[2][4], ssq[2] = {0.f, 0.f}, selsq[2] = {0.f, 0.f};
+    const int nks = np * NP + (tensor ? 1 : 0);
+#pragma unroll
+    for (int x = 0; x < 4; ++x) {
+      float acc[NT][4];
+#pragma unroll
+      for (int n = 0; n < NT; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+      const uint4 px = pra[x];
+      walk(pipe, THREADS, nks, NP * 32, [&](int ks, const uint4* tile) {
+        uint4 A = px;  // the last k-step of a coupled site: pr_x @ KW_x
+        if (ks < np * NP) {
+          const int j = ks / NP, kl = ks - j * NP;
+          A = slots[(sr[j] * NP + kl) * 32 + lane];
+        }
+#pragma unroll
+        for (int p = 0; p < NP; ++p) {
+          const uint4 B = tile[p * 32 + lane];
+          mma(acc[2 * p], A, B.x, B.y);
+          mma(acc[2 * p + 1], A, B.z, B.w);
+        }
+      });
+      // bias, square sums, keep the row's block
+      const float* vb = a.vcat + (size_t)(t * 4 + x) * O;
+      const float* eb = a.E + (size_t)(t * 4 + x) * O;
+      float pe0 = 0.f, ps0 = 0.f, pe1 = 0.f, ps1 = 0.f;
+#pragma unroll
+      for (int n = 0; n < NT; ++n) {
+        const int col = n * 8 + 2 * cq;
+        const float2 v = __ldg(reinterpret_cast<const float2*>(vb + col));
+        const float2 w = __ldg(reinterpret_cast<const float2*>(eb + col));
+        acc[n][0] += v.x;
+        acc[n][1] += v.y;
+        acc[n][2] += v.x;
+        acc[n][3] += v.y;
+        const float q0 = acc[n][0] * acc[n][0], q1 = acc[n][1] * acc[n][1];
+        const float q2 = acc[n][2] * acc[n][2], q3 = acc[n][3] * acc[n][3];
+        pe0 = fmaf(w.x, q0, fmaf(w.y, q1, pe0));
+        pe1 = fmaf(w.x, q2, fmaf(w.y, q3, pe1));
+        ps0 += q0 + q1;
+        ps1 += q2 + q3;
+      }
+      pe0 = quad_sum(pe0);
+      ps0 = quad_sum(ps0);
+      pe1 = quad_sum(pe1);
+      ps1 = quad_sum(ps1);
+      ws[0][x] = pe0;
+      ws[1][x] = pe1;
+      ssq[0] += ps0;
+      ssq[1] += ps1;
+      if (xr[0] == x) selsq[0] = ps0;
+      if (xr[1] == x) selsq[1] = ps1;
+#pragma unroll
+      for (int n = 0; n < NT; ++n) {
+        if (xr[0] == x) {
+          zsel[n][0] = acc[n][0];
+          zsel[n][1] = acc[n][1];
+        }
+        if (xr[1] == x) {
+          zsel[n][2] = acc[n][2];
+          zsel[n][3] = acc[n][3];
+        }
+      }
+    }
+
+    // ---- per-row scalars: masked conditional, gauge, hidden, phase ----
+    const int rem = norb - t - 1;
+    float nrm[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const bool occ_a = ua[r] + 1 <= a.noa, emp_a = a.noa - ua[r] <= rem;
+      const bool occ_b = ub[r] + 1 <= a.nob, emp_b = a.nob - ub[r] <= rem;
+      const bool m[4] = {emp_a && emp_b, occ_a && emp_b, emp_a && occ_b, occ_a && occ_b};
+      float lw[4];
+#pragma unroll
+      for (int v = 0; v < 4; ++v) lw[v] = m[v] ? logf(fmaxf(ws[r][v], 1e-30f)) : NEG;
+      const float mx = fmaxf(fmaxf(lw[0], lw[1]), fmaxf(lw[2], lw[3]));
+      const float lse = mx + logf(expf(lw[0] - mx) + expf(lw[1] - mx) + expf(lw[2] - mx) +
+                                  expf(lw[3] - mx));
+      const int xi = xr[r];
+      const float lwx = xi == 0 ? lw[0] : xi == 1 ? lw[1] : xi == 2 ? lw[2] : lw[3];
+      la[r] += 0.5f * (lwx - lse);
+      // the trap: the mpsrnn gauge divides by 4 d with the model's d
+      nrm[r] = a.norm_mpsrnn ? rsqrtf(fmaxf(ssq[r] / (float)(4 * a.d), 1e-30f))
+                             : rsqrtf(fmaxf(selsq[r], 1e-30f));
+    }
+    const float* pw0[2] = {a.PW + (size_t)(t * 4 + (a.phase_arg ? 0 : xr[0])) * O,
+                           a.PW + (size_t)(t * 4 + (a.phase_arg ? 0 : xr[1])) * O};
+    const float* pw1 = a.PW + (size_t)(t * 4 + 1) * O;
+    float pa[2] = {0.f, 0.f}, pb[2] = {0.f, 0.f};
+    const int sw = a.slot_w[t];
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+      const int col = n * 8 + 2 * cq;
+      const float h0 = zsel[n][0] * nrm[0], h1 = zsel[n][1] * nrm[0];
+      const float h2 = zsel[n][2] * nrm[1], h3 = zsel[n][3] * nrm[1];
+      const float2 p0 = __ldg(reinterpret_cast<const float2*>(pw0[0] + col));
+      const float2 p1 = __ldg(reinterpret_cast<const float2*>(pw0[1] + col));
+      pa[0] = fmaf(h0, p0.x, fmaf(h1, p0.y, pa[0]));
+      pa[1] = fmaf(h2, p1.x, fmaf(h3, p1.y, pa[1]));
+      if (a.phase_arg) {
+        const float2 q = __ldg(reinterpret_cast<const float2*>(pw1 + col));
+        pb[0] = fmaf(h0, q.x, fmaf(h1, q.y, pb[0]));
+        pb[1] = fmaf(h2, q.x, fmaf(h3, q.y, pb[1]));
+      }
+      zsel[n][0] = h0;
+      zsel[n][1] = h1;
+      zsel[n][2] = h2;
+      zsel[n][3] = h3;
+    }
+    // the hidden, rounded to bf16, into its slot as the A fragments the
+    // same lane reads at the sites that take it as a predecessor
+    if (sw >= 0) {
+#pragma unroll
+      for (int k = 0; k < NP; ++k) {
+        uint4 v;
+        v.x = pack_bf16(zsel[2 * k][0], zsel[2 * k][1]);
+        v.y = pack_bf16(zsel[2 * k][2], zsel[2 * k][3]);
+        v.z = pack_bf16(zsel[2 * k + 1][0], zsel[2 * k + 1][1]);
+        v.w = pack_bf16(zsel[2 * k + 1][2], zsel[2 * k + 1][3]);
+        slots[(sw * NP + k) * 32 + lane] = v;
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      pa[r] = quad_sum(pa[r]);
+      pb[r] = quad_sum(pb[r]);
+      const int xi = xr[r];
+      if (a.phase_arg) {
+        const float zr = pa[r] + a.SC[t * 4 + 0], zi = pb[r] + a.SC[t * 4 + 1];
+        const float m2 = zr * zr + zi * zi;
+        const bool ok = m2 > 1e-30f;  // z == 0 contributes phase 0
+        const float mag = rsqrtf(fmaxf(m2, 1e-30f));
+        const float fr = ok ? zr * mag : 1.f, fi = ok ? zi * mag : 0.f;
+        const float qr = ppr[r] * fr - ppi[r] * fi;
+        const float qi = ppr[r] * fi + ppi[r] * fr;
+        ppr[r] = qr;
+        ppi[r] = qi;
+      } else {
+        pl[r] += pa[r] + a.SC[t * 4 + xi];
+      }
+      ua[r] += xi & 1;
+      ub[r] += xi >> 1;
+    }
+  }
+  cp_async_wait<0>();
+
+  if (cq == 0) {
+    const int rows[2] = {rg, rh};
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      if (rows[r] < N) {
+        float* o = a.out + (size_t)rows[r] * 4;
+        o[0] = la[r];
+        o[1] = ppr[r];
+        o[2] = ppi[r];
+        o[3] = pl[r];
+      }
+    }
+  }
+}
+
+// The launch shape at O = 16 NP outputs with nslots slots: 8 warps of 16
+// rows per CTA with the slots in shared memory where they fit beside the
+// weight stages, else 4 warps, else 4 warps with the slots in global
+// memory.  cfg = {warps, slots in shared memory (1) or global (0),
+// dynamic shared memory bytes}.
+void pick(int NP, int nslots, int* cfg) {
+  const long stage_bytes = (long)STAGES * STAGE_U4 * 16;
+  const int warps[2] = {8, 4};
+  for (int w : warps) {
+    const long bytes = stage_bytes + (long)w * nslots * NP * 512;
+    if (bytes <= SMEM_LIMIT) {
+      cfg[0] = w;
+      cfg[1] = 1;
+      cfg[2] = (int)bytes;
+      return;
+    }
+  }
+  cfg[0] = 4;
+  cfg[1] = 0;
+  cfg[2] = (int)stage_bytes;
+}
+
+template <int NP, int WARPS>
+cudaError_t launch(const Args& a, int smem, cudaStream_t stream) {
+  auto kern = fused_rnn_mma_kernel<NP, WARPS>;
+  cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  const int rows = WARPS * 16;
+  kern<<<(a.N + rows - 1) / rows, WARPS * 32, smem, stream>>>(a);
+  return cudaGetLastError();
+}
+
+template <int NP>
+cudaError_t launch_np(const Args& a, const int* cfg, cudaStream_t stream) {
+  return cfg[0] == 8 ? launch<NP, 8>(a, cfg[2], stream) : launch<NP, 4>(a, cfg[2], stream);
+}
+
+}  // namespace
+
+// Plain C entry points (loaded with ctypes).
+
+// The launch shape (see pick) at padded width dp and nslots slots; 0, or
+// cudaErrorInvalidValue where dp is not one the kernel takes.
+extern "C" int fused_rnn_mma_config(int dp, int nslots, int* cfg) {
+  if (dp != 16 && dp != 32 && dp != 48 && dp != 64 && dp != 96 && dp != 128)
+    return (int)cudaErrorInvalidValue;
+  pick(dp / 8, nslots, cfg);
+  return 0;
+}
+
+// The bf16 flat forward on the tensor cores.  Operands as
+// pynqs_tpu_torch/ops/fused_rnn.py::pack_mma_tables lays them out;
+// gslots is the global slot file where fused_rnn_mma_config says so
+// (grid * warps * nslots * dp / 8 * 512 bytes), else ignored.  Launches
+// on ``stream`` and returns cudaGetLastError() of the launch.
+extern "C" int fused_rnn_forward_mma(
+    const void* vals, int N, int norb, int d, int dp, int mp, const void* order,
+    const void* npred, const void* slot_w, const void* slot_r, int nslots, const void* tab,
+    const void* chunks, int nchunks, const void* vcat, const void* E, const void* PW,
+    const void* SC, int noa, int nob, int phase_arg, int norm_mpsrnn, int use_tensor,
+    int dcp, void* gslots, void* out, void* stream) {
+  int cfg[3];
+  const int err = fused_rnn_mma_config(dp, nslots, cfg);
+  if (err) return err;
+  if (use_tensor && dcp != 4 && dcp != 8) return (int)cudaErrorInvalidValue;
+  Args a = {};
+  a.vals = static_cast<const int8_t*>(vals);
+  a.N = N;
+  a.norb = norb;
+  a.d = d;
+  a.mp = mp;
+  a.order = static_cast<const int*>(order);
+  a.npred = static_cast<const int*>(npred);
+  a.slot_w = static_cast<const int*>(slot_w);
+  a.slot_r = static_cast<const int*>(slot_r);
+  a.nslots = nslots;
+  a.tab = static_cast<const uint4*>(tab);
+  a.chunks = static_cast<const int*>(chunks);
+  a.nchunks = nchunks;
+  a.vcat = static_cast<const float*>(vcat);
+  a.E = static_cast<const float*>(E);
+  a.PW = static_cast<const float*>(PW);
+  a.SC = static_cast<const float*>(SC);
+  a.noa = noa;
+  a.nob = nob;
+  a.phase_arg = phase_arg;
+  a.norm_mpsrnn = norm_mpsrnn;
+  a.use_tensor = use_tensor;
+  a.dcp = use_tensor ? dcp : 4;
+  a.gslots = cfg[1] ? nullptr : static_cast<uint4*>(gslots);
+  a.out = static_cast<float*>(out);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t e;
+  switch (dp / 8) {
+    case 2: e = launch_np<2>(a, cfg, s); break;
+    case 4: e = launch_np<4>(a, cfg, s); break;
+    case 6: e = launch_np<6>(a, cfg, s); break;
+    case 8: e = launch_np<8>(a, cfg, s); break;
+    case 12: e = launch_np<12>(a, cfg, s); break;
+    default: e = launch_np<16>(a, cfg, s); break;
+  }
+  return (int)e;
+}

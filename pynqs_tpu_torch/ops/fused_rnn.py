@@ -1,4 +1,4 @@
-"""Fused teacher-forced Graph-MPS-RNN forward: CUDA kernel and plain version.
+"""Fused teacher-forced Graph-MPS-RNN forward: CUDA kernels and plain version.
 
 Counterpart of ``pynqs_tpu/ops/fused_rnn.py::graph_mpsrnn_logpsi_fused``
 (the Pallas kernel ``_kernel``).  It computes, without gradients, the
@@ -13,14 +13,18 @@ ratio forwards of the local energy.  Differences from ``log_psi``:
     f32; ``torch.float32`` is full f32.  Everything else is f32.
 
 ``graph_mpsrnn_logpsi_fused`` takes the plain torch version
-(``graph_mpsrnn_logpsi_fused_plain``) for rows on the CPU and the CUDA
-kernel (``csrc/fused_rnn.cu``) for rows on the card; on the card it
-launches the kernel or raises.  ``LAUNCHES`` counts kernel launches.
+(``graph_mpsrnn_logpsi_fused_plain``) for rows on the CPU.  On the card
+it launches, or raises: in bf16 mode the tensor-core kernel
+(``csrc/fused_rnn_mma.cu``, operands from ``pack_mma_tables`` and
+``hidden_slots``), in f32 mode the CUDA-core kernel
+(``csrc/fused_rnn.cu``).  ``LAUNCHES`` counts launches of either,
+``MMA_LAUNCHES`` those of the tensor-core kernel.
 """
 
 from __future__ import annotations
 
 import ctypes
+import weakref
 
 import torch
 import torch.nn.functional as F
@@ -34,12 +38,20 @@ __all__ = [
     "graph_mpsrnn_logpsi_fused_plain",
     "fused_forward_available",
     "pack_tables",
+    "pack_mma_tables",
+    "hidden_slots",
+    "mma_launch_shape",
     "build_kernel",
+    "build_mma_kernel",
     "LAUNCHES",
+    "MMA_LAUNCHES",
 ]
 
 _NEG = -1e30
-LAUNCHES = Counter()
+LAUNCHES = Counter()  # every launch of the fused forward (either kernel)
+MMA_LAUNCHES = Counter()  # launches of the tensor-core kernel
+MMA_WIDTHS = (16, 32, 48, 64, 96, 128)  # padded d (dp) the tensor-core kernel takes
+STAGE_U4 = 24576 // 16  # one weight stage of the tensor-core kernel, in 16-byte units
 
 
 def fused_forward_available(model) -> bool:
@@ -99,6 +111,166 @@ def pack_tables(model) -> dict:
         for k in ("U_re", "U_im", "K_re", "K_im"):
             out[k] = p[k].contiguous()
     return out
+
+
+def hidden_slots(model) -> tuple:
+    """Slots of the tensor-core kernel's hidden file: (slot_w, slot_r,
+    nslots).  slot_w[t] keeps the hidden of the site visited at position
+    t (-1: no later site reads it); slot_r[t][j] holds its predecessor j
+    (0 past npred).  A hidden is live from its own position to the last
+    position that reads it.  The reads of position t come before its
+    write, so a slot freed at t is taken again at t: a chain needs one."""
+    order, preds = model.site_order, model.preds
+    last = {}
+    for t, ps in enumerate(preds):
+        for p in ps:
+            last[p] = t
+    slot_of, free, nslots = {}, [], 0
+    slot_w, slot_r = [], []
+    for t, s in enumerate(order):
+        slot_r.append([slot_of[p] for p in preds[t]] + [0] * (model.maxp - len(preds[t])))
+        for p in preds[t]:
+            if last[p] == t:
+                free.append(slot_of.pop(p))
+        if s in last:
+            if free:
+                sl = min(free)
+                free.remove(sl)
+            else:
+                sl, nslots = nslots, nslots + 1
+            slot_of[s] = sl
+            slot_w.append(sl)
+        else:
+            slot_w.append(-1)
+    return slot_w, slot_r, max(nslots, 1)
+
+
+def mma_width(d: int) -> int:
+    """The padded d (dp) of the tensor-core kernel: O = 2 dp outputs make
+    whole pairs of n8 tiles and whole k16 steps."""
+    for dp in MMA_WIDTHS:
+        if d <= dp:
+            return dp
+    raise ValueError(f"the tensor-core kernel takes dcut <= {MMA_WIDTHS[-1]}, not {d}")
+
+
+def _frag(B: torch.Tensor) -> torch.Tensor:
+    """B [..., K, n] (K, n multiples of 16) -> [..., K/16, 16 n] in the
+    order mma.sync.m16n8k16 reads its B fragments: per k-step, per pair
+    p of n8 tiles, per lane l = 4 g + c, the 8 values (n-tile 2p + s,
+    k = 2c + 8 h + e) for s, h, e in {0, 1}, s slowest: one 16-byte load
+    per lane gives the lane's B registers of both tiles."""
+    K, n = B.shape[-2:]
+    lead = B.shape[:-2]
+    b = B.reshape(*lead, K // 16, 2, 4, 2, n // 16, 2, 8)  # ks, h, c, e, p, s, g
+    o = len(lead)
+    b = b.permute(*range(o), o, o + 4, o + 6, o + 2, o + 5, o + 1, o + 3)
+    return b.reshape(*lead, K // 16, 16 * n)
+
+
+_MMA_CACHE: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
+
+
+def pack_mma_tables(model, tables=None) -> dict:
+    """Operands of the tensor-core kernel, from ``pack_tables``' f32
+    tables (``tables``, or the model's own).  With dp = ``mma_width(d)``,
+    O = 2 dp, NP = O / 16, dcp = dcut_cmpr rounded up to 4 (4 or 8):
+
+      tab     bf16 stream, in the order the kernel consumes it; per
+              position t with np predecessors (coupled: use_tensor and
+              np >= 2):
+                coupled: UW, np * NP k-steps of ``_frag`` of B_j
+                  [2 dp, 8 dcp], rows (re|im, e < dp) of predecessor j's
+                  hidden, columns (x, c < dcp, re|im) of u_{j,x,c};
+                per value x: np * NP k-steps of ``_frag`` of W[t, x]
+                  [2 dp · mp, O] (rows (j, re|im, e), columns (re|im,
+                  dd)), then (coupled) one k-step of KW_x [16, O], rows
+                  (c, re|im) of the product, zero past 2 dcp;
+      chunks  int32 [n, 2] (offset, length) in 16-byte units: each run of
+              k-steps above cut into chunks of at most STAGE_U4 units;
+      vcat, E, PW  f32 [norb, 4, O], d padded to dp in each half; SC;
+      slot_w, slot_r, nslots  ``hidden_slots``; order, npred int32;
+      dp, dcp, NP.
+
+    Cached per model, while ``tables`` (or the model's parameters) are
+    the same tensors at the same version: an optimizer step or a load
+    repacks."""
+    src = list(model.parameters()) if tables is None else list(tables.values())
+    hit = _MMA_CACHE.get(model)
+    if hit is not None and len(hit[0]) == len(src) and all(
+        a is b and v == b._version for (a, v), b in zip(hit[0], src)
+    ):
+        return hit[1]
+    packed = _pack_mma(model, pack_tables(model) if tables is None else tables)
+    _MMA_CACHE[model] = ([(t, t._version) for t in src], packed)
+    return packed
+
+
+@torch.no_grad()
+def _pack_mma(model, T) -> dict:
+    norb, d, mp = model.norb, model.dcut, model.maxp
+    dp = mma_width(d)
+    O, NP = 2 * dp, dp // 8
+    dev, f, bf = T["W"].device, torch.float32, torch.bfloat16
+    pad_d = lambda v: F.pad(v.reshape(*v.shape[:-1], 2, d), (0, dp - d)).reshape(  # noqa: E731
+        *v.shape[:-1], O)
+    W = F.pad(T["W"].reshape(norb, 4, mp, 2, d, 2, d), (0, dp - d, 0, 0, 0, dp - d))
+    Wf = _frag(W.reshape(norb, 4, mp * O, O).to(bf))  # [norb, 4, mp NP, 16 O]
+    coupled = [model.use_tensor and len(ps) >= 2 for ps in model.preds]
+    dcp = 0
+    if model.use_tensor:
+        dc = model.dcut_cmpr
+        if dc > 8:
+            raise ValueError(f"the tensor-core kernel takes dcut_cmpr <= 8, not {dc}")
+        dcp = 4 if dc <= 4 else 8
+        Ur = T["U_re"].permute(0, 1, 4, 2, 3)  # [norb, mp, d(e), 4, dc]
+        Ui = T["U_im"].permute(0, 1, 4, 2, 3)
+        UW = torch.zeros(norb, mp, 2, dp, 4, dcp, 2, dtype=f, device=dev)
+        UW[:, :, 0, :d, :, :dc, 0] = Ur
+        UW[:, :, 1, :d, :, :dc, 0] = -Ui
+        UW[:, :, 0, :d, :, :dc, 1] = Ui
+        UW[:, :, 1, :d, :, :dc, 1] = Ur
+        UWf = _frag(UW.reshape(norb, mp, O, 8 * dcp).to(bf))  # [norb, mp, NP, 128 dcp]
+        Kr = T["K_re"].transpose(-1, -2)  # [norb, 4, dc, d]
+        Ki = T["K_im"].transpose(-1, -2)
+        KW = torch.zeros(norb, 4, 8, 2, 2, dp, dtype=f, device=dev)
+        KW[:, :, :dc, 0, 0, :d] = Kr
+        KW[:, :, :dc, 0, 1, :d] = Ki
+        KW[:, :, :dc, 1, 0, :d] = -Ki
+        KW[:, :, :dc, 1, 1, :d] = Kr
+        KWf = _frag(KW.reshape(norb, 4, 16, O).to(bf))  # [norb, 4, 1, 16 O]
+    pieces, chunks, off = [], [], 0
+
+    def segment(ks):  # ks [n k-steps, 8 ksz] bf16
+        nonlocal off
+        ksz = ks.shape[1] // 8
+        per = STAGE_U4 // ksz
+        for k0 in range(0, ks.shape[0], per):
+            n = min(per, ks.shape[0] - k0) * ksz
+            chunks.append((off, n))
+            off += n
+        pieces.append(ks.reshape(-1))
+
+    for t in range(norb):
+        npd = len(model.preds[t])
+        if coupled[t]:
+            segment(UWf[t, :npd].reshape(npd * NP, -1))
+        for x in range(4):
+            ks = Wf[t, x, : npd * NP]
+            segment(torch.cat([ks, KWf[t, x]]) if coupled[t] else ks)
+    slot_w, slot_r, nslots = hidden_slots(model)
+    i32 = dict(dtype=torch.int32, device=dev)
+    return {
+        "tab": torch.cat(pieces) if pieces else torch.zeros(8, dtype=bf, device=dev),
+        "chunks": torch.tensor(chunks, **i32).reshape(-1, 2),
+        "vcat": pad_d(T["vcat"]).contiguous(), "E": pad_d(T["E"]).contiguous(),
+        "PW": pad_d(T["PW"]).contiguous(), "SC": T["SC"].contiguous(),
+        "slot_w": torch.tensor(slot_w, **i32), "slot_r": torch.tensor(slot_r, **i32),
+        "nslots": nslots,
+        "order": torch.tensor(model.site_order, **i32),
+        "npred": torch.tensor([len(p) for p in model.preds], **i32),
+        "dp": dp, "dcp": dcp, "NP": NP,
+    }
 
 
 def _round(x, mmdt):
@@ -227,7 +399,7 @@ def graph_mpsrnn_logpsi_fused_plain(
     return _finish(model, bits, torch.stack(state[:4], dim=-1))
 
 
-# ---------------- the CUDA kernel ----------------
+# ---------------- the CUDA-core kernel ----------------
 
 
 def build_kernel() -> str:
@@ -290,7 +462,8 @@ def operands(model, matmul_dtype, tables, dev) -> tuple:
 
 
 @torch.no_grad()
-def _launch(model, bits, matmul_dtype, tables):
+def _launch_cuda_cores(model, bits, matmul_dtype, tables):
+    """The CUDA-core kernel (csrc/fused_rnn.cu ``fused_rnn_forward``)."""
     dev = bits.device
     T, W, order, pred, npred = operands(model, matmul_dtype, tables, dev)
     vals = site_values(model, bits)
@@ -324,12 +497,100 @@ def _launch(model, bits, matmul_dtype, tables):
     return _finish(model, bits, out)
 
 
+def _launch_simt(model, bits, tables=None):
+    """The CUDA-core kernel in bf16 mode, for timing it beside the
+    tensor-core kernel on the same rows.  Not reachable from
+    ``graph_mpsrnn_logpsi_fused``, which takes the tensor-core kernel in
+    bf16 mode."""
+    return _launch_cuda_cores(model, bits, torch.bfloat16, tables)
+
+
+# ---------------- the tensor-core kernel ----------------
+
+
+def build_mma_kernel() -> str:
+    """Compile csrc/fused_rnn_mma.cu for sm_90a into ``build/`` (once per
+    source version) and return the library path; the compiler's report
+    is kept in ``cuda_build.BUILD_INFO["fused_rnn_mma"]``."""
+    return cuda_build.build_library("fused_rnn_mma")
+
+
+def _bind_mma(so):
+    P, I = ctypes.c_void_p, ctypes.c_int
+    so.fused_rnn_forward_mma.argtypes = [
+        P, I, I, I, I, I,        # vals, N, norb, d, dp, mp
+        P, P, P, P, I,           # order, npred, slot_w, slot_r, nslots
+        P, P, I,                 # tab, chunks, nchunks
+        P, P, P, P,              # vcat, E, PW, SC
+        I, I, I, I, I, I,        # noa, nob, phase_arg, norm_mpsrnn, use_tensor, dcp
+        P, P, P,                 # gslots, out, stream
+    ]
+    so.fused_rnn_mma_config.argtypes = [I, I, P]
+    so.fused_rnn_forward_mma.restype = so.fused_rnn_mma_config.restype = I
+
+
+def lib_mma():
+    """The built library of the tensor-core kernel (fused_rnn_forward_mma,
+    fused_rnn_mma_config)."""
+    return cuda_build.load_library("fused_rnn_mma", _bind_mma)
+
+
+def mma_launch_shape(model) -> dict:
+    """How the tensor-core kernel launches for ``model``: warps of 16 rows
+    per CTA, where the hidden slots live ("shared" or "global"), their
+    count, and the dynamic shared memory of one CTA in bytes."""
+    dp = mma_width(model.dcut)
+    nslots = hidden_slots(model)[2]
+    cfg = (ctypes.c_int * 3)()
+    check_launch(lib_mma().fused_rnn_mma_config(dp, nslots, ctypes.addressof(cfg)),
+                 "fused_rnn_mma_config")
+    return {"warps": cfg[0], "slots": "shared" if cfg[1] else "global", "nslots": nslots,
+            "smem_bytes": cfg[2]}
+
+
+@torch.no_grad()
+def _launch_mma(model, bits, tables):
+    """The tensor-core kernel (csrc/fused_rnn_mma.cu), bf16 mode."""
+    dev = bits.device
+    if tables is not None:
+        for k, v in tables.items():
+            if v.device != dev or v.dtype != torch.float32 or not v.is_contiguous():
+                raise ValueError(f"table {k} must be contiguous f32 on {dev}")
+    P = pack_mma_tables(model, tables)
+    if P["tab"].device != dev:
+        raise ValueError(f"the model's tables must be on {dev}")
+    vals = site_values(model, bits)
+    N = bits.shape[0]
+    out = torch.empty(N, 4, dtype=torch.float32, device=dev)
+    if N > 0:
+        shape = mma_launch_shape(model)
+        rows = 16 * shape["warps"]
+        n_gslot = 0 if shape["slots"] == "shared" else (
+            -(-N // rows) * rows * P["nslots"] * 4 * P["dp"])
+        gslots = torch.empty(n_gslot, dtype=torch.uint8, device=dev)  # bf16 hidden file
+        err = lib_mma().fused_rnn_forward_mma(
+            vals.data_ptr(), N, model.norb, model.dcut, P["dp"], model.maxp,
+            P["order"].data_ptr(), P["npred"].data_ptr(), P["slot_w"].data_ptr(),
+            P["slot_r"].data_ptr(), P["nslots"], P["tab"].data_ptr(),
+            P["chunks"].data_ptr(), P["chunks"].shape[0],
+            P["vcat"].data_ptr(), P["E"].data_ptr(), P["PW"].data_ptr(), P["SC"].data_ptr(),
+            model.noa, model.nob, int(model.phase_mode == "arg"),
+            int(model.norm_mode == "mpsrnn"), int(model.use_tensor), P["dcp"],
+            gslots.data_ptr(), out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
+        )
+        check_launch(err, "fused_rnn_mma")
+        LAUNCHES.n += 1
+        MMA_LAUNCHES.n += 1
+    return _finish(model, bits, out)
+
+
 def graph_mpsrnn_logpsi_fused(
     model, bits: torch.Tensor, *, matmul_dtype=torch.bfloat16, tables=None
 ) -> torch.Tensor:
     """Gradient-free replacement for ``model.log_psi``: bits [N, sorb]
     0/1 -> [N, 2] (log|ψ|, arg ψ), f32.  CPU rows take the plain
-    version; CUDA rows launch the kernel (or raise)."""
+    version; CUDA rows launch the tensor-core kernel (bf16) or the
+    CUDA-core kernel (f32), or raise."""
     if not fused_forward_available(model):
         raise ValueError("the fused forward computes GraphMPSRNN models only")
     if bits.device.type == "cpu":
@@ -338,4 +599,6 @@ def graph_mpsrnn_logpsi_fused(
         )
     if bits.device.type != "cuda":
         raise ValueError(f"unsupported device {bits.device}")
-    return _launch(model, bits, matmul_dtype, tables)
+    if matmul_dtype == torch.bfloat16:
+        return _launch_mma(model, bits, tables)
+    return _launch_cuda_cores(model, bits, matmul_dtype, tables)  # raises unless f32

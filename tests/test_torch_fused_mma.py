@@ -1,0 +1,422 @@
+"""The tensor-core forward's host side on the CPU: ``pack_mma_tables``
+against the JAX package's weight packing, ``hidden_slots`` against the
+plain forward, and the kernel's walk through the packed stream.
+
+The kernel itself (csrc/fused_rnn_mma.cu) runs only on the card, where
+tests/test_torch_gpu.py holds it against the plain version.  Here:
+
+  * (a) the packed stream, read back k-step by k-step in the order the
+    kernel reads it and decoded with the mma.sync.m16n8k16 B-fragment
+    map (the PTX ISA's: lane 4g + c holds k = 2c + 8h + e of column g),
+    equals entry by entry, bitwise in bf16, the JAX package's
+    ``_pack_weights`` W and ``_pack_tensor_weights`` UW/KW, with the
+    same numpy-seeded parameters; padding is zero;
+  * (b) a plain forward that keeps the hiddens in ``hidden_slots``'
+    slots is bitwise equal, in f64, to the plain forward with its dict,
+    and no slot is overwritten while it is live;
+  * (c) an f64 emulation of the kernel's loops on the packed stream
+    (slots, UW product over predecessors, KW k-step, epilogue) agrees
+    with the plain version in f64 to 1e-9: the two differ only in
+    summation order.
+"""
+
+import numpy as np
+import jax
+import jax.numpy as jnp
+import pytest
+import torch
+
+from pynqs_tpu.models.graph_mps_rnn import GraphMPSRNN as JModel
+from pynqs_tpu.models.graph_mps_rnn import grid_snake_graph as jgrid
+from pynqs_tpu.ops.fused_rnn import _pack_tensor_weights, _pack_weights
+from pynqs_tpu.utils import fci
+from pynqs_tpu.utils.graph import dag_from_order as jdag
+
+from pynqs_tpu_torch.models.graph_mps_rnn import GraphMPSRNN, graph_from_edges, grid_snake_graph
+from pynqs_tpu_torch.ops import fused_rnn
+from pynqs_tpu_torch.ops.integrals import triangle_size
+from pynqs_tpu_torch.utils.flagship import flagship_model
+from pynqs_tpu_torch.utils.graph import dag_from_order
+from pynqs_tpu_torch.utils.system import System
+
+f64, bf16 = torch.float64, torch.bfloat16
+
+
+def _jax_dp(d):
+    return 32 if d <= 32 else 48 if d <= 48 else -(-d // 64) * 64
+
+
+def _pair(sorb, n, dcut, key, graph=None, jgraph=None, **kw):
+    """The JAX and the torch model on one graph, with the same
+    numpy-seeded parameters (a tree of numpy arrays)."""
+    jm = JModel(sorb, n, n, dcut=dcut, dtype=jnp.float32, graph=jgraph, **kw)
+    tm = GraphMPSRNN(sorb, n, n, dcut=dcut, dtype=torch.float32, graph=graph,
+                     device="cpu", **kw)
+    rng = np.random.default_rng(key)
+    params = {k: (0.3 * rng.standard_normal(tuple(v.shape))).astype(np.float32)
+              for k, v in tm.named_parameters()}
+    tm.load_numpy_params(params)
+    return jm, params, tm
+
+
+def _extra_pred_graphs(n, seed):
+    rng = np.random.default_rng(seed)
+    g = jdag(list(range(n)), np.abs(rng.standard_normal((n, n))), max_preds=3)
+    order, preds = g
+    edges = [(p, order[t]) for t, ps in enumerate(preds) for p in ps]
+    return graph_from_edges(n, edges, list(order)), g
+
+
+CASES = {
+    "chain-d10": lambda: _pair(12, 3, 10, 1, phase_mode="arg", norm_mode="mpsrnn"),
+    "dag-d8": lambda: _pair(12, 3, 8, 2, graph=grid_snake_graph(3, 2), jgraph=jgrid(3, 2),
+                            phase_mode="linear", norm_mode="unit"),
+    "tensor-d8-dc4": lambda: _pair(12, 3, 8, 4, graph=grid_snake_graph(3, 2),
+                                   jgraph=jgrid(3, 2), use_tensor=True, dcut_cmpr=4,
+                                   phase_mode="arg", norm_mode="mpsrnn"),
+    "tensor-3pred-d20-dc6": lambda: _pair(12, 3, 20, 5, *_extra_pred_graphs(6, 0),
+                                          use_tensor=True, dcut_cmpr=6,
+                                          phase_mode="linear", norm_mode="unit"),
+}
+
+
+# ---------------- the kernel's reading of the packed stream ----------------
+
+
+def _lane_map():
+    """(k, n) inside a 16 x 16 pair of n8 tiles of the flat index 8 l + i
+    of lane l = 4g + c's 8 bf16 values: register i // 2 = 2s + h holds
+    tile s's b{2h}, b{2h+1}, i.e. k = 2c + 8h + (i % 2), n = 8s + g."""
+    lane, i = np.arange(32)[:, None], np.arange(8)[None, :]
+    g, c = lane // 4, lane % 4
+    s, h, e = i // 4, (i // 2) % 2, i % 2
+    return (2 * c + 8 * h + e).ravel(), (8 * s + g).ravel()
+
+
+K_IDX, N_IDX = _lane_map()
+
+
+def _unfrag(tile, n):
+    """One k-step's flat values, width n -> the dense [16, n] B block."""
+    B = torch.zeros(16, n, dtype=f64)
+    for p, part in enumerate(tile.reshape(n // 16, 256)):
+        B[K_IDX, 16 * p + N_IDX] = part
+    return B
+
+
+class _Stream:
+    """The kernel's walk: runs of k-steps, chunk by chunk, in the order
+    of the chunk table (at most STAGE_U4 16-byte units per chunk)."""
+
+    def __init__(self, P):
+        self.tab = P["tab"].to(f64)
+        self.chunks = P["chunks"].tolist()
+        self.c = 0
+
+    def run(self, nks, ksz):
+        per, out = fused_rnn.STAGE_U4 // ksz, []
+        for k0 in range(0, nks, per):
+            off, n = self.chunks[self.c]
+            self.c += 1
+            m = min(per, nks - k0)
+            assert n == m * ksz and n <= fused_rnn.STAGE_U4
+            out += [self.tab[8 * (off + i * ksz): 8 * (off + (i + 1) * ksz)] for i in range(m)]
+        return out
+
+
+def _unpack(model, P):
+    """Per position t: {"W": [4, np·O, O], "UW": [np, O, 8 dcp], "KW":
+    [4, 16, O]} (the last two where coupled), as the kernel reads them."""
+    dcp, NP = P["dcp"], P["NP"]
+    O = 16 * NP
+    st, sites = _Stream(P), []
+    for ps in model.preds:
+        npd = len(ps)
+        site = {}
+        if model.use_tensor and npd >= 2:
+            B = [_unfrag(k, 8 * dcp) for k in st.run(npd * NP, 16 * dcp)]
+            site["UW"] = torch.cat(B).reshape(npd, O, 8 * dcp)
+        W, KW = [], []
+        for _ in range(4):
+            B = [_unfrag(k, O) for k in st.run(npd * NP + ("UW" in site), 32 * NP)]
+            W.append(torch.cat(B[: npd * NP]) if npd else torch.zeros(0, O, dtype=f64))
+            KW.append(B[-1] if "UW" in site else None)
+        site["W"] = torch.stack(W)
+        if "UW" in site:
+            site["KW"] = torch.stack(KW)
+        sites.append(site)
+    assert st.c == len(st.chunks)
+    return sites
+
+
+# ---------------- (a) the packing against the JAX package ----------------
+
+
+def _bf16(a):
+    return np.asarray(jnp.asarray(a, jnp.float32).astype(jnp.bfloat16).astype(jnp.float32))
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_packed_tables_equal_the_jax_packing(case):
+    jm, params, tm = CASES[case]()
+    d, dc = tm.dcut, tm.dcut_cmpr
+    jdp = _jax_dp(d)
+    P = fused_rnn.pack_mma_tables(tm)
+    dp, dcp = P["dp"], P["dcp"]
+    assert P["tab"].dtype == bf16 and dp == fused_rnn.mma_width(d)
+    sites = _unpack(tm, P)
+    jp = {k: jnp.asarray(v) for k, v in params.items()}
+    Wj = _bf16(jax.jit(lambda q: _pack_weights(jm, q, jdp)[0])(jp))  # [norb, 8 jdp, 2 mp jdp]
+    Wj = Wj.reshape(tm.norb, 4, 2, jdp, tm.maxp, 2, jdp)  # x, ri_o, dd, p, ri_i, e
+    for t, site in enumerate(sites):
+        npd = len(tm.preds[t])
+        assert not Wj[t, :, :, :, npd:].any()  # JAX's masked predecessors
+        W = site["W"].reshape(4, npd, 2, dp, 2, dp).numpy()  # x, p, ri_i, e, ri_o, dd
+        assert not W[:, :, :, d:].any() and not W[..., d:].any()
+        got = W[:, :, :, :d, :, :d].astype(np.float32)
+        want = Wj[t, :, :, :d, :npd, :, :d].transpose(0, 3, 4, 5, 1, 2)
+        np.testing.assert_array_equal(got, want)
+    if not tm.use_tensor:
+        assert P["dcp"] == 0 and not any("UW" in s for s in sites)
+        return
+    jdcp = -(-dc // 8) * 8
+    UWj, KWj = (_bf16(a) for a in jax.jit(
+        lambda q: _pack_tensor_weights(jm, q, jdp, jdcp))(jp))
+    UWj = UWj.reshape(tm.norb, tm.maxp, 4, 2, jdcp, tm.maxp, 2, jdp)  # j,x,ri_o,c,p,ri_i,e
+    KWj = KWj.reshape(tm.norb, 4, 2, jdp, 4, 2, jdcp)  # x, ri_o, dd, x', ri_i, c
+    n_coupled = 0
+    for t, site in enumerate(sites):
+        npd = len(tm.preds[t])
+        assert ("UW" in site) == (npd >= 2)
+        if "UW" not in site:
+            continue
+        n_coupled += 1
+        UW = site["UW"].reshape(npd, 2, dp, 4, dcp, 2).numpy()  # j, ri_i, e, x, c, ri_o
+        assert not UW[:, :, d:].any() and not UW[:, :, :, :, dc:].any()
+        for j in range(npd):
+            want = UWj[t, j, :, :, :dc, j, :, :d].transpose(3, 4, 0, 2, 1)  # ri_i,e,x,c,ri_o
+            np.testing.assert_array_equal(UW[j, :, :d, :, :dc].astype(np.float32), want)
+        KW = site["KW"].reshape(4, 8, 2, 2, dp).numpy()  # x, c, ri_i, ri_o, dd
+        assert not KW[:, dc:].any() and not KW[..., d:].any()
+        for x in range(4):
+            want = KWj[t, x, :, :d, x, :, :dc].transpose(3, 2, 0, 1)  # c, ri_i, ri_o, dd
+            np.testing.assert_array_equal(KW[x, :dc, :, :, :d].astype(np.float32), want)
+    assert n_coupled > 0
+
+
+# ---------------- (b) the hidden slots ----------------
+
+
+def _stand_in_system(sorb=40, n=15, seed=0):
+    rng = np.random.default_rng(seed)
+    h1e = rng.standard_normal((sorb, sorb)) * 0.1
+    return System.from_integrals((h1e + h1e.T) / 2,
+                                 rng.standard_normal(triangle_size(sorb)) * 0.01, sorb, n, n)
+
+
+def _random_dag(norb, seed):
+    rng = np.random.default_rng(seed)
+    return dag_from_order(list(rng.permutation(norb)), rng.standard_normal((norb, norb)),
+                          max_preds=int(rng.integers(2, 4)))
+
+
+GRAPHS = {
+    "chain": (12, None),
+    "grid-3x2": (12, grid_snake_graph(3, 2)),
+    "grid-4x5": (40, grid_snake_graph(4, 5)),
+    "r5g64-stand-in": (40, "r5g64"),
+    "random-dag-0": (16, _random_dag(8, 0)),
+    "random-dag-1": (24, _random_dag(12, 1)),
+    "random-dag-2": (20, _random_dag(10, 2)),
+}
+
+
+def _model_on(name, dcut=4, use_tensor=True):
+    sorb, graph = GRAPHS[name]
+    g = torch.Generator().manual_seed(3)
+    if graph == "r5g64":
+        return flagship_model(_stand_in_system(), dcut, use_tensor=use_tensor, max_preds=2,
+                              device="cpu", generator=g)
+    n = sorb // 8 + 1
+    return GraphMPSRNN(sorb, n, n, dcut=dcut, graph=graph, phase_mode="arg",
+                       norm_mode="mpsrnn", use_tensor=use_tensor, dtype=torch.float32,
+                       device="cpu", generator=g)
+
+
+def _rows(model, n, seed):
+    rng = np.random.default_rng(seed)
+    out = np.zeros((n, model.sorb), np.int8)
+    for s, no in ((0, model.noa), (1, model.nob)):
+        cols = np.argsort(rng.random((n, model.norb)), axis=1)[:, :no]
+        out[np.repeat(np.arange(n), no), 2 * cols.ravel() + s] = 1
+    return torch.as_tensor(out)
+
+
+def _slot_plain(model, bits, T):
+    """graph_mpsrnn_logpsi_fused_plain with the slot file for the dict."""
+    slot_w, slot_r, nslots = fused_rnn.hidden_slots(model)
+    N, d, mp = bits.shape[0], model.dcut, model.maxp
+    vals = bits[:, 0::2].long() + 2 * bits[:, 1::2].long()
+    W = fused_rnn._round(T["W"], bf16)
+    slots = torch.zeros(nslots, N, 2 * d, dtype=f64)
+    state = fused_rnn.init_state(N, "cpu", f64)
+    for t, s in enumerate(model.site_order):
+        npd = len(model.preds[t])
+        u = torch.cat([slots[slot_r[t][j]] for j in range(npd)]
+                      + [torch.zeros(N, 2 * d, dtype=f64)] * (mp - npd), dim=-1)
+        h, state = fused_rnn.plain_site(model, T, W, t, vals[:, s], u, state, bf16)
+        if slot_w[t] >= 0:
+            slots[slot_w[t]] = h
+    return fused_rnn._finish(model, bits, torch.stack(state[:4], dim=-1))
+
+
+@pytest.mark.parametrize("name", list(GRAPHS))
+def test_hidden_slots_forward_equals_the_plain_forward(name):
+    model = _model_on(name)
+    slot_w, slot_r, nslots = fused_rnn.hidden_slots(model)
+    # no slot is overwritten while live: each read finds its predecessor
+    owner, last = {}, {}
+    for t, ps in enumerate(model.preds):
+        for p in ps:
+            last[p] = t
+    for t, s in enumerate(model.site_order):
+        for j, p in enumerate(model.preds[t]):
+            assert owner[slot_r[t][j]] == p
+        if slot_w[t] >= 0:
+            prev = owner.get(slot_w[t])
+            assert prev is None or last[prev] <= t
+            owner[slot_w[t]] = s
+        else:
+            assert s not in last
+    live = max(sum(1 for p, tl in last.items()
+                   if model.site_order.index(p) < t <= tl) for t in range(model.norb))
+    assert nslots == max(1, live)
+    if name == "chain":
+        assert nslots == 1
+    if name == "r5g64-stand-in":
+        assert nslots <= 7
+    bits = _rows(model, 48, 1)
+    T = {k: v.double() for k, v in fused_rnn.pack_tables(model).items()}
+    want = fused_rnn.graph_mpsrnn_logpsi_fused_plain(model, bits, tables=T)
+    assert torch.equal(_slot_plain(model, bits, T), want)
+
+
+# ---------------- (c) the kernel's loops, emulated in f64 ----------------
+
+
+def _emulate(model, bits):
+    """The tensor-core kernel's arithmetic in f64 on the packed operands:
+    A from the slots, B as the walk above reads it."""
+    P = fused_rnn.pack_mma_tables(model)
+    sites = _unpack(model, P)
+    dp, dcp, NP = P["dp"], P["dcp"], P["NP"]
+    O, d, N = 2 * dp, model.dcut, bits.shape[0]
+    r = lambda x: x.to(bf16).to(f64)  # noqa: E731
+    vcat, E, PW, SC = (P[k].double() for k in ("vcat", "E", "PW", "SC"))
+    slot_w, slot_r = P["slot_w"].tolist(), P["slot_r"].tolist()
+    slots = torch.zeros(P["nslots"], N, O, dtype=f64)
+    vals = bits[:, 0::2].long() + 2 * bits[:, 1::2].long()
+    rows = torch.arange(N)
+    la, ppr, ppi, pl = (torch.zeros(N, dtype=f64), torch.ones(N, dtype=f64),
+                        torch.zeros(N, dtype=f64), torch.zeros(N, dtype=f64))
+    ua = torch.zeros(N, dtype=torch.long)
+    ub = torch.zeros(N, dtype=torch.long)
+    for t, s in enumerate(model.site_order):
+        npd, site, x = len(model.preds[t]), sites[t], vals[:, s]
+        A = [slots[slot_r[t][j]] for j in range(npd)]
+        z = torch.stack([(torch.cat(A, -1) @ site["W"][v] if npd else torch.zeros(N, O, dtype=f64))
+                         for v in range(4)], 1)  # [N, 4, O]
+        if "UW" in site:
+            pr = None
+            for j in range(npd):
+                uo = (A[j] @ site["UW"][j]).reshape(N, 4, dcp, 2)
+                pr = uo if pr is None else torch.stack(
+                    [pr[..., 0] * uo[..., 0] - pr[..., 1] * uo[..., 1],
+                     pr[..., 0] * uo[..., 1] + pr[..., 1] * uo[..., 0]], -1)
+            a = torch.zeros(N, 4, 16, dtype=f64)
+            a[:, :, : 2 * dcp] = r(pr).reshape(N, 4, 2 * dcp)
+            z = z + torch.einsum("nxk,xko->nxo", a, site["KW"])
+        z = z + vcat[t]
+        sums = (z * z * E[t]).sum(-1)
+        rem = model.norb - t - 1
+        m = torch.stack([(model.noa - ua <= rem) & (model.nob - ub <= rem),
+                         (ua + 1 <= model.noa) & (model.nob - ub <= rem),
+                         (model.noa - ua <= rem) & (ub + 1 <= model.nob),
+                         (ua + 1 <= model.noa) & (ub + 1 <= model.nob)], -1)
+        lw = torch.where(m, torch.log(torch.clamp(sums, min=1e-30)), torch.full_like(sums, -1e30))
+        la = la + 0.5 * (lw[rows, x] - torch.logsumexp(lw, -1))
+        sel = z[rows, x]
+        ssq = (z * z).sum((-2, -1)) if model.norm_mode == "mpsrnn" else (sel * sel).sum(-1)
+        h = sel * torch.rsqrt(torch.clamp(ssq / (4 * d if model.norm_mode == "mpsrnn" else 1),
+                                          min=1e-30))[:, None]
+        if model.phase_mode == "arg":
+            zr, zi = h @ PW[t, 0] + SC[t, 0], h @ PW[t, 1] + SC[t, 1]
+            m2 = zr * zr + zi * zi
+            mag = torch.rsqrt(torch.clamp(m2, min=1e-30))
+            fr = torch.where(m2 > 1e-30, zr * mag, torch.ones_like(zr))
+            fi = torch.where(m2 > 1e-30, zi * mag, torch.zeros_like(zi))
+            ppr, ppi = ppr * fr - ppi * fi, ppr * fi + ppi * fr
+        else:
+            pl = pl + (h * PW[t][x]).sum(-1) + SC[t][x]
+        ua, ub = ua + (x & 1), ub + (x >> 1)
+        if slot_w[t] >= 0:
+            slots[slot_w[t]] = r(h)
+    return fused_rnn._finish(model, bits, torch.stack([la, ppr, ppi, pl], -1))
+
+
+EMULATED = {
+    "chain-d10": lambda: CASES["chain-d10"]()[2],
+    "dag-d8-linear-unit": lambda: CASES["dag-d8"]()[2],
+    "tensor-d8-dc4": lambda: CASES["tensor-d8-dc4"]()[2],
+    "tensor-3pred-d20-dc6": lambda: CASES["tensor-3pred-d20-dc6"]()[2],
+    "r5g64-stand-in-d24": lambda: _model_on("r5g64-stand-in", dcut=24),
+    "grid-4x5-d50": lambda: _model_on("grid-4x5", dcut=50, use_tensor=False),
+}
+
+
+@pytest.mark.parametrize("case", list(EMULATED))
+def test_emulated_kernel_walk_matches_the_plain_version(case):
+    model = EMULATED[case]()
+    bits = (torch.as_tensor(fci.fci_bits(model.sorb, model.noa, model.nob)[:64])
+            if model.sorb <= 12 else _rows(model, 64, 2))
+    T = {k: v.double() for k, v in fused_rnn.pack_tables(model).items()}
+    want = fused_rnn.graph_mpsrnn_logpsi_fused_plain(model, bits, tables=T)
+    got = _emulate(model, bits)
+    assert (got[:, 0] - want[:, 0]).abs().max().item() < 1e-9
+    dphi = (torch.polar(torch.ones_like(got[:, 1]), got[:, 1])
+            - torch.polar(torch.ones_like(want[:, 1]), want[:, 1])).abs().max().item()
+    assert dphi < 1e-9
+
+
+# ---------------- the cache and the widths ----------------
+
+
+def test_packed_tables_follow_the_parameters():
+    """Cached while the parameters (or the given tables) are unchanged;
+    an in-place update, as an optimizer step makes, repacks."""
+    model = _model_on("grid-3x2")
+    a = fused_rnn.pack_mma_tables(model)
+    assert fused_rnn.pack_mma_tables(model) is a
+    T = fused_rnn.pack_tables(model)
+    b = fused_rnn.pack_mma_tables(model, T)
+    assert b is not a and fused_rnn.pack_mma_tables(model, T) is b
+    assert torch.equal(a["tab"], b["tab"])
+    with torch.no_grad():
+        model.M_re.add_(0.5)
+    c = fused_rnn.pack_mma_tables(model)
+    assert c is not a and not torch.equal(c["tab"], a["tab"])
+    bits = _rows(model, 16, 0)
+    T = {k: v.double() for k, v in fused_rnn.pack_tables(model).items()}
+    want = fused_rnn.graph_mpsrnn_logpsi_fused_plain(model, bits, tables=T)
+    assert (_emulate(model, bits)[:, 0] - want[:, 0]).abs().max().item() < 1e-9
+
+
+def test_mma_widths():
+    assert [fused_rnn.mma_width(d) for d in (1, 10, 16, 17, 48, 50, 64, 100, 128)] == [
+        16, 16, 16, 32, 48, 64, 64, 128, 128]
+    with pytest.raises(ValueError, match="dcut <= 128"):
+        fused_rnn.mma_width(129)
+    model = GraphMPSRNN(12, 3, 3, dcut=4, graph=grid_snake_graph(3, 2), use_tensor=True,
+                        dcut_cmpr=9, device="cpu")
+    with pytest.raises(ValueError, match="dcut_cmpr <= 8"):
+        fused_rnn.pack_mma_tables(model)

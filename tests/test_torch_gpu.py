@@ -1,5 +1,6 @@
-"""Card-only tests of the port: the fused forward's CUDA kernel (tensor
-coupling included), the prefix-sharing kernels and the doubles pair
+"""Card-only tests of the port: the fused forward's CUDA kernels (the
+tensor-core kernel in bf16, the CUDA-core kernel in f32; tensor coupling
+included), the prefix-sharing kernels and the doubles pair
 selection against their plain versions, and VMC steps and the dense
 ``comb_hij`` that go through the kernels.
 
@@ -29,6 +30,7 @@ from pynqs_tpu_torch.ops.integrals import triangle_size
 from pynqs_tpu_torch.optim.vmc import VMC, VMCConfig
 from pynqs_tpu_torch.sampler.ar_sampler import ARSampler
 from pynqs_tpu_torch.utils.checkpoint import load_params
+from pynqs_tpu_torch.utils.flagship import flagship_model
 from pynqs_tpu_torch.utils.system import System
 
 pytestmark = pytest.mark.gpu
@@ -85,30 +87,91 @@ def _model(case, dev):
     return m, _all_dets(12, 3, 3)
 
 
+def _agree(k, p, mm):
+    assert k.shape == p.shape and torch.isfinite(k).all()
+    ta, tp = (1e-4, 1e-3) if mm == "f32" else (1e-1, 1e-1)
+    assert (k[:, 0] - p[:, 0]).abs().max().item() < ta
+    d = (torch.polar(torch.ones_like(k[:, 1]), k[:, 1])
+         - torch.polar(torch.ones_like(p[:, 1]), p[:, 1])).abs().max().item()
+    assert d < tp
+
+
 @pytest.mark.parametrize("mm", ["f32", "bf16"])
 @pytest.mark.parametrize("case", ["chain-arg-mpsrnn-d10", "dag-arg-mpsrnn-d10",
                                   "chain-linear-unit-d24", "dag-linear-unit-d100",
                                   "fe2s2-dcut48", "dag-tensor-arg-mpsrnn-d10",
                                   "dag-tensor-linear-unit-d64"])
 def test_cuda_kernel_matches_plain(case, mm, dev):
-    """One launch per call, and the plain version's values: 1e-4 on
+    """One launch per call, of the tensor-core kernel in bf16 and of the
+    CUDA-core kernel in f32, and the plain version's values: 1e-4 on
     log|ψ| and 1e-3 on the unit-circle phase in f32 (the sums differ in
     order only); 1e-1 in bf16, where an f32 difference of one ulp can
     move h across a bf16 rounding boundary and the steps compound."""
     model, dets = _model(case, dev)
     bits = torch.as_tensor(dets, device=dev)
     dt = {"f32": torch.float32, "bf16": torch.bfloat16}[mm]
-    before = fused_rnn.LAUNCHES.n
+    before = (fused_rnn.LAUNCHES.n, fused_rnn.MMA_LAUNCHES.n)
     k = fused_rnn.graph_mpsrnn_logpsi_fused(model, bits, matmul_dtype=dt)
     torch.cuda.synchronize()
-    assert fused_rnn.LAUNCHES.n == before + 1
+    assert fused_rnn.LAUNCHES.n == before[0] + 1
+    assert fused_rnn.MMA_LAUNCHES.n == before[1] + (mm == "bf16")
     p = fused_rnn.graph_mpsrnn_logpsi_fused_plain(model, bits, matmul_dtype=dt)
-    assert k.shape == p.shape == (bits.shape[0], 2) and torch.isfinite(k).all()
-    ta, tp = (1e-4, 1e-3) if mm == "f32" else (1e-1, 1e-1)
-    assert (k[:, 0] - p[:, 0]).abs().max().item() < ta
-    d = (torch.polar(torch.ones_like(k[:, 1]), k[:, 1])
-         - torch.polar(torch.ones_like(p[:, 1]), p[:, 1])).abs().max().item()
-    assert d < tp
+    assert k.shape == (bits.shape[0], 2)
+    _agree(k, p, mm)
+
+
+@pytest.mark.parametrize("rows", ["0", "5", "tile+1"])
+@pytest.mark.parametrize("case", ["fe2s2-dcut48", "dag-tensor-linear-unit-d64"])
+def test_mma_kernel_ragged_rows(case, rows, dev):
+    """N = 0 (no launch), 5 rows (less than a warp's 16) and one CTA's
+    rows + 1: rows past N are neither written nor felt by the others."""
+    model, dets = _model(case, dev)
+    tile = 16 * fused_rnn.mma_launch_shape(model)["warps"]
+    n = {"0": 0, "5": 5, "tile+1": tile + 1}[rows]
+    bits = torch.as_tensor(np.resize(dets, (max(n, 1), dets.shape[1]))[:n], device=dev)
+    before = fused_rnn.MMA_LAUNCHES.n
+    k = fused_rnn.graph_mpsrnn_logpsi_fused(model, bits, matmul_dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    assert fused_rnn.MMA_LAUNCHES.n == before + (n > 0)
+    p = fused_rnn.graph_mpsrnn_logpsi_fused_plain(model, bits, matmul_dtype=torch.bfloat16)
+    assert k.shape == (n, 2)
+    if n:
+        _agree(k, p, "bf16")
+        # the same rows inside a full batch give the same values
+        full = fused_rnn.graph_mpsrnn_logpsi_fused(
+            model, torch.cat([bits, bits.flip(0)]), matmul_dtype=torch.bfloat16)
+        assert torch.equal(full[:n], k)
+
+
+def test_mma_kernel_global_hidden_slots(dev):
+    """dcut 128 on the r5g64 stand-in graph (7 live hiddens): the slots do
+    not fit in shared memory, so they go to the bf16 file in global
+    memory; the plain version's values all the same."""
+    rng = np.random.default_rng(0)
+    h1e = rng.standard_normal((40, 40)) * 0.1
+    system = System.from_integrals((h1e + h1e.T) / 2,
+                                   rng.standard_normal(triangle_size(40)) * 0.01, 40, 15, 15)
+    model = flagship_model(system, 128, use_tensor=True, max_preds=2, device=dev,
+                           generator=torch.Generator().manual_seed(0))
+    shape = fused_rnn.mma_launch_shape(model)
+    assert shape["slots"] == "global" and shape["nslots"] == 7, shape
+    bits = torch.as_tensor(_rand_dets(1000, 40, 15, 15, 5), device=dev)
+    k = fused_rnn.graph_mpsrnn_logpsi_fused(model, bits, matmul_dtype=torch.bfloat16)
+    p = fused_rnn.graph_mpsrnn_logpsi_fused_plain(model, bits, matmul_dtype=torch.bfloat16)
+    _agree(k, p, "bf16")
+
+
+def test_bf16_rows_on_card_never_take_the_plain_version_or_the_cuda_cores(dev, monkeypatch):
+    def boom(*a, **k):
+        raise AssertionError("the plain version or the CUDA-core kernel ran on bf16 CUDA rows")
+
+    monkeypatch.setattr(fused_rnn, "graph_mpsrnn_logpsi_fused_plain", boom)
+    monkeypatch.setattr(fused_rnn, "_launch_simt", boom)
+    monkeypatch.setattr(fused_rnn, "_launch_cuda_cores", boom)
+    for case in ("fe2s2-dcut48", "dag-tensor-arg-mpsrnn-d10"):
+        model, dets = _model(case, dev)
+        fused_rnn.graph_mpsrnn_logpsi_fused(model, torch.as_tensor(dets, device=dev))
+    torch.cuda.synchronize()
 
 
 def _close(a, b, tol):
@@ -202,17 +265,18 @@ def test_cuda_kernel_f32_matches_log_psi(dev):
 
 
 def test_vmc_steps_on_card_launch_the_kernel(dev):
-    """20 steps on the 4-site Hubbard chain: one kernel launch per step
-    and a falling, finite energy."""
+    """20 steps on the 4-site Hubbard chain: one tensor-core kernel launch
+    per step and a falling, finite energy."""
     system = System.hubbard_1d(4, 2, 2, u=4.0)
     model = GraphMPSRNN(8, 2, 2, dcut=4, phase_mode="arg", norm_mode="mpsrnn",
                         dtype=torch.float32, device=dev,
                         generator=torch.Generator().manual_seed(0))
     sampler = ARSampler(8, 2, 2, n_sample=20_000, capacity=36)
-    before = fused_rnn.LAUNCHES.n
+    before = (fused_rnn.LAUNCHES.n, fused_rnn.MMA_LAUNCHES.n)
     hist = VMC(model, system, sampler, VMCConfig(lr=0.05)).run(
         torch.Generator(device=dev).manual_seed(1), 20)
-    assert fused_rnn.LAUNCHES.n - before == 20
+    # the default bf16 forward: the tensor-core kernel
+    assert (fused_rnn.LAUNCHES.n - before[0], fused_rnn.MMA_LAUNCHES.n - before[1]) == (20, 20)
     assert all(math.isfinite(e) for e in hist)
     assert np.mean(hist[-5:]) < np.mean(hist[:5]) - 0.05, hist
 
