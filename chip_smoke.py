@@ -6,12 +6,13 @@
 Phases, one line each (and a few detail lines):
   1. environment probe (torch, CUDA, nvcc, triton, nvidia-smi);
   2. build of the CUDA kernels, one nvcc per source, started together
-     (pynqs_tpu_torch/csrc/fused_rnn_mma.cu: the fused forward's bf16
-     mode on the tensor cores; csrc/fused_rnn.cu: its f32 mode on the
-     CUDA cores and the prefix-sharing parent and child passes;
+     (pynqs_tpu_torch/csrc/fused_rnn_mma.cu: the fused forward's and the
+     prefix-sharing parent and child passes' bf16 mode on the tensor
+     cores; csrc/fused_rnn.cu: their f32 mode on the CUDA cores;
      csrc/pair_select.cu: the doubles pair selection), with the
-     compiler's register report and the shared memory of each fused
-     launch, the tensor-core kernel's at the chain and r5g64 shapes;
+     compiler's register report of every instantiation and the shared
+     memory of each fused launch, the tensor-core kernel's at the chain
+     and r5g64 shapes and the prefix passes' at the step's row counts;
   3. the fused forward against its plain torch version on the card (bf16
      through the tensor-core kernel, f32 through the CUDA-core one): the
      dcut-48 Fe2S2 chain (checkpoints/fe2s2_dcut48_final.pkl; sorb 40,
@@ -36,10 +37,15 @@ Phases, one line each (and a few detail lines):
      through the tensor-core kernel's tensor coupling; the kernel on one
      step's rows, held and timed as in phase 6, with W's L2 traffic;
   8. the prefix-sharing path (VMCConfig.eloc_prefix) on the dcut-48
-     chain: the parent and child kernels against their plain versions
-     and the flat CUDA-core kernel on one step's rows, REDUCE with and
-     without it, three VMC steps through it, and CUDA-event times of both
-     forwards (the flat one in bf16 on the tensor cores);
+     chain, on one step's rows: in bf16 the tensor-core parent and child
+     passes held to their plain versions (``hold_rows``) and bit for bit
+     equal to the flat tensor-core kernel on the same rows; in f32 the
+     CUDA-core passes against their plain versions and the flat
+     CUDA-core kernel; REDUCE with and without it, three VMC steps
+     through it (the tensor-core passes' launches counted), the site-steps
+     the child's CTAs run, and CUDA-event times of each pass (in bf16 the
+     tensor-core kernel, the CUDA-core kernel in bf16 and the plain
+     version) and of both whole forwards;
   9. the doubles pair selection W[b,u,v] = hpair[po[b,u], pv[b,v]] at
      the flagship's [2048, 435, 45]: both variants bitwise equal to the
      plain version (pair indices of phase 5's samples and random ones,
@@ -191,11 +197,14 @@ def ptxas_report(text):
         m = re.search(r"Compiling entry function '(\S+)'", ln)
         if m:
             t = re.search(r"ILi(\d+)ELi(\d+)ELb([01])E", m.group(1))
-            w = re.search(r"fused_rnn_mma_kernelILi(\d+)ELi(\d+)EE", m.group(1))
+            w = re.search(r"fused_rnn_mma_kernelILi(\d+)ELi(\d+)ELi(\d+)EE", m.group(1))
             u = re.search(r"pair_select_kernelI([fd])([il])Lb([01])E", m.group(1))
             if w:
-                name = (f"tensor cores, O {16 * int(w.group(1))} outputs (dp "
-                        f"{8 * int(w.group(1))}), {w.group(2)} warps of 16 rows")
+                mode = ("flat forward", "prefix parent", "prefix child")[int(w.group(3))]
+                warps = (f"{w.group(2)} warps of 16 rows" if w.group(2) != "0"
+                         else "warps of 16 rows set at launch")
+                name = (f"tensor cores, {mode}, O {16 * int(w.group(1))} outputs (dp "
+                        f"{8 * int(w.group(1))}), {warps}")
             elif t:
                 name = (f"rows/warp {t.group(1)}, outputs/lane {t.group(2)}, "
                         f"W {'bf16' if t.group(3) == '1' else 'f32'}")
@@ -291,8 +300,8 @@ def main():
     # ---- 2. build ----
     t0 = time.perf_counter()
     smem = build(fused_rnn, ps)
-    log(2, f"built csrc/fused_rnn_mma.cu (the fused forward on the tensor cores), "
-           f"csrc/fused_rnn.cu (the fused forward on the CUDA cores, prefix parent and child) "
+    log(2, f"built csrc/fused_rnn_mma.cu (the fused forward, prefix parent and child on the "
+           f"tensor cores), csrc/fused_rnn.cu (the same on the CUDA cores) "
            f"and csrc/pair_select.cu (pair selection) for sm_90a in "
            f"{time.perf_counter() - t0:.2f} s")
     for name in ("fused_rnn_mma", "fused_rnn", "pair_select"):
@@ -311,6 +320,14 @@ def main():
                f"{sh['warps']} warps = {16 * sh['warps']} rows per CTA, {sh['nslots']} hidden "
                f"slot(s) in {sh['slots']} memory, dynamic shared memory {sh['smem_bytes']} B "
                f"per CTA (3 weight stages of 24,576 B + the slots)")
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    chain_m = GraphMPSRNN(SORB, NOA, NOB, dcut=DCUT, device=dev)
+    for what, n in (("parent", B), ("child", B * (K_DET + N_STOCH))):
+        sh = fused_rnn.mma_launch_shape(chain_m, n, n_sm)
+        log(2, f"  tensor-core prefix {what} pass at the chain step's {n} rows on {n_sm} SMs: "
+               f"{sh['warps']} warp(s) = {16 * sh['warps']} rows per CTA, {sh['ctas']} CTAs, "
+               f"dynamic shared memory {sh['smem_bytes']} B per CTA")
+    del chain_m
 
     tabs = system.tables(dev, torch.float32)
     table = system.excitation
@@ -687,28 +704,39 @@ def main():
     log(8, f"one step's prefix inputs: {Bp} parents x {C} children, t_min mean "
            f"{t_min.float().mean().item():.3f}, {(t_min == 0).sum().item()} at 0, "
            f"{(t_min >= norb).sum().item()} at norb")
+    kids_flat = kids.reshape(-1, SORB)
     err8 = {}
     for mm in (f32, bf16):
         kp, kc = pre.graph_mpsrnn_logpsi_fused_prefix(model, par_bits, kids, t_min,
                                                       matmul_dtype=mm)
         pp, pc = pre.graph_mpsrnn_logpsi_fused_prefix_plain(model, par_bits, kids, t_min,
                                                             matmul_dtype=mm)
-        # the flat forward of the same CUDA-core design (the prefix passes
-        # share its loop; the tensor-core kernel sums in another order and
-        # is held to the plain version in phases 3 and 6)
-        flat = (fused_rnn._launch_simt(model, rows8) if mm == bf16
-                else fused_rnn.graph_mpsrnn_logpsi_fused(model, rows8, matmul_dtype=mm))
+        # the flat kernel of the same design on the same rows: in bf16 the
+        # tensor-core kernel, whose walk the prefix passes share, so every
+        # row must be equal bit for bit; in f32 the CUDA-core kernel
+        flat = fused_rnn.graph_mpsrnn_logpsi_fused(model, rows8, matmul_dtype=mm)
         sync()
         check(bool(torch.isfinite(kp).all() and torch.isfinite(kc).all()),
               "non-finite prefix kernel output")
-        ta, tp = tol[mm]
-        e = {"parent vs plain": phase_err(kp, pp), "child vs plain": phase_err(kc, pc),
-             "parent vs flat CUDA-core kernel": phase_err(kp, flat[:Bp]),
-             "child vs flat CUDA-core kernel": phase_err(kc.reshape(-1, 2), flat[Bp:])}
-        for what, (da, dp) in e.items():
-            log(8, f"prefix {what} {mmname(mm)}: max|Δlog|ψ|| {da:.3e} (tol {ta:g}), "
-                   f"max phase distance {dp:.3e} (tol {tp:g})")
-            check(da <= ta and dp <= tp, f"prefix {what} disagrees")
+        kc = kc.reshape(-1, 2)
+        e = {"parent vs plain": phase_err(kp, pp), "child vs plain": phase_err(kc, pc)}
+        if mm == bf16:
+            agree(8, "prefix parent (tensor cores)", model, par_bits, mm, kp, pp)
+            agree(8, "prefix child (tensor cores)", model, kids_flat, mm, kc, pc.reshape(-1, 2))
+            n_p = int((kp != flat[:Bp]).any(-1).sum())
+            n_c = int((kc != flat[Bp:]).any(-1).sum())
+            log(8, f"prefix bf16 vs the flat tensor-core kernel on the same rows: rows that "
+                   f"differ at all: parent {n_p} of {Bp}, child {n_c} of {kc.shape[0]}")
+            check(n_p == 0 and n_c == 0,
+                  "the tensor-core prefix rows differ from the flat tensor-core kernel's")
+        else:
+            ta, tp = tol[mm]
+            e["parent vs flat CUDA-core kernel"] = phase_err(kp, flat[:Bp])
+            e["child vs flat CUDA-core kernel"] = phase_err(kc, flat[Bp:])
+            for what, (da, dp) in e.items():
+                log(8, f"prefix {what} {mmname(mm)}: max|Δlog|ψ|| {da:.3e} (tol {ta:g}), "
+                       f"max phase distance {dp:.3e} (tol {tp:g})")
+                check(da <= ta and dp <= tp, f"prefix {what} disagrees")
         err8[mm] = e
         del kp, kc, pp, pc, flat
 
@@ -730,11 +758,14 @@ def main():
     reset_peak()
     vmc8 = VMC(chain48(), system, sampler, config(eloc_prefix=True))
     counts8 = {"parent": pre.PARENT_LAUNCHES, "child": pre.CHILD_LAUNCHES,
+               "mma_parent": pre.MMA_PARENT_LAUNCHES, "mma_child": pre.MMA_CHILD_LAUNCHES,
                "flat": fused_rnn.LAUNCHES}
     steps8 = run_steps(8, vmc8, counts8, 3)
     l8 = {k: c.n for k, c in counts8.items()}
-    check(l8["parent"] > 0 and l8["child"] > 0, "eloc_prefix steps never launched the "
-                                                "prefix kernels")
+    check(l8["mma_parent"] > 0 and l8["mma_child"] > 0, "eloc_prefix steps never launched "
+                                                        "the tensor-core prefix kernels")
+    check(l8["mma_parent"] == l8["parent"] and l8["mma_child"] == l8["child"],
+          "eloc_prefix steps launched the CUDA-core prefix kernels")
     check(l8["flat"] == 0, "eloc_prefix steps launched the flat kernel")
     walls = ", ".join(f"{s['iter_time']:.3f}" for s in steps8)
     log(8, f"{STEPS} eloc_prefix steps done: step walls {walls} s; launches {l8}; "
@@ -742,11 +773,18 @@ def main():
     stage_times(8, chain48(), lambda m: {
         "fwd": None, "prefix_fwd": pre.ReducePrefixForward(m, matmul_dtype=bf16)})
 
-    # times on the same rows: parent and child passes, the whole prefix
-    # forward, the flat kernel; plain versions beside them
+    # times on the same rows: parent and child passes (in bf16 also the
+    # CUDA-core kernels, timed before and after the tensor-core one), the
+    # whole prefix forward, the flat kernel; plain versions beside them
     tables8 = fused_rnn.pack_tables(model)
-    kids_flat = kids.reshape(-1, SORB)
     par_idx = torch.arange(Bp, device=dev).repeat_interleave(C)
+    t_flat = t_min.reshape(-1)
+
+    def with_prev(plain, kern, simt, kreps):
+        s1 = cuda_ms(simt, kreps)
+        k, p = alternate(plain, kern, kreps)
+        return k, p, (s1 + cuda_ms(simt, kreps)) / 2
+
     t8 = {}
     for mm in (bf16, f32):
         kw = dict(matmul_dtype=mm, tables=tables8)
@@ -756,39 +794,100 @@ def main():
         dh = (hh - hh_p).abs().max().item()
         ds = (sh[..., :6] - sh_p[..., :6]).abs().max().item()
         log(8, f"parent histories {mmname(mm)}: max|Δh| {dh:.3e}, max|Δ state| {ds:.3e}")
-        t8[mm] = {
-            "parent": alternate(lambda: pre.prefix_parent_plain(model, par_bits, **kw),
-                                lambda: pre.prefix_parent(model, par_bits, **kw), 5),
-            "child": alternate(
-                lambda: pre.prefix_child_plain(model, kids_flat, par_idx, t_min.reshape(-1),
-                                               hh, sh, **kw),
-                lambda: pre.prefix_child(model, kids_flat, par_idx, t_min.reshape(-1),
-                                         hh, sh, **kw), 5),
-            "prefix forward": alternate(
-                lambda: pre.graph_mpsrnn_logpsi_fused_prefix_plain(
-                    model, par_bits, kids, t_min, **kw),
-                lambda: pre.graph_mpsrnn_logpsi_fused_prefix(model, par_bits, kids, t_min,
-                                                             **kw), 5),
-            "flat forward": alternate(
-                lambda: fused_rnn.graph_mpsrnn_logpsi_fused_plain(model, rows8, **kw),
-                lambda: fused_rnn.graph_mpsrnn_logpsi_fused(model, rows8, **kw), 5),
+        passes = {
+            "parent": (lambda: pre.prefix_parent_plain(model, par_bits, **kw),
+                       lambda: pre.prefix_parent(model, par_bits, **kw),
+                       lambda: pre._launch_prefix_simt("parent", model, par_bits,
+                                                       tables=tables8)),
+            "child": (lambda: pre.prefix_child_plain(model, kids_flat, par_idx, t_flat, hh, sh,
+                                                     **kw),
+                      lambda: pre.prefix_child(model, kids_flat, par_idx, t_flat, hh, sh, **kw),
+                      lambda: pre._launch_prefix_simt("child", model, kids_flat, par_idx,
+                                                      t_flat, hh, sh, tables=tables8)),
         }
+        t8[mm] = {what: (with_prev(plain, kern, simt, 5) if mm == bf16
+                         else (*alternate(plain, kern, 5), None))
+                  for what, (plain, kern, simt) in passes.items()}
+        t8[mm]["prefix forward"] = (*alternate(
+            lambda: pre.graph_mpsrnn_logpsi_fused_prefix_plain(model, par_bits, kids, t_min,
+                                                               **kw),
+            lambda: pre.graph_mpsrnn_logpsi_fused_prefix(model, par_bits, kids, t_min, **kw),
+            5), None)
+        t8[mm]["flat forward"] = (*alternate(
+            lambda: fused_rnn.graph_mpsrnn_logpsi_fused_plain(model, rows8, **kw),
+            lambda: fused_rnn.graph_mpsrnn_logpsi_fused(model, rows8, **kw), 5), None)
         del hh, sh, hh_p, sh_p
     # site-steps: what the data needs (each child from its own t_min)
-    # and what the kernel runs (each block of TR sorted rows from its
-    # smallest t_min)
-    s0 = torch.clamp(t_min.reshape(-1), 0, norb).sort().values
-    TR = 64 if 2 * DCUT <= 128 else 32
-    pad = (-s0.numel()) % TR
-    s0_tile = torch.nn.functional.pad(s0, (0, pad), value=norb).reshape(-1, TR).min(1).values
+    # and what the child kernels run (each CTA's sorted rows from their
+    # smallest t_min): the tensor-core pass's rows per CTA at this row
+    # count, and the CUDA-core pass's 64
+    s0 = torch.clamp(t_flat, 0, norb).sort().values
     n_child = s0.numel()
     need_child = (norb - s0).sum().item()
-    run_child = ((norb - s0_tile) * TR).sum().item() - pad * (norb - s0_tile[-1].item())
     flat_steps = (Bp + n_child) * norb
+
+    def run_child(TR):
+        pad = (-n_child) % TR
+        s0_tile = torch.nn.functional.pad(s0, (0, pad), value=norb).reshape(-1, TR).min(1).values
+        return ((norb - s0_tile) * TR).sum().item() - pad * (norb - s0_tile[-1].item())
+
+    sh_p8 = fused_rnn.mma_launch_shape(model, Bp, n_sm)
+    sh_c8 = fused_rnn.mma_launch_shape(model, n_child, n_sm)
+    TR = 16 * sh_c8["warps"]
+    log(8, f"tensor-core launch shapes: parent {sh_p8['warps']} warp(s) ({16 * sh_p8['warps']} "
+           f"rows) x {sh_p8['ctas']} CTAs, child {sh_c8['warps']} warp(s) ({TR} rows) x "
+           f"{sh_c8['ctas']} CTAs, on {n_sm} SMs")
+    # the parent pass once more at the flat forward's shape (8 warps), for
+    # what filling the SMs is worth at 2048 rows
+    shape_fn = fused_rnn.mma_launch_shape
+    w_flat = shape_fn(model)["warps"]
+    fused_rnn.mma_launch_shape = lambda m, n=None, n_sm=None: shape_fn(m)
+    try:
+        t_par_flat = cuda_ms(lambda: pre.prefix_parent(model, par_bits, matmul_dtype=bf16,
+                                                       tables=tables8), 5)
+    finally:
+        fused_rnn.mma_launch_shape = shape_fn
+    log(8, f"parent bf16 at the flat forward's shape ({w_flat} warps x "
+           f"{-(-Bp // (16 * w_flat))} CTAs): {t_par_flat:.3f} ms, against "
+           f"{t8[bf16]['parent'][0]:.3f} ms at {sh_p8['warps']} warp(s) x {sh_p8['ctas']} CTAs")
+    # each pass's kernel time on the device alone (torch.profiler), beside
+    # the CUDA-event time of the wrapper call above: at 2048 parents the
+    # wrapper's host work can be longer than the kernel
+    def device_ms(fn, pattern, reps=5):
+        fn()
+        sync()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof8:
+            for _ in range(reps):
+                fn()
+            sync()
+        return sum(e.self_device_time_total for e in prof8.key_averages()
+                   if e.device_type == DeviceType.CUDA and re.search(pattern, e.key)) / reps / 1e3
+
+    _, hh, sh = pre.prefix_parent(model, par_bits, matmul_dtype=bf16, tables=tables8)
+    dev8 = {
+        "parent": (device_ms(lambda: pre.prefix_parent(model, par_bits, matmul_dtype=bf16,
+                                                       tables=tables8), "fused_rnn_mma_kernel"),
+                   device_ms(lambda: pre._launch_prefix_simt("parent", model, par_bits,
+                                                             tables=tables8),
+                             "fused_rnn_kernel")),
+        "child": (device_ms(lambda: pre.prefix_child(model, kids_flat, par_idx, t_flat, hh, sh,
+                                                     matmul_dtype=bf16, tables=tables8),
+                            "fused_rnn_mma_kernel"),
+                  device_ms(lambda: pre._launch_prefix_simt("child", model, kids_flat, par_idx,
+                                                            t_flat, hh, sh, tables=tables8),
+                            "fused_rnn_kernel")),
+    }
+    del hh, sh
+    for what, (dk, ds) in dev8.items():
+        log(8, f"{what} bf16, device time per launch (profiler): tensor-core kernel {dk:.3f} ms "
+               f"(the wrapper call {t8[bf16][what][0]:.3f} ms), CUDA-core kernel {ds:.3f} ms "
+               f"(the wrapper call {t8[bf16][what][2]:.3f} ms); gpu {smi}")
+    run_c = run_child(TR)
     log(8, f"site-steps: flat {flat_steps}; prefix needs {Bp * norb + need_child} "
-           f"(skips {1 - (Bp * norb + need_child) / flat_steps:.2%}), the child kernel's "
-           f"blocks of {TR} sorted rows run {Bp * norb + run_child} "
-           f"(skip {1 - (Bp * norb + run_child) / flat_steps:.2%})")
+           f"(skips {1 - (Bp * norb + need_child) / flat_steps:.2%}), the tensor-core child's "
+           f"CTAs of {TR} sorted rows run {Bp * norb + run_c} "
+           f"(skip {1 - (Bp * norb + run_c) / flat_steps:.2%}); the CUDA-core child's CTAs of "
+           f"64 would run {Bp * norb + run_child(64)}")
     hist_bytes = Bp * norb * (2 * DCUT + pre.NSTATE) * 4
     fl = flop_per_site(DCUT, 1)
     b8 = {}
@@ -803,11 +902,14 @@ def main():
             (Bp * norb + need_child) * fl,
             (Bp + n_child) * (SORB + 8) + n_child * 4 + tb, mm)
         b8[mm]["flat forward"] = bound(flat_steps * fl, (Bp + n_child) * (SORB + 8) + tb, mm)
-        for what, (k, p) in t8[mm].items():
-            log(8, f"{what} {mmname(mm)}: kernel {k:.3f} ms, plain {p:.3f} ms, bound "
-                   f"{b8[mm][what][0]:.3f} ms ({b8[mm][what][1]}); gpu {smi}")
-    log(8, f"prefix forward / flat forward, kernels (the flat one in bf16 on the tensor "
-           f"cores): bf16 "
+        for what, (k, p, prev) in t8[mm].items():
+            kern = ("tensor-core kernel" if mm == bf16 else "CUDA-core kernel")
+            log(8, f"{what} {mmname(mm)}: {kern} {k:.3f} ms"
+                   + (f", CUDA-core kernel {prev:.3f} ms ({prev / k:.2f}x)" if prev else "")
+                   + f", plain {p:.3f} ms, bound {b8[mm][what][0]:.3f} ms ({b8[mm][what][1]}); "
+                   f"gpu {smi}")
+    log(8, f"prefix forward / flat forward, kernels (bf16: both on the tensor cores; f32: both "
+           f"on the CUDA cores): bf16 "
            f"{t8[bf16]['prefix forward'][0] / t8[bf16]['flat forward'][0]:.3f}, f32 "
            f"{t8[f32]['prefix forward'][0] / t8[f32]['flat forward'][0]:.3f}")
 
@@ -979,12 +1081,17 @@ def main():
               t6[bf16][2], t6[bf16], b6[bf16], "fused_rnn_mma.cu", prev_ms=t6[bf16][3]),
         entry("fused_rnn_forward_mma_tensor", "pynqs_tpu/ops/fused_rnn.py:254", launches7,
               t7[bf16][2], t7[bf16], b7[bf16], "fused_rnn_mma.cu", prev_ms=t7[bf16][3]),
+        # kernels #2 and #3 in bf16: the tensor-core passes; prev_ms is the
+        # CUDA-core pass's time in bf16 on the same rows in this run;
+        # device_ms and prev_device_ms their kernels' device time alone
         entry("fused_rnn_prefix_parent", "pynqs_tpu/ops/fused_rnn_prefix.py:226",
-              l8["parent"], err8[bf16]["parent vs plain"][0], t8[bf16]["parent"],
-              b8[bf16]["parent"]),
+              l8["mma_parent"], err8[bf16]["parent vs plain"][0], t8[bf16]["parent"],
+              b8[bf16]["parent"], "fused_rnn_mma.cu", prev_ms=t8[bf16]["parent"][2],
+              device_ms=dev8["parent"][0], prev_device_ms=dev8["parent"][1]),
         entry("fused_rnn_prefix_child", "pynqs_tpu/ops/fused_rnn_prefix.py:264",
-              l8["child"], err8[bf16]["child vs plain"][0], t8[bf16]["child"],
-              b8[bf16]["child"]),
+              l8["mma_child"], err8[bf16]["child vs plain"][0], t8[bf16]["child"],
+              b8[bf16]["child"], "fused_rnn_mma.cu", prev_ms=t8[bf16]["child"][2],
+              device_ms=dev8["child"][0], prev_device_ms=dev8["child"][1]),
         # lane: the evaluation's launches and chunk shape (phase 10);
         # rowrow: pair_select_w(variant="rowrow") at [2048, 435, 45] (phase 9)
         entry("pair_select_lane", "pynqs_tpu/ops/pallas_hij.py:48", l10["pair_select_lane"],

@@ -1,5 +1,10 @@
 // Fused teacher-forced Graph-MPS-RNN forward for Hopper (sm_90a), and
-// its two prefix-sharing variants.
+// its two prefix-sharing variants, on the CUDA cores: their f32 mode.
+// Their bf16 mode runs on the tensor cores in csrc/fused_rnn_mma.cu
+// (fused_rnn_forward_mma, fused_rnn_prefix_parent_mma and
+// fused_rnn_prefix_child_mma); the wrappers reach this file's entry points
+// in bf16 mode only to time them beside those (fused_rnn._launch_simt,
+// fused_rnn_prefix._launch_prefix_simt).
 //
 // Replaces three Pallas TPU kernels:
 //   * pynqs_tpu/ops/fused_rnn.py::_kernel (graph_mpsrnn_logpsi_fused),
@@ -55,7 +60,9 @@
 // each row from its own parent's state at that site - 1 (a per-row
 // gather), and rows whose own s0 is later replay their parent's inputs,
 // which are theirs too, until they diverge.  Site-steps before the CTA's
-// start are skipped.
+// start are skipped.  The tensor-core passes (csrc/fused_rnn_mma.cu) keep
+// this design and the hh/sh layout, so both designs' passes take either
+// one's history.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>

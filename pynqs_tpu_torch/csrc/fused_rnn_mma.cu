@@ -1,16 +1,26 @@
 // Fused teacher-forced Graph-MPS-RNN forward on Hopper's tensor cores
-// (sm_90a), bf16 operands with f32 sums: the bf16 mode of kernel #1.
+// (sm_90a), bf16 operands with f32 sums: the bf16 mode of kernels #1-#3.
 //
-// Replaces the Pallas TPU kernel pynqs_tpu/ops/fused_rnn.py::_kernel
-// (graph_mpsrnn_logpsi_fused), chain and DAG, with and without the
-// tensor coupling.  Its f32 mode stays on the CUDA cores
-// (csrc/fused_rnn.cu: TF32 would not keep f32 agreement).  For N rows of
-// site values it returns, per row, (log|psi|, Re and Im of the unit phase
-// product, linear phase); the wrapper (pynqs_tpu_torch/ops/fused_rnn.py)
-// turns them into (log|psi|, arg psi).  It rounds at the points of
-// graph_mpsrnn_logpsi_fused_plain in bf16 mode: W, h, U, the tensor
-// product and K to bf16; vcat, eta, the phase rows and all sums in f32;
-// the phase readout from the unrounded h.
+// Replaces three Pallas TPU kernels, each through its own entry point:
+//   * pynqs_tpu/ops/fused_rnn.py::_kernel (graph_mpsrnn_logpsi_fused),
+//     chain and DAG, with and without the tensor coupling:
+//     fused_rnn_forward_mma;
+//   * pynqs_tpu/ops/fused_rnn_prefix.py::_parent_kernel, the chain
+//     forward that also writes each site's hidden and scalar state:
+//     fused_rnn_prefix_parent_mma;
+//   * pynqs_tpu/ops/fused_rnn_prefix.py::_child_kernel, the chain forward
+//     of rows that start at a later site from their parent's state:
+//     fused_rnn_prefix_child_mma.
+// All three are one walk over the sites, fused_rnn_mma_kernel, selected
+// by a compile-time mode, so the flat kernel carries none of the prefix
+// code.  Their f32 mode stays on the CUDA cores (csrc/fused_rnn.cu: TF32
+// would not keep f32 agreement).  For N rows of site values each returns,
+// per row, (log|psi|, Re and Im of the unit phase product, linear
+// phase); the wrappers (pynqs_tpu_torch/ops/fused_rnn.py,
+// fused_rnn_prefix.py) turn them into (log|psi|, arg psi).  It rounds at
+// the points of graph_mpsrnn_logpsi_fused_plain in bf16 mode: W, h, U,
+// the tensor product and K to bf16; vcat, eta, the phase rows and all
+// sums in f32; the phase readout from the unrounded h.
 //
 // What bounds it: arithmetic.  Per row and site the complex transition
 // of all 4 values is a [2*mp*d] x [8d] product (74 kFLOP at d 48, mp 1;
@@ -18,7 +28,12 @@
 // input and output per row and site: about 1 TFLOP (chain) and 3.5 TFLOP
 // (r5g64) per 657,408-row step forward, 1.0 and 3.5 ms at the card's
 // 989 TFLOP/s bf16 peak.  The weights are read by every CTA, so the
-// second limit is L2: every CTA streams all of W once per call.
+// second limit is L2: every CTA streams all of W once per call.  The
+// prefix passes do the same work per site-step; the parent (2048 rows at
+// the flagship step) is too small to fill the card and is bound by the
+// latency of its 20 sites in sequence, the child (655,360 rows) by
+// arithmetic over the site-steps its CTAs run, plus the bytes of the
+// parent history (hh, sh) it seeds from (15.7 MB, read from L2).
 //
 // What the design does about it:
 //  * Rows on the M dimension of mma.sync.m16n8k16 (bf16 -> f32): each
@@ -70,6 +85,25 @@
 //    im of the same c; the complex product over predecessors in
 //    registers, rounded to bf16, is then the A fragment of one more
 //    k-step z_x += pr_x @ KW_x (k = 2 dcp, zero-padded to 16).
+//  * Prefix sharing (chains).  A child differs from its parent only from
+//    its first changed site s0 on.  The parent pass is the flat walk that
+//    also writes, after each site t, each row's f32 h (unpadded, re half
+//    then im half) to hh[r, t] and its state (log|psi|, Re and Im of the
+//    phase product, linear phase, alpha and beta counts, 0, 0) to
+//    sh[r, t]; each lane writes its own columns.  The wrapper sorts the
+//    children by s0.  A child CTA starts at the smallest s0 of its rows;
+//    the whole CTA starts there because the weight pipe is shared, and
+//    the pipe starts at that site's first chunk (site_chunk, from the
+//    host).  Each lane seeds its own A fragments of the slot from
+//    hh[parent, t_begin - 1], rounded to bf16 (the value the flat walk's
+//    slot holds for that row), and its rows' state from sh; rows whose own
+//    s0 is later replay their parent's sites on inputs that are theirs
+//    too.  Row i of an MMA's D depends only on row i of A, and the quad
+//    sums and scalar work only on the row's own lanes, so each parent and
+//    child row equals the flat walk on the same row bit for bit.  The
+//    launch shape (warps per CTA, a runtime value in the prefix modes) is
+//    chosen by the host from the row count: the parent's 2048 rows run in
+//    CTAs of one warp, 128 CTAs, so that they spread over the SMs.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -80,6 +114,9 @@ constexpr int STAGES = 3;
 constexpr int STAGE_U4 = 24576 / 16;  // one stage, in 16-byte units
 constexpr float NEG = -1e30f;
 constexpr int SMEM_LIMIT = 232448;
+constexpr int NSTATE = 8;  // per-row state entries of sh
+
+enum { MODE_FLAT = 0, MODE_PARENT = 1, MODE_CHILD = 2 };
 
 struct Args {
   const int8_t* vals;  // [N, norb] site values by site id
@@ -96,6 +133,11 @@ struct Args {
   int noa, nob, phase_arg, norm_mpsrnn, use_tensor, dcp;
   uint4* gslots;  // global slot file, or null: slots in shared memory
   float* out;     // [N, 4]
+  // prefix sharing (chains): site_chunk [norb + 1] first chunk of each
+  // position; s0 [N] first changed site and parent [N] row of the
+  // parent in hh [B, norb, 2d] and sh [B, norb, NSTATE]
+  const int *site_chunk, *s0, *parent;
+  float *hh, *sh;
 };
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
@@ -174,36 +216,107 @@ __device__ __forceinline__ void walk(Pipe& p, int nthreads, int nks, int ksz, F&
   }
 }
 
-// NP = O / 16 pairs of n-tiles; WARPS warps of 16 rows per CTA
-template <int NP, int WARPS>
-__global__ void __launch_bounds__(WARPS * 32) fused_rnn_mma_kernel(const Args a) {
+// A lane's column col of a value's O outputs in an unpadded hidden row
+// [re (d) | im (d)]: its index there, or -1 for the padding past d.
+template <int NP>
+__device__ __forceinline__ int hidden_index(int col, int d) {
+  const int half = col >= 8 * NP, e = col - half * 8 * NP;
+  return e < d ? half * d + e : -1;
+}
+
+// NP = O / 16 pairs of n-tiles; WARPS warps of 16 rows per CTA (0: as
+// many as the launch gives, a runtime value); MODE: the flat forward,
+// the prefix parent or the prefix child pass (chains only).
+template <int NP, int WARPS, int MODE>
+__global__ void __launch_bounds__(WARPS ? WARPS * 32 : 256) fused_rnn_mma_kernel(const Args a) {
   constexpr int NT = 2 * NP;  // n8 tiles of one value's outputs
   constexpr int O = 16 * NP;
-  constexpr int THREADS = WARPS * 32;
+  const int nwarps = WARPS ? WARPS : (int)(blockDim.x >> 5);
+  const int THREADS = nwarps * 32;
   extern __shared__ __align__(16) uint4 smem[];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int g = lane >> 2, cq = lane & 3;
-  const int rg = (blockIdx.x * WARPS + warp) * 16 + g, rh = rg + 8;  // this lane's rows
+  const int rg = (blockIdx.x * nwarps + warp) * 16 + g, rh = rg + 8;  // this lane's rows
   const int norb = a.norb, N = a.N, mp = a.mp;
   const size_t slot_u4 = (size_t)NP * 32;  // one slot of one warp
-  uint4* slots = a.gslots ? a.gslots + ((size_t)blockIdx.x * WARPS + warp) * a.nslots * slot_u4
+  uint4* slots = a.gslots ? a.gslots + ((size_t)blockIdx.x * nwarps + warp) * a.nslots * slot_u4
                           : smem + STAGES * STAGE_U4 + (size_t)warp * a.nslots * slot_u4;
   const int ntu = a.dcp / 4;  // n-tiles of one (pred, value) block of UW: 1 or 2
   const int uw_ksz = a.dcp * 16;
 
-  Pipe pipe{smem, a.tab, a.chunks, a.nchunks, 0, 0};
+  // the CTA's first position: 0, or (child) the smallest s0 of its rows;
+  // the whole CTA starts there, and the weight stream at its first chunk
+  int t_begin = 0;
+  if constexpr (MODE == MODE_CHILD) {
+    __shared__ int tile_s0;
+    if (threadIdx.x == 0) tile_s0 = norb;
+    __syncthreads();
+    const int r = blockIdx.x * nwarps * 16 + threadIdx.x;
+    if (threadIdx.x < nwarps * 16 && r < N) atomicMin(&tile_s0, min(max(a.s0[r], 0), norb));
+    __syncthreads();
+    t_begin = tile_s0;
+  }
+  const int c0 = MODE == MODE_CHILD ? a.site_chunk[t_begin] : 0;
+  Pipe pipe{smem, a.tab, a.chunks, a.nchunks, c0, c0};
   for (int s = 0; s < STAGES - 1; ++s) pipe.fetch(THREADS);
 
   // per-row state, the same in the 4 lanes of the row's quad
   float la[2] = {0.f, 0.f}, ppr[2] = {1.f, 1.f}, ppi[2] = {0.f, 0.f}, pl[2] = {0.f, 0.f};
   int ua[2] = {0, 0}, ub[2] = {0, 0};
 
-  for (int t = 0; t < norb; ++t) {
+  if constexpr (MODE == MODE_CHILD) {
+    if (t_begin > 0) {
+      // seed each row from its parent after position t_begin - 1: the
+      // state from sh, and the slot that site's hidden went to (the next
+      // site reads it) from hh, rounded to bf16 into this lane's own A
+      // fragments.  Rows past N start from zero and are not written.
+      const int rows[2] = {rg, rh};
+      size_t src[2] = {0, 0};
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        if (rows[r] < N) {
+          src[r] = (size_t)a.parent[rows[r]] * norb + (t_begin - 1);
+          const float* st = a.sh + src[r] * NSTATE;
+          la[r] = st[0];
+          ppr[r] = st[1];
+          ppi[r] = st[2];
+          pl[r] = st[3];
+          ua[r] = (int)st[4];
+          ub[r] = (int)st[5];
+        }
+      }
+      const int sw = a.slot_w[t_begin - 1];
+      if (sw >= 0) {
+        const int d2 = 2 * a.d;
+#pragma unroll
+        for (int k = 0; k < NP; ++k) {
+          float v[2][2][2];  // [n-tile 2k + i][row][column pair]
+#pragma unroll
+          for (int i = 0; i < 2; ++i)
+#pragma unroll
+            for (int j = 0; j < 2; ++j) {
+              const int hi = hidden_index<NP>((2 * k + i) * 8 + 2 * cq + j, a.d);
+#pragma unroll
+              for (int r = 0; r < 2; ++r)
+                v[i][r][j] = (hi >= 0 && rows[r] < N) ? a.hh[src[r] * d2 + hi] : 0.f;
+            }
+          uint4 u;
+          u.x = pack_bf16(v[0][0][0], v[0][0][1]);
+          u.y = pack_bf16(v[0][1][0], v[0][1][1]);
+          u.z = pack_bf16(v[1][0][0], v[1][0][1]);
+          u.w = pack_bf16(v[1][1][0], v[1][1][1]);
+          slots[(sw * NP + k) * 32 + lane] = u;
+        }
+      }
+    }
+  }
+
+  for (int t = t_begin; t < norb; ++t) {
     const int s = a.order[t];
     const int np = a.npred[t];
     const int xr[2] = {rg < N ? (int)a.vals[(size_t)rg * norb + s] : 0,
                        rh < N ? (int)a.vals[(size_t)rh * norb + s] : 0};
-    const bool tensor = a.use_tensor && np >= 2;
+    const bool tensor = MODE == MODE_FLAT && a.use_tensor && np >= 2;
     const int* sr = a.slot_r + t * mp;
 
     // ---- tensor coupling: pr_x = prod_j (h_j @ UW_j)_x, bf16 A fragments ----
@@ -396,6 +509,22 @@ __global__ void __launch_bounds__(WARPS * 32) fused_rnn_mma_kernel(const Args a)
         slots[(sw * NP + k) * 32 + lane] = v;
       }
     }
+    if constexpr (MODE == MODE_PARENT) {  // the f32 hidden, unpadded, into hh
+      const int rows[2] = {rg, rh};
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        if (rows[r] < N) {
+          float* dst = a.hh + ((size_t)rows[r] * norb + t) * (2 * a.d);
+#pragma unroll
+          for (int n = 0; n < NT; ++n)
+#pragma unroll
+            for (int j = 0; j < 2; ++j) {
+              const int hi = hidden_index<NP>(n * 8 + 2 * cq + j, a.d);
+              if (hi >= 0) dst[hi] = zsel[n][2 * r + j];
+            }
+        }
+      }
+    }
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       pa[r] = quad_sum(pa[r]);
@@ -417,6 +546,19 @@ __global__ void __launch_bounds__(WARPS * 32) fused_rnn_mma_kernel(const Args a)
       ua[r] += xi & 1;
       ub[r] += xi >> 1;
     }
+    if constexpr (MODE == MODE_PARENT) {  // the state after position t into sh
+      const int rows[2] = {rg, rh};
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        if (rows[r] < N) {
+          const float2 v = cq == 0   ? make_float2(la[r], ppr[r])
+                           : cq == 1 ? make_float2(ppi[r], pl[r])
+                           : cq == 2 ? make_float2((float)ua[r], (float)ub[r])
+                                     : make_float2(0.f, 0.f);
+          *reinterpret_cast<float2*>(a.sh + ((size_t)rows[r] * norb + t) * NSTATE + 2 * cq) = v;
+        }
+      }
+    }
   }
   cp_async_wait<0>();
 
@@ -435,77 +577,73 @@ __global__ void __launch_bounds__(WARPS * 32) fused_rnn_mma_kernel(const Args a)
   }
 }
 
-// The launch shape at O = 16 NP outputs with nslots slots: 8 warps of 16
-// rows per CTA with the slots in shared memory where they fit beside the
-// weight stages, else 4 warps, else 4 warps with the slots in global
-// memory.  cfg = {warps, slots in shared memory (1) or global (0),
-// dynamic shared memory bytes}.
-void pick(int NP, int nslots, int* cfg) {
-  const long stage_bytes = (long)STAGES * STAGE_U4 * 16;
-  const int warps[2] = {8, 4};
-  for (int w : warps) {
-    const long bytes = stage_bytes + (long)w * nslots * NP * 512;
-    if (bytes <= SMEM_LIMIT) {
-      cfg[0] = w;
-      cfg[1] = 1;
-      cfg[2] = (int)bytes;
-      return;
-    }
-  }
-  cfg[0] = 4;
-  cfg[1] = 0;
-  cfg[2] = (int)stage_bytes;
+// Whether a launch shape is one the kernel takes: warps of 16 rows per
+// CTA (4 or 8 for the flat forward, 1, 2, 4 or 8 for the prefix passes),
+// the slots in shared memory (slots_shared) or in global memory, and
+// smem bytes of dynamic shared memory that hold the stages and the slots.
+// The host (pynqs_tpu_torch/ops/fused_rnn.py::mma_launch_shape) chooses
+// the shape.
+bool shape_ok(int mode, int NP, int nslots, int warps, int slots_shared, int smem) {
+  const bool w_ok = mode == MODE_FLAT ? (warps == 4 || warps == 8)
+                                      : (warps == 1 || warps == 2 || warps == 4 || warps == 8);
+  const long need =
+      (long)STAGES * STAGE_U4 * 16 + (slots_shared ? (long)warps * nslots * NP * 512 : 0);
+  return w_ok && nslots >= 1 && smem >= need && smem <= SMEM_LIMIT;
 }
 
-template <int NP, int WARPS>
-cudaError_t launch(const Args& a, int smem, cudaStream_t stream) {
-  auto kern = fused_rnn_mma_kernel<NP, WARPS>;
+template <int NP, int WARPS, int MODE>
+cudaError_t launch(const Args& a, int warps, int smem, cudaStream_t stream) {
+  auto kern = fused_rnn_mma_kernel<NP, WARPS, MODE>;
   cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  const int rows = WARPS * 16;
-  kern<<<(a.N + rows - 1) / rows, WARPS * 32, smem, stream>>>(a);
+  const int rows = warps * 16;
+  kern<<<(a.N + rows - 1) / rows, warps * 32, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
-template <int NP>
-cudaError_t launch_np(const Args& a, const int* cfg, cudaStream_t stream) {
-  return cfg[0] == 8 ? launch<NP, 8>(a, cfg[2], stream) : launch<NP, 4>(a, cfg[2], stream);
+// the flat forward's warp count is a template argument, the prefix
+// passes' a runtime value
+template <int NP, int MODE>
+cudaError_t launch_np(const Args& a, int warps, int smem, cudaStream_t stream) {
+  if constexpr (MODE == MODE_FLAT)
+    return warps == 8 ? launch<NP, 8, MODE>(a, warps, smem, stream)
+                      : launch<NP, 4, MODE>(a, warps, smem, stream);
+  else
+    return launch<NP, 0, MODE>(a, warps, smem, stream);
 }
 
-}  // namespace
-
-// Plain C entry points (loaded with ctypes).
-
-// The launch shape (see pick) at padded width dp and nslots slots; 0, or
-// cudaErrorInvalidValue where dp is not one the kernel takes.
-extern "C" int fused_rnn_mma_config(int dp, int nslots, int* cfg) {
+template <int MODE>
+int run(const Args& a, int dp, int warps, int slots_shared, int smem, void* stream) {
   if (dp != 16 && dp != 32 && dp != 48 && dp != 64 && dp != 96 && dp != 128)
     return (int)cudaErrorInvalidValue;
-  pick(dp / 8, nslots, cfg);
-  return 0;
+  if (!shape_ok(MODE, dp / 8, a.nslots, warps, slots_shared, smem))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t e;
+  switch (dp / 8) {
+    case 2: e = launch_np<2, MODE>(a, warps, smem, s); break;
+    case 4: e = launch_np<4, MODE>(a, warps, smem, s); break;
+    case 6: e = launch_np<6, MODE>(a, warps, smem, s); break;
+    case 8: e = launch_np<8, MODE>(a, warps, smem, s); break;
+    case 12: e = launch_np<12, MODE>(a, warps, smem, s); break;
+    default: e = launch_np<16, MODE>(a, warps, smem, s); break;
+  }
+  return (int)e;
 }
 
-// The bf16 flat forward on the tensor cores.  Operands as
-// pynqs_tpu_torch/ops/fused_rnn.py::pack_mma_tables lays them out;
-// gslots is the global slot file where fused_rnn_mma_config says so
-// (grid * warps * nslots * dp / 8 * 512 bytes), else ignored.  Launches
-// on ``stream`` and returns cudaGetLastError() of the launch.
-extern "C" int fused_rnn_forward_mma(
-    const void* vals, int N, int norb, int d, int dp, int mp, const void* order,
-    const void* npred, const void* slot_w, const void* slot_r, int nslots, const void* tab,
-    const void* chunks, int nchunks, const void* vcat, const void* E, const void* PW,
-    const void* SC, int noa, int nob, int phase_arg, int norm_mpsrnn, int use_tensor,
-    int dcp, void* gslots, void* out, void* stream) {
-  int cfg[3];
-  const int err = fused_rnn_mma_config(dp, nslots, cfg);
-  if (err) return err;
-  if (use_tensor && dcp != 4 && dcp != 8) return (int)cudaErrorInvalidValue;
+// The arguments every entry point shares; a chain without the tensor
+// coupling unless the flat entry point says otherwise.
+Args make_args(const void* vals, int N, int norb, int d, const void* order, const void* npred,
+               const void* slot_w, const void* slot_r, int nslots, const void* tab,
+               const void* chunks, int nchunks, const void* vcat, const void* E,
+               const void* PW, const void* SC, int noa, int nob, int phase_arg,
+               int norm_mpsrnn, int slots_shared, void* gslots, void* out) {
   Args a = {};
   a.vals = static_cast<const int8_t*>(vals);
   a.N = N;
   a.norb = norb;
   a.d = d;
-  a.mp = mp;
+  a.mp = 1;
   a.order = static_cast<const int*>(order);
   a.npred = static_cast<const int*>(npred);
   a.slot_w = static_cast<const int*>(slot_w);
@@ -522,19 +660,75 @@ extern "C" int fused_rnn_forward_mma(
   a.nob = nob;
   a.phase_arg = phase_arg;
   a.norm_mpsrnn = norm_mpsrnn;
+  a.use_tensor = 0;
+  a.dcp = 4;
+  a.gslots = slots_shared ? nullptr : static_cast<uint4*>(gslots);
+  a.out = static_cast<float*>(out);
+  return a;
+}
+
+}  // namespace
+
+// Plain C entry points (loaded with ctypes).  Operands as
+// pynqs_tpu_torch/ops/fused_rnn.py::pack_mma_tables lays them out; the
+// launch shape (warps, slots_shared, smem) as mma_launch_shape gives it;
+// gslots is the global slot file where slots_shared is 0 (grid * warps *
+// nslots * dp / 8 * 512 bytes), else ignored.  Each launches on
+// ``stream`` and returns cudaGetLastError() of the launch, or
+// cudaErrorInvalidValue for a width or shape the kernel does not take.
+
+// The bf16 flat forward on the tensor cores (kernel #1).
+extern "C" int fused_rnn_forward_mma(
+    const void* vals, int N, int norb, int d, int dp, const void* order, const void* npred,
+    const void* slot_w, const void* slot_r, int nslots, const void* tab, const void* chunks,
+    int nchunks, const void* vcat, const void* E, const void* PW, const void* SC, int noa,
+    int nob, int phase_arg, int norm_mpsrnn, int mp, int use_tensor, int dcp, int warps,
+    int slots_shared, int smem, void* gslots, void* out, void* stream) {
+  if (use_tensor && dcp != 4 && dcp != 8) return (int)cudaErrorInvalidValue;
+  Args a = make_args(vals, N, norb, d, order, npred, slot_w, slot_r, nslots, tab, chunks,
+                     nchunks, vcat, E, PW, SC, noa, nob, phase_arg, norm_mpsrnn, slots_shared,
+                     gslots, out);
+  a.mp = mp;
   a.use_tensor = use_tensor;
   a.dcp = use_tensor ? dcp : 4;
-  a.gslots = cfg[1] ? nullptr : static_cast<uint4*>(gslots);
-  a.out = static_cast<float*>(out);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t e;
-  switch (dp / 8) {
-    case 2: e = launch_np<2>(a, cfg, s); break;
-    case 4: e = launch_np<4>(a, cfg, s); break;
-    case 6: e = launch_np<6>(a, cfg, s); break;
-    case 8: e = launch_np<8>(a, cfg, s); break;
-    case 12: e = launch_np<12>(a, cfg, s); break;
-    default: e = launch_np<16>(a, cfg, s); break;
-  }
-  return (int)e;
+  return run<MODE_FLAT>(a, dp, warps, slots_shared, smem, stream);
+}
+
+// The parent pass of the prefix-sharing forward (kernel #2, chains): the
+// flat walk that also writes hh [N, norb, 2d] and sh [N, norb, 8] f32
+// after every position.
+extern "C" int fused_rnn_prefix_parent_mma(
+    const void* vals, int N, int norb, int d, int dp, const void* order, const void* npred,
+    const void* slot_w, const void* slot_r, int nslots, const void* tab, const void* chunks,
+    int nchunks, const void* vcat, const void* E, const void* PW, const void* SC, int noa,
+    int nob, int phase_arg, int norm_mpsrnn, int warps, int slots_shared, int smem,
+    void* gslots, void* hh, void* sh, void* out, void* stream) {
+  Args a = make_args(vals, N, norb, d, order, npred, slot_w, slot_r, nslots, tab, chunks,
+                     nchunks, vcat, E, PW, SC, noa, nob, phase_arg, norm_mpsrnn, slots_shared,
+                     gslots, out);
+  a.hh = static_cast<float*>(hh);
+  a.sh = static_cast<float*>(sh);
+  return run<MODE_PARENT>(a, dp, warps, slots_shared, smem, stream);
+}
+
+// The child pass (kernel #3, chains): row r starts at position s0[r]
+// (rows sorted by s0 for the savings; any order is correct) from the
+// state of parent row parent[r] in hh/sh; site_chunk [norb + 1] is each
+// position's first chunk of the weight stream.
+extern "C" int fused_rnn_prefix_child_mma(
+    const void* vals, int N, int norb, int d, int dp, const void* order, const void* npred,
+    const void* slot_w, const void* slot_r, int nslots, const void* tab, const void* chunks,
+    int nchunks, const void* vcat, const void* E, const void* PW, const void* SC, int noa,
+    int nob, int phase_arg, int norm_mpsrnn, int warps, int slots_shared, int smem,
+    void* gslots, const void* site_chunk, const void* s0, const void* parent, const void* hh,
+    const void* sh, void* out, void* stream) {
+  Args a = make_args(vals, N, norb, d, order, npred, slot_w, slot_r, nslots, tab, chunks,
+                     nchunks, vcat, E, PW, SC, noa, nob, phase_arg, norm_mpsrnn, slots_shared,
+                     gslots, out);
+  a.site_chunk = static_cast<const int*>(site_chunk);
+  a.s0 = static_cast<const int*>(s0);
+  a.parent = static_cast<const int*>(parent);
+  a.hh = const_cast<float*>(static_cast<const float*>(hh));
+  a.sh = const_cast<float*>(static_cast<const float*>(sh));
+  return run<MODE_CHILD>(a, dp, warps, slots_shared, smem, stream);
 }

@@ -16,9 +16,11 @@ ratio forwards of the local energy.  Differences from ``log_psi``:
 (``graph_mpsrnn_logpsi_fused_plain``) for rows on the CPU.  On the card
 it launches, or raises: in bf16 mode the tensor-core kernel
 (``csrc/fused_rnn_mma.cu``, operands from ``pack_mma_tables`` and
-``hidden_slots``), in f32 mode the CUDA-core kernel
-(``csrc/fused_rnn.cu``).  ``LAUNCHES`` counts launches of either,
-``MMA_LAUNCHES`` those of the tensor-core kernel.
+``hidden_slots``, launch shape from ``mma_launch_shape``), in f32 mode
+the CUDA-core kernel (``csrc/fused_rnn.cu``).  ``LAUNCHES`` counts
+launches of either, ``MMA_LAUNCHES`` those of the tensor-core kernel.
+The prefix-sharing passes (``ops/fused_rnn_prefix.py``) launch the other
+entry points of the same two libraries.
 """
 
 from __future__ import annotations
@@ -52,6 +54,8 @@ LAUNCHES = Counter()  # every launch of the fused forward (either kernel)
 MMA_LAUNCHES = Counter()  # launches of the tensor-core kernel
 MMA_WIDTHS = (16, 32, 48, 64, 96, 128)  # padded d (dp) the tensor-core kernel takes
 STAGE_U4 = 24576 // 16  # one weight stage of the tensor-core kernel, in 16-byte units
+STAGES = 3  # weight stages of the tensor-core kernel
+SMEM_LIMIT = 232448  # dynamic shared memory one CTA may use on sm_90, bytes
 
 
 def fused_forward_available(model) -> bool:
@@ -188,6 +192,9 @@ def pack_mma_tables(model, tables=None) -> dict:
                   (c, re|im) of the product, zero past 2 dcp;
       chunks  int32 [n, 2] (offset, length) in 16-byte units: each run of
               k-steps above cut into chunks of at most STAGE_U4 units;
+      site_chunk  int32 [norb + 1]: the index in ``chunks`` of each
+              position's first chunk (the prefix child pass starts its
+              stream there), len(chunks) at norb;
       vcat, E, PW  f32 [norb, 4, O], d padded to dp in each half; SC;
       slot_w, slot_r, nslots  ``hidden_slots``; order, npred int32;
       dp, dcp, NP.
@@ -251,18 +258,22 @@ def _pack_mma(model, T) -> dict:
             off += n
         pieces.append(ks.reshape(-1))
 
+    site_chunk = []
     for t in range(norb):
+        site_chunk.append(len(chunks))
         npd = len(model.preds[t])
         if coupled[t]:
             segment(UWf[t, :npd].reshape(npd * NP, -1))
         for x in range(4):
             ks = Wf[t, x, : npd * NP]
             segment(torch.cat([ks, KWf[t, x]]) if coupled[t] else ks)
+    site_chunk.append(len(chunks))
     slot_w, slot_r, nslots = hidden_slots(model)
     i32 = dict(dtype=torch.int32, device=dev)
     return {
         "tab": torch.cat(pieces) if pieces else torch.zeros(8, dtype=bf, device=dev),
         "chunks": torch.tensor(chunks, **i32).reshape(-1, 2),
+        "site_chunk": torch.tensor(site_chunk, **i32),
         "vcat": pad_d(T["vcat"]).contiguous(), "E": pad_d(T["E"]).contiguous(),
         "PW": pad_d(T["PW"]).contiguous(), "SC": T["SC"].contiguous(),
         "slot_w": torch.tensor(slot_w, **i32), "slot_r": torch.tensor(slot_r, **i32),
@@ -451,9 +462,7 @@ def operands(model, matmul_dtype, tables, dev) -> tuple:
     if matmul_dtype not in (torch.bfloat16, torch.float32):
         raise ValueError(f"matmul_dtype must be bf16 or f32, not {matmul_dtype}")
     T = pack_tables(model) if tables is None else tables
-    for k, v in T.items():
-        if v.device != dev or v.dtype != torch.float32 or not v.is_contiguous():
-            raise ValueError(f"table {k} must be contiguous f32 on {dev}")
+    check_tables(T, dev)
     W = T["W"].to(matmul_dtype).contiguous()
     order = torch.as_tensor(model.site_order, dtype=torch.int32, device=dev)
     pred = torch.as_tensor(model._pred, dtype=torch.int32, device=dev).contiguous()
@@ -517,66 +526,110 @@ def build_mma_kernel() -> str:
 
 def _bind_mma(so):
     P, I = ctypes.c_void_p, ctypes.c_int
-    so.fused_rnn_forward_mma.argtypes = [
-        P, I, I, I, I, I,        # vals, N, norb, d, dp, mp
+    head = [
+        P, I, I, I, I,           # vals, N, norb, d, dp
         P, P, P, P, I,           # order, npred, slot_w, slot_r, nslots
         P, P, I,                 # tab, chunks, nchunks
         P, P, P, P,              # vcat, E, PW, SC
-        I, I, I, I, I, I,        # noa, nob, phase_arg, norm_mpsrnn, use_tensor, dcp
-        P, P, P,                 # gslots, out, stream
+        I, I, I, I,              # noa, nob, phase_arg, norm_mpsrnn
     ]
-    so.fused_rnn_mma_config.argtypes = [I, I, P]
-    so.fused_rnn_forward_mma.restype = so.fused_rnn_mma_config.restype = I
+    shape = [I, I, I, P]         # warps, slots_shared, smem, gslots
+    so.fused_rnn_forward_mma.argtypes = head + [I, I, I] + shape + [  # mp, use_tensor, dcp
+        P, P,                    # out, stream
+    ]
+    so.fused_rnn_prefix_parent_mma.argtypes = head + shape + [P, P, P, P]  # hh, sh, out, stream
+    so.fused_rnn_prefix_child_mma.argtypes = head + shape + [
+        P, P, P, P, P, P, P,     # site_chunk, s0, parent, hh, sh, out, stream
+    ]
+    for fn in (so.fused_rnn_forward_mma, so.fused_rnn_prefix_parent_mma,
+               so.fused_rnn_prefix_child_mma):
+        fn.restype = I
 
 
 def lib_mma():
     """The built library of the tensor-core kernel (fused_rnn_forward_mma,
-    fused_rnn_mma_config)."""
+    fused_rnn_prefix_parent_mma, fused_rnn_prefix_child_mma)."""
     return cuda_build.load_library("fused_rnn_mma", _bind_mma)
 
 
-def mma_launch_shape(model) -> dict:
+def mma_launch_shape(model, n_rows=None, n_sm=None) -> dict:
     """How the tensor-core kernel launches for ``model``: warps of 16 rows
     per CTA, where the hidden slots live ("shared" or "global"), their
-    count, and the dynamic shared memory of one CTA in bytes."""
+    count, and the dynamic shared memory of one CTA in bytes.
+
+    The flat forward (``n_rows`` None) takes 8 warps where the slots fit
+    in shared memory beside the weight stages, else 4, else 4 with the
+    slots in global memory.  The prefix passes give their row count and
+    the card's SM count ``n_sm``: from that start the warps are halved,
+    down to 1, while the CTAs would not fill ``n_sm`` SMs, since every CTA
+    streams all of W whatever its rows (2048 rows: 1 warp, 128 CTAs;
+    large N keeps 8).  Then "ctas" is the grid too."""
     dp = mma_width(model.dcut)
-    nslots = hidden_slots(model)[2]
-    cfg = (ctypes.c_int * 3)()
-    check_launch(lib_mma().fused_rnn_mma_config(dp, nslots, ctypes.addressof(cfg)),
-                 "fused_rnn_mma_config")
-    return {"warps": cfg[0], "slots": "shared" if cfg[1] else "global", "nslots": nslots,
-            "smem_bytes": cfg[2]}
+    NP, nslots = dp // 8, hidden_slots(model)[2]
+    stages = STAGES * STAGE_U4 * 16
+    warps, shared = 4, False
+    for w in (8, 4):
+        if stages + w * nslots * NP * 512 <= SMEM_LIMIT:
+            warps, shared = w, True
+            break
+    out = {"nslots": nslots, "slots": "shared" if shared else "global"}
+    if n_rows is not None:
+        if n_sm is None or n_sm < 1:
+            raise ValueError("the prefix passes' launch shape needs the SM count")
+        while warps > 1 and -(-n_rows // (16 * warps)) < n_sm:
+            warps //= 2
+        out["ctas"] = -(-n_rows // (16 * warps))
+    out["warps"] = warps
+    out["smem_bytes"] = stages + (warps * nslots * NP * 512 if shared else 0)
+    return out
+
+
+def check_tables(tables, dev):
+    """Raise unless every table of ``tables`` (or None) is contiguous f32
+    on ``dev``."""
+    for k, v in (tables or {}).items():
+        if v.device != dev or v.dtype != torch.float32 or not v.is_contiguous():
+            raise ValueError(f"table {k} must be contiguous f32 on {dev}")
+
+
+def mma_operands(model, tables, dev, N, shape) -> tuple:
+    """The launch arguments the tensor-core entry points share, from
+    ``pack_mma_tables`` (checked to lie on ``dev``): (packed tables, the
+    arguments from norb to norm_mpsrnn, the launch shape's arguments
+    with a global slot file for N rows where the slots do not fit on
+    chip, and that file, which must outlive the launch)."""
+    check_tables(tables, dev)
+    P = pack_mma_tables(model, tables)
+    if P["tab"].device != dev:
+        raise ValueError(f"the model's tables must be on {dev}")
+    rows = 16 * shape["warps"]
+    n_gslot = 0 if shape["slots"] == "shared" else -(-N // rows) * rows * P["nslots"] * 4 * P["dp"]
+    gslots = torch.empty(n_gslot, dtype=torch.uint8, device=dev)  # bf16 hidden file
+    head = (
+        model.norb, model.dcut, P["dp"],
+        P["order"].data_ptr(), P["npred"].data_ptr(), P["slot_w"].data_ptr(),
+        P["slot_r"].data_ptr(), P["nslots"], P["tab"].data_ptr(),
+        P["chunks"].data_ptr(), P["chunks"].shape[0],
+        P["vcat"].data_ptr(), P["E"].data_ptr(), P["PW"].data_ptr(), P["SC"].data_ptr(),
+        model.noa, model.nob, int(model.phase_mode == "arg"), int(model.norm_mode == "mpsrnn"),
+    )
+    launch = (shape["warps"], int(shape["slots"] == "shared"), shape["smem_bytes"],
+              gslots.data_ptr())
+    return P, head, launch, gslots
 
 
 @torch.no_grad()
 def _launch_mma(model, bits, tables):
     """The tensor-core kernel (csrc/fused_rnn_mma.cu), bf16 mode."""
     dev = bits.device
-    if tables is not None:
-        for k, v in tables.items():
-            if v.device != dev or v.dtype != torch.float32 or not v.is_contiguous():
-                raise ValueError(f"table {k} must be contiguous f32 on {dev}")
-    P = pack_mma_tables(model, tables)
-    if P["tab"].device != dev:
-        raise ValueError(f"the model's tables must be on {dev}")
     vals = site_values(model, bits)
     N = bits.shape[0]
     out = torch.empty(N, 4, dtype=torch.float32, device=dev)
+    P, head, launch, _gslots = mma_operands(model, tables, dev, N, mma_launch_shape(model))
     if N > 0:
-        shape = mma_launch_shape(model)
-        rows = 16 * shape["warps"]
-        n_gslot = 0 if shape["slots"] == "shared" else (
-            -(-N // rows) * rows * P["nslots"] * 4 * P["dp"])
-        gslots = torch.empty(n_gslot, dtype=torch.uint8, device=dev)  # bf16 hidden file
         err = lib_mma().fused_rnn_forward_mma(
-            vals.data_ptr(), N, model.norb, model.dcut, P["dp"], model.maxp,
-            P["order"].data_ptr(), P["npred"].data_ptr(), P["slot_w"].data_ptr(),
-            P["slot_r"].data_ptr(), P["nslots"], P["tab"].data_ptr(),
-            P["chunks"].data_ptr(), P["chunks"].shape[0],
-            P["vcat"].data_ptr(), P["E"].data_ptr(), P["PW"].data_ptr(), P["SC"].data_ptr(),
-            model.noa, model.nob, int(model.phase_mode == "arg"),
-            int(model.norm_mode == "mpsrnn"), int(model.use_tensor), P["dcp"],
-            gslots.data_ptr(), out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
+            vals.data_ptr(), N, *head, model.maxp, int(model.use_tensor), P["dcp"], *launch,
+            out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
         )
         check_launch(err, "fused_rnn_mma")
         LAUNCHES.n += 1

@@ -20,13 +20,19 @@ summation order, with the rounding points of
 ``ops/fused_rnn.graph_mpsrnn_logpsi_fused``.
 
 ``graph_mpsrnn_logpsi_fused_prefix`` takes the plain torch version
-(``graph_mpsrnn_logpsi_fused_prefix_plain``) for rows on the CPU and the
-two CUDA kernels (``csrc/fused_rnn.cu``: ``fused_rnn_prefix_parent`` and
-``fused_rnn_prefix_child``) for rows on the card; on the card it
-launches them or raises.  The CUDA wrapper sorts all B·C children by
+(``graph_mpsrnn_logpsi_fused_prefix_plain``) for rows on the CPU and two
+CUDA kernels for rows on the card; on the card it launches them or
+raises.  In bf16 mode they run on the tensor cores
+(``csrc/fused_rnn_mma.cu``: ``fused_rnn_prefix_parent_mma`` and
+``fused_rnn_prefix_child_mma``, the walk of the flat tensor-core kernel,
+so each row equals the flat kernel's bit for bit); in f32 mode on the
+CUDA cores (``csrc/fused_rnn.cu``: ``fused_rnn_prefix_parent`` and
+``fused_rnn_prefix_child``).  The CUDA wrapper sorts all B·C children by
 t_min, so that the rows of one thread block start close together; the
 TPU's one-parent, 128-lane child blocks are not carried over.
-``PARENT_LAUNCHES`` and ``CHILD_LAUNCHES`` count kernel launches.
+``PARENT_LAUNCHES`` and ``CHILD_LAUNCHES`` count launches of either
+design, ``MMA_PARENT_LAUNCHES`` and ``MMA_CHILD_LAUNCHES`` those on the
+tensor cores.
 """
 
 from __future__ import annotations
@@ -54,11 +60,15 @@ __all__ = [
     "sort_children_by_t_min",
     "PARENT_LAUNCHES",
     "CHILD_LAUNCHES",
+    "MMA_PARENT_LAUNCHES",
+    "MMA_CHILD_LAUNCHES",
 ]
 
 NSTATE = 8  # scalar state slots per site in sh (the kernel's layout)
-PARENT_LAUNCHES = Counter()
-CHILD_LAUNCHES = Counter()
+PARENT_LAUNCHES = Counter()  # every launch of the parent pass (either kernel)
+CHILD_LAUNCHES = Counter()  # every launch of the child pass (either kernel)
+MMA_PARENT_LAUNCHES = Counter()  # launches of the tensor-core parent pass
+MMA_CHILD_LAUNCHES = Counter()  # launches of the tensor-core child pass
 
 
 def prefix_available(model) -> bool:
@@ -203,18 +213,51 @@ def _common(model, T, W, order, pred, npred, matmul_dtype):
     )
 
 
-@torch.no_grad()
-def prefix_parent(model, parent_bits, *, matmul_dtype=torch.bfloat16, tables=None):
-    """Parent pass: ``prefix_parent_plain`` for CPU rows, the CUDA kernel
-    ``fused_rnn_prefix_parent`` for rows on the card (or raise)."""
-    _require_prefix(model)
-    dev = parent_bits.device
-    if dev.type == "cpu":
-        return prefix_parent_plain(model, parent_bits, matmul_dtype=matmul_dtype,
-                                   tables=tables)
-    if dev.type != "cuda":
-        raise ValueError(f"unsupported device {dev}")
+def _stream(dev):
+    return torch.cuda.current_stream(dev).cuda_stream
+
+
+def _n_sm(dev) -> int:
+    return torch.cuda.get_device_properties(dev).multi_processor_count
+
+
+def _check_dtype(matmul_dtype):
+    if matmul_dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"matmul_dtype must be bf16 or f32, not {matmul_dtype}")
+
+
+def _parent_simt(model, vals, hh, sh, out, matmul_dtype, tables):
+    """The CUDA-core parent pass (csrc/fused_rnn.cu)."""
+    dev = vals.device
     T, W, order, pred, npred = fused_rnn.operands(model, matmul_dtype, tables, dev)
+    err = fused_rnn.lib().fused_rnn_prefix_parent(
+        vals.data_ptr(), vals.shape[0], model.norb, model.dcut,
+        *_common(model, T, W, order, pred, npred, matmul_dtype),
+        hh.data_ptr(), sh.data_ptr(), out.data_ptr(), _stream(dev),
+    )
+    check_launch(err, "fused_rnn_prefix_parent")
+    PARENT_LAUNCHES.n += 1
+
+
+def _parent_mma(model, vals, hh, sh, out, tables):
+    """The tensor-core parent pass (csrc/fused_rnn_mma.cu), bf16 mode."""
+    dev = vals.device
+    B = vals.shape[0]
+    shape = fused_rnn.mma_launch_shape(model, B, _n_sm(dev))
+    _, head, launch, _gslots = fused_rnn.mma_operands(model, tables, dev, B, shape)
+    err = fused_rnn.lib_mma().fused_rnn_prefix_parent_mma(
+        vals.data_ptr(), B, *head, *launch, hh.data_ptr(), sh.data_ptr(), out.data_ptr(),
+        _stream(dev),
+    )
+    check_launch(err, "fused_rnn_prefix_parent_mma")
+    PARENT_LAUNCHES.n += 1
+    MMA_PARENT_LAUNCHES.n += 1
+
+
+def _parent_pass(model, parent_bits, launch):
+    """Allocate the parent pass's outputs (out4, hh, sh) and run
+    ``launch(vals, hh, sh, out4)`` on them; no launch for no rows."""
+    dev = parent_bits.device
     norb, d = model.norb, model.dcut
     B = parent_bits.shape[0]
     vals = fused_rnn.site_values(model, parent_bits)
@@ -222,31 +265,65 @@ def prefix_parent(model, parent_bits, *, matmul_dtype=torch.bfloat16, tables=Non
     sh = torch.empty(B, norb, NSTATE, dtype=torch.float32, device=dev)
     out = torch.empty(B, 4, dtype=torch.float32, device=dev)
     if B > 0:
-        err = fused_rnn.lib().fused_rnn_prefix_parent(
-            vals.data_ptr(), B, norb, d, *_common(model, T, W, order, pred, npred, matmul_dtype),
-            hh.data_ptr(), sh.data_ptr(), out.data_ptr(),
-            torch.cuda.current_stream(dev).cuda_stream,
-        )
-        check_launch(err, "fused_rnn_prefix_parent")
-        PARENT_LAUNCHES.n += 1
+        launch(vals, hh, sh, out)
     return out, hh, sh
 
 
 @torch.no_grad()
-def prefix_child(model, child_rows, parent, s0, hh, sh, *,
-                 matmul_dtype=torch.bfloat16, tables=None):
-    """Child pass: ``prefix_child_plain`` for CPU rows, the CUDA kernel
-    ``fused_rnn_prefix_child`` for rows on the card (or raise).  On the
-    card all rows are sorted by s0 first, so that the rows of one thread
-    block start close together, and the output is put back in order."""
+def prefix_parent(model, parent_bits, *, matmul_dtype=torch.bfloat16, tables=None):
+    """Parent pass: ``prefix_parent_plain`` for CPU rows; for rows on the
+    card the tensor-core kernel ``fused_rnn_prefix_parent_mma`` in bf16
+    mode, the CUDA-core kernel ``fused_rnn_prefix_parent`` in f32 mode
+    (or raise)."""
     _require_prefix(model)
-    dev = child_rows.device
+    dev = parent_bits.device
     if dev.type == "cpu":
-        return prefix_child_plain(model, child_rows, parent, s0, hh, sh,
-                                  matmul_dtype=matmul_dtype, tables=tables)
+        return prefix_parent_plain(model, parent_bits, matmul_dtype=matmul_dtype,
+                                   tables=tables)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
+    _check_dtype(matmul_dtype)
+    if matmul_dtype == torch.bfloat16:
+        return _parent_pass(model, parent_bits, lambda *a: _parent_mma(model, *a, tables))
+    return _parent_pass(model, parent_bits,
+                        lambda *a: _parent_simt(model, *a, matmul_dtype, tables))
+
+
+def _child_simt(model, vals, s0, parent, hh, sh, out, matmul_dtype, tables):
+    """The CUDA-core child pass (csrc/fused_rnn.cu) on sorted rows."""
+    dev = vals.device
     T, W, order, pred, npred = fused_rnn.operands(model, matmul_dtype, tables, dev)
+    err = fused_rnn.lib().fused_rnn_prefix_child(
+        vals.data_ptr(), vals.shape[0], model.norb, model.dcut,
+        *_common(model, T, W, order, pred, npred, matmul_dtype),
+        s0.data_ptr(), parent.data_ptr(), hh.data_ptr(), sh.data_ptr(), out.data_ptr(),
+        _stream(dev),
+    )
+    check_launch(err, "fused_rnn_prefix_child")
+    CHILD_LAUNCHES.n += 1
+
+
+def _child_mma(model, vals, s0, parent, hh, sh, out, tables):
+    """The tensor-core child pass (csrc/fused_rnn_mma.cu) on sorted rows,
+    bf16 mode."""
+    dev = vals.device
+    N = vals.shape[0]
+    shape = fused_rnn.mma_launch_shape(model, N, _n_sm(dev))
+    P, head, launch, _gslots = fused_rnn.mma_operands(model, tables, dev, N, shape)
+    err = fused_rnn.lib_mma().fused_rnn_prefix_child_mma(
+        vals.data_ptr(), N, *head, *launch, P["site_chunk"].data_ptr(), s0.data_ptr(),
+        parent.data_ptr(), hh.data_ptr(), sh.data_ptr(), out.data_ptr(), _stream(dev),
+    )
+    check_launch(err, "fused_rnn_prefix_child_mma")
+    CHILD_LAUNCHES.n += 1
+    MMA_CHILD_LAUNCHES.n += 1
+
+
+def _child_sorted(model, child_rows, parent, s0, hh, sh, launch):
+    """Check the child pass's operands, sort its rows by s0, run
+    ``launch(vals, s0, parent, hh, sh, out)`` on them and put the output
+    back in the rows' order."""
+    dev = child_rows.device
     norb, d = model.norb, model.dcut
     N = child_rows.shape[0]
     B = hh.shape[0]
@@ -268,15 +345,49 @@ def prefix_child(model, child_rows, parent, s0, hh, sh, *,
         par_s = parent[perm].to(torch.int32).contiguous()
         vals = fused_rnn.site_values(model, child_rows)[perm].contiguous()
         out_s = torch.empty(N, 4, dtype=torch.float32, device=dev)
-        err = fused_rnn.lib().fused_rnn_prefix_child(
-            vals.data_ptr(), N, norb, d, *_common(model, T, W, order, pred, npred, matmul_dtype),
-            s0_s.data_ptr(), par_s.data_ptr(), hh.data_ptr(), sh.data_ptr(),
-            out_s.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
-        )
-        check_launch(err, "fused_rnn_prefix_child")
-        CHILD_LAUNCHES.n += 1
+        launch(vals, s0_s, par_s, hh, sh, out_s)
         out[perm] = out_s
     return out
+
+
+@torch.no_grad()
+def prefix_child(model, child_rows, parent, s0, hh, sh, *,
+                 matmul_dtype=torch.bfloat16, tables=None):
+    """Child pass: ``prefix_child_plain`` for CPU rows; for rows on the
+    card the tensor-core kernel ``fused_rnn_prefix_child_mma`` in bf16
+    mode, the CUDA-core kernel ``fused_rnn_prefix_child`` in f32 mode (or
+    raise).  On the card all rows are sorted by s0 first, so that the
+    rows of one thread block start close together, and the output is put
+    back in order."""
+    _require_prefix(model)
+    dev = child_rows.device
+    if dev.type == "cpu":
+        return prefix_child_plain(model, child_rows, parent, s0, hh, sh,
+                                  matmul_dtype=matmul_dtype, tables=tables)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    _check_dtype(matmul_dtype)
+    if matmul_dtype == torch.bfloat16:
+        return _child_sorted(model, child_rows, parent, s0, hh, sh,
+                             lambda *a: _child_mma(model, *a, tables))
+    return _child_sorted(model, child_rows, parent, s0, hh, sh,
+                         lambda *a: _child_simt(model, *a, matmul_dtype, tables))
+
+
+@torch.no_grad()
+def _launch_prefix_simt(kind, model, *args, tables=None):
+    """The CUDA-core parent (``kind`` "parent", args as
+    ``prefix_parent``) or child pass ("child", args as ``prefix_child``)
+    in bf16 mode, for timing it beside the tensor-core pass on the same
+    rows.  No public function reaches it: ``prefix_parent`` and
+    ``prefix_child`` take the tensor-core kernels in bf16 mode."""
+    bf16 = torch.bfloat16
+    if kind == "parent":
+        return _parent_pass(model, *args, lambda *a: _parent_simt(model, *a, bf16, tables))
+    if kind == "child":
+        return _child_sorted(model, *args,
+                             lambda *a: _child_simt(model, *a, bf16, tables))
+    raise ValueError(f"kind must be 'parent' or 'child', not {kind!r}")
 
 
 def _prefix(model, parent_bits, child_bits, t_min, matmul_dtype, tables, parent_fn, child_fn):

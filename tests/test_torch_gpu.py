@@ -1,6 +1,8 @@
 """Card-only tests of the port: the fused forward's CUDA kernels (the
 tensor-core kernel in bf16, the CUDA-core kernel in f32; tensor coupling
-included), the prefix-sharing kernels and the doubles pair
+included), the prefix-sharing kernels (on the tensor cores in bf16,
+bit for bit the flat tensor-core kernel's rows; on the CUDA cores in
+f32) and the doubles pair
 selection against their plain versions, and VMC steps and the dense
 ``comb_hij`` that go through the kernels.
 
@@ -201,11 +203,17 @@ def _excitations(parents, C, seed):
     return kids
 
 
+def _prefix_counts():
+    return (pre.PARENT_LAUNCHES.n, pre.CHILD_LAUNCHES.n, pre.MMA_PARENT_LAUNCHES.n,
+            pre.MMA_CHILD_LAUNCHES.n, fused_rnn.LAUNCHES.n)
+
+
 @pytest.mark.parametrize("mm", ["f32", "bf16"])
 def test_cuda_prefix_kernels_match_plain_and_flat(mm, dev):
-    """One parent and one child launch per call; the values of the plain
-    version and of the flat kernel on the same rows, at the tolerances
-    above."""
+    """One parent and one child launch per call, on the tensor cores in
+    bf16 and on the CUDA cores in f32; the values of the plain version
+    and of the flat kernel on the same rows, at the tolerances above;
+    in bf16 bit for bit the flat tensor-core kernel's."""
     model, _ = _model("fe2s2-dcut48", dev)
     parents = torch.as_tensor(_rand_dets(96, 40, 15, 15, 3), device=dev)
     kids = torch.as_tensor(_excitations(parents.cpu().numpy(), 50, 4), device=dev)
@@ -213,11 +221,12 @@ def test_cuda_prefix_kernels_match_plain_and_flat(mm, dev):
     assert (t_min == 0).any() and (t_min == 20).any()
     dt = {"f32": torch.float32, "bf16": torch.bfloat16}[mm]
     tol = (1e-4, 1e-3) if mm == "f32" else (1e-1, 1e-1)
-    before = (pre.PARENT_LAUNCHES.n, pre.CHILD_LAUNCHES.n, fused_rnn.LAUNCHES.n)
+    before = _prefix_counts()
     kp, kc = pre.graph_mpsrnn_logpsi_fused_prefix(model, parents, kids, t_min, matmul_dtype=dt)
     torch.cuda.synchronize()
-    assert (pre.PARENT_LAUNCHES.n, pre.CHILD_LAUNCHES.n, fused_rnn.LAUNCHES.n) == (
-        before[0] + 1, before[1] + 1, before[2])
+    mma = int(mm == "bf16")
+    assert _prefix_counts() == (before[0] + 1, before[1] + 1, before[2] + mma,
+                                before[3] + mma, before[4])
     pp, pc = pre.graph_mpsrnn_logpsi_fused_prefix_plain(model, parents, kids, t_min,
                                                         matmul_dtype=dt)
     assert torch.isfinite(kp).all() and torch.isfinite(kc).all()
@@ -227,6 +236,111 @@ def test_cuda_prefix_kernels_match_plain_and_flat(mm, dev):
         model, torch.cat([parents, kids.reshape(-1, 40).to(parents.dtype)]), matmul_dtype=dt)
     _close(kp, flat[:96], tol)
     _close(kc.reshape(-1, 2), flat[96:], tol)
+    if mm == "bf16":
+        assert torch.equal(kp, flat[:96])
+        assert torch.equal(kc.reshape(-1, 2), flat[96:])
+
+
+def _prefix_rows(dev, n_par, C, s0, seed=5):
+    """The dcut-48 chain, n_par parents with C children each and their
+    t_min: "mixed" (excitations; 0, norb and between, across parents),
+    "zero" (every child from site 0) or "norb" (children equal to their
+    parents)."""
+    model, _ = _model("fe2s2-dcut48", dev)
+    par = _rand_dets(n_par, 40, 15, 15, seed)
+    if s0 == "norb" or n_par == 0:
+        kids = np.repeat(par[:, None], C, axis=1)
+    else:  # past child 0 (the parent) and child 1 (a random determinant) when C < 3
+        kids = _excitations(par, C + 2, seed + 1)[:, -C:] if C < 3 else _excitations(
+            par, C, seed + 1)
+    parents, kids = torch.as_tensor(par, device=dev), torch.as_tensor(kids, device=dev)
+    t_min = pre.t_min_process_order(model, parents, kids)
+    if s0 == "zero":
+        t_min = torch.zeros_like(t_min)
+    return model, parents, kids, t_min
+
+
+def _hold_prefix(model, parents, kids, t_min):
+    """The tensor-core passes: one launch each (none for no rows), the
+    plain version's values at the bf16 tolerance, and the flat
+    tensor-core kernel's bit for bit."""
+    bf16 = torch.bfloat16
+    before = _prefix_counts()
+    kp, kc = pre.graph_mpsrnn_logpsi_fused_prefix(model, parents, kids, t_min)
+    torch.cuda.synchronize()
+    lp, lc = int(parents.shape[0] > 0), int(kids.shape[0] * kids.shape[1] > 0)
+    assert _prefix_counts() == (before[0] + lp, before[1] + lc, before[2] + lp,
+                                before[3] + lc, before[4])
+    rows = torch.cat([parents, kids.reshape(-1, 40)])
+    if rows.shape[0] == 0:
+        assert kp.shape == (0, 2) and kc.numel() == 0
+        return
+    pp, pc = pre.graph_mpsrnn_logpsi_fused_prefix_plain(model, parents, kids, t_min)
+    _close(torch.cat([kp, kc.reshape(-1, 2)]), torch.cat([pp, pc.reshape(-1, 2)]), (1e-1, 1e-1))
+    flat = fused_rnn.graph_mpsrnn_logpsi_fused(model, rows, matmul_dtype=bf16)
+    assert torch.equal(kp, flat[:parents.shape[0]])
+    assert torch.equal(kc.reshape(-1, 2), flat[parents.shape[0]:])
+
+
+@pytest.mark.parametrize("s0", ["mixed", "zero", "norb"])
+def test_mma_prefix_first_changed_sites(s0, dev):
+    """Child tiles that start at 0, at norb (no site runs: the parent's
+    state) and in between, across parents; rows shuffled so that the
+    wrapper's sort matters."""
+    model, parents, kids, t_min = _prefix_rows(dev, 64, 40, s0)
+    norb = model.norb
+    assert {"mixed": bool((t_min == 0).any() and (t_min == norb).any()
+                          and ((t_min > 0) & (t_min < norb)).any()),
+            "zero": bool((t_min == 0).all()), "norb": bool((t_min == norb).all())}[s0]
+    perm = torch.randperm(kids.shape[1], generator=torch.Generator().manual_seed(0))
+    _hold_prefix(model, parents, kids[:, perm], t_min[:, perm])
+
+
+@pytest.mark.parametrize("rows", ["0", "5", "tile+1", "grid+1"])
+def test_mma_prefix_ragged_rows(rows, dev):
+    """Parent and child passes at N = 0, 5, one CTA of the small-N shape
+    (1 warp) + 1, and one row past a grid of 8-warp CTAs that fills the
+    SMs: rows past N are neither written nor felt by the others."""
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    model, _ = _model("fe2s2-dcut48", dev)
+    n = {"0": 0, "5": 5, "tile+1": 17, "grid+1": n_sm * 128 + 1}[rows]
+    shape = fused_rnn.mma_launch_shape(model, n, n_sm)
+    if rows == "tile+1":
+        assert shape["warps"] == 1 and shape["ctas"] == 2
+    if rows == "grid+1":
+        assert shape["warps"] == 8 and shape["ctas"] == n_sm + 1
+    # n parents with one child each, and one parent with n children
+    for n_par, C in ((n, 1), (min(n, 1), n)):
+        _, parents, kids, t_min = _prefix_rows(dev, n_par, C, "mixed", seed=n)
+        _hold_prefix(model, parents, kids, t_min)
+
+
+def test_bf16_prefix_rows_on_card_never_take_the_plain_version_or_the_cuda_cores(
+        dev, monkeypatch):
+    def boom(*a, **k):
+        raise AssertionError("the plain version or a CUDA-core prefix kernel ran on bf16 rows")
+
+    for name in ("prefix_parent_plain", "prefix_child_plain", "_parent_simt", "_child_simt"):
+        monkeypatch.setattr(pre, name, boom)
+    monkeypatch.setattr(fused_rnn, "graph_mpsrnn_logpsi_fused_plain", boom)
+    model, parents, kids, t_min = _prefix_rows(dev, 32, 20, "mixed")
+    pre.graph_mpsrnn_logpsi_fused_prefix(model, parents, kids, t_min)
+    pre.ReducePrefixForward(model)(parents, kids, t_min)
+    torch.cuda.synchronize()
+
+
+def test_f32_prefix_rows_on_card_take_the_cuda_cores(dev, monkeypatch):
+    def boom(*a, **k):
+        raise AssertionError("a tensor-core prefix kernel ran on f32 rows")
+
+    monkeypatch.setattr(pre, "_parent_mma", boom)
+    monkeypatch.setattr(pre, "_child_mma", boom)
+    model, parents, kids, t_min = _prefix_rows(dev, 32, 20, "mixed")
+    before = _prefix_counts()
+    pre.graph_mpsrnn_logpsi_fused_prefix(model, parents, kids, t_min,
+                                         matmul_dtype=torch.float32)
+    torch.cuda.synchronize()
+    assert _prefix_counts() == (before[0] + 1, before[1] + 1) + before[2:]
 
 
 def test_vmc_step_with_eloc_prefix_on_card(dev):
