@@ -47,14 +47,18 @@ Phases, one line each (and a few detail lines):
      tensor-core kernel, the CUDA-core kernel in bf16 and the plain
      version) and of both whole forwards;
   9. the doubles pair selection W[b,u,v] = hpair[po[b,u], pv[b,v]] at
-     the flagship's [2048, 435, 45]: both variants bitwise equal to the
-     plain version (pair indices of phase 5's samples and random ones,
-     the system's symmetric hpair and a random asymmetric one), CUDA-event
-     times of the kernel, the plain version and one PyTorch gather beside
-     the bound; pair_select_w(variant="rowrow") once on the samples, its
-     launch counted; then comb_hij on the 2048 samples, the dense pair
-     matrix through the kernel bitwise equal to the sector blocks, both
-     timed;
+     the flagship's [2048, 435, 45]: both variants of the band kernel
+     bitwise equal to the plain version (pair indices of phase 5's
+     samples and random ones, the system's symmetric hpair and a random
+     asymmetric one) and to the earlier gather kernel; per variant
+     (pynqs_tpu_torch/scripts/time_pair_select.measure) the wrapper
+     call's CUDA-event time, the kernel's device time alone (profiler),
+     the wrapper's host time per call, the same three of the earlier
+     gather kernel, the plain version and one PyTorch gather beside the
+     bound, and the L2 sectors the gather must touch;
+     pair_select_w(variant="rowrow") once on the samples, its launch
+     counted; then comb_hij on the 2048 samples, the dense pair matrix
+     through the kernel bitwise equal to the sector blocks, both timed;
  10. the final-state evaluation (pynqs_tpu_torch/scripts/
      eval_fe2s2_final.evaluate) of the r5g64 flagship at full width: DFS
      sampling as phase 5 (at most 16,384 rows), REDUCE E_loc and the
@@ -63,7 +67,8 @@ Phases, one line each (and a few detail lines):
      one repetition, its launches counted; the same rep again with each
      stage synchronized at every call, for the time split between the
      pair selection, comb_hij and the fused forward; both variants of the
-     pair selection at the evaluation's chunk shape, bitwise and timed.
+     pair selection at the evaluation's chunk shape, bitwise and timed as
+     in phase 9.
 
 The last two lines are the kernels' JSON summary and the result JSON.
 Any failed check raises, so the script exits non-zero with no result.
@@ -198,7 +203,7 @@ def ptxas_report(text):
         if m:
             t = re.search(r"ILi(\d+)ELi(\d+)ELb([01])E", m.group(1))
             w = re.search(r"fused_rnn_mma_kernelILi(\d+)ELi(\d+)ELi(\d+)EE", m.group(1))
-            u = re.search(r"pair_select_kernelI([fd])([il])Lb([01])E", m.group(1))
+            u = re.search(r"pair_select_(band|gather)I([fd])([il])Lb([01])E", m.group(1))
             if w:
                 mode = ("flat forward", "prefix parent", "prefix child")[int(w.group(3))]
                 warps = (f"{w.group(2)} warps of 16 rows" if w.group(2) != "0"
@@ -209,9 +214,9 @@ def ptxas_report(text):
                 name = (f"rows/warp {t.group(1)}, outputs/lane {t.group(2)}, "
                         f"W {'bf16' if t.group(3) == '1' else 'f32'}")
             elif u:
-                name = (f"{'f32' if u.group(1) == 'f' else 'f64'}, "
-                        f"{'int32' if u.group(2) == 'i' else 'int64'} indices, "
-                        f"{'rowrow' if u.group(3) == '1' else 'lane'}")
+                name = (f"{u.group(1)} kernel, {'f32' if u.group(2) == 'f' else 'f64'}, "
+                        f"{'int32' if u.group(3) == 'i' else 'int64'} indices, "
+                        f"{'rowrow' if u.group(4) == '1' else 'lane'}")
             else:
                 name = m.group(1)
             spill = ""
@@ -262,6 +267,7 @@ def main():
     from pynqs_tpu_torch.optim.vmc import VMC, VMCConfig
     from pynqs_tpu_torch.sampler.ar import ar_sampling_dfs, compact_by_count
     from pynqs_tpu_torch.sampler.ar_sampler import ARSampler
+    from pynqs_tpu_torch.scripts import time_pair_select as tps
     from pynqs_tpu_torch.scripts.eval_fe2s2_final import evaluate
     from pynqs_tpu_torch.utils.flagship import flagship_model, load_flagship_params
     from pynqs_tpu_torch.utils.system import System
@@ -328,6 +334,11 @@ def main():
                f"{sh['warps']} warp(s) = {16 * sh['warps']} rows per CTA, {sh['ctas']} CTAs, "
                f"dynamic shared memory {sh['smem_bytes']} B per CTA")
     del chain_m
+    for v, what in (("lane", "occupied"), ("rowrow", "virtual")):
+        sh = ps.pair_select_launch_shape(B, 435, 45, 4, v)
+        log(2, f"  pair selection {v} at [{B}, 435, 45] f32: {sh['bands']} bands of "
+               f"{sh['band']} {what} pairs per sample, one CTA of {sh['threads']} threads per "
+               f"item ({sh['items']}), shared memory {sh['smem_bytes']} B per CTA")
 
     tabs = system.tables(dev, torch.float32)
     table = system.excitation
@@ -939,21 +950,33 @@ def main():
                f"and to hpair[po, pv]")
         del lib9, k9, p9
     check(bool(torch.equal(tabs.hpair, tabs.hpair.T)), "the system's hpair is not symmetric")
+
+    def time_pairs(phase, po, pv, hp, reps, host_calls):
+        """``time_pair_select.measure`` of both variants on these operands,
+        the earlier gather kernel held bitwise to the band kernel first;
+        returns ({variant: numbers}, {variant: max|kernel − plain|})."""
+        res, err = {}, {}
+        for v in ps.VARIANTS:
+            k = ps.pair_select_w(po, pv, hp, variant=v)
+            check(torch.equal(ps._launch_gather(po, pv, hp, v), k),
+                  f"the earlier gather kernel ({v}) != the band kernel")
+            err[v] = (k - ps.pair_select_w_plain(po, pv, hp, variant=v)).abs().max().item()
+            del k
+            r = res[v] = tps.measure(po, pv, hp, v, reps=reps, host_calls=host_calls)
+            log(phase, f"pair selection {v} {r['shape']}: wrapper call {r['ms']:.4f} ms, kernel "
+                       f"alone {r['device_ms']:.4f} ms (profiler), host {r['host_ms']:.4f} ms per "
+                       f"call; the earlier gather kernel in the same run {r['prev_ms']:.4f} ms, "
+                       f"alone {r['prev_device_ms']:.4f} ms, host {r['prev_host_ms']:.4f} ms; "
+                       f"plain {r['plain_ms']:.4f} ms, one gather hpair[po[..., None], "
+                       f"pv[:, None, :]] {r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+                       f"({r['bytes'] / 1e6:.1f} MB, bytes); L2 sectors a gather must touch "
+                       f"along hpair's rows {r['l2_sector_bytes'] / 1e6:.1f} MB, along the "
+                       f"kernel's hpair^T rows {r['l2_sector_bytes_kernel'] / 1e6:.1f} MB "
+                       f"({r['l2_sector_bytes_kernel'] / r['bytes']:.2f}x the bytes); gpu {smi}")
+        return res, err
+
     po, pv, hp = po_s, pv_s, tabs.hpair
-    nbytes9 = (Bs * n_u * n_v * hp.element_size()
-               + sum(t.numel() * t.element_size() for t in (po, pv, hp)))
-    b9 = (nbytes9 / H100_BYTES * 1e3, "bytes")
-    lib_ms9 = cuda_ms(lambda: hp[po[..., None], pv[:, None, :]], 10)
-    t9, err9 = {}, {}
-    for v in ps.VARIANTS:
-        t9[v] = alternate(lambda v=v: ps.pair_select_w_plain(po, pv, hp, variant=v),
-                          lambda v=v: ps.pair_select_w(po, pv, hp, variant=v), 20, 10)
-        err9[v] = (ps.pair_select_w(po, pv, hp, variant=v)
-                   - ps.pair_select_w_plain(po, pv, hp, variant=v)).abs().max().item()
-        log(9, f"pair selection {v} on the samples' indices: kernel {t9[v][0]:.4f} ms, plain "
-               f"{t9[v][1]:.4f} ms, one gather hpair[po[..., None], pv[:, None, :]] "
-               f"{lib_ms9:.4f} ms, bound {b9[0]:.4f} ms ({nbytes9 / 1e6:.1f} MB, bytes); "
-               f"gpu {smi}")
+    m9, err9 = time_pairs(9, po, pv, hp, 20, 100)
 
     # the rowrow variant's path: pair_select_w(variant="rowrow") on the
     # samples' indices, from a fresh launch count
@@ -1045,25 +1068,14 @@ def main():
                 f"{k} {v:.3f} s ({v / rep_c.seconds:.1%})" for k, v in spent.items())
         + " (comb_hij includes the pair selection)")
 
-    # the lane kernel at the evaluation's chunk shape: the first chunk's
+    # both variants at the evaluation's chunk shape: the first chunk's
     # operands (256 r5g64 samples, the system's f32 hpair)
     po, pv, hp = first["pair selection"][:3]
-    Be = po.shape[0]
     for v in ps.VARIANTS:
         check(torch.equal(ps.pair_select_w(po, pv, hp, variant=v),
                           ps.pair_select_w_plain(po, pv, hp, variant=v)),
               f"pair selection {v} != plain at the evaluation's chunk shape")
-    nbytes10 = (Be * n_u * n_v * hp.element_size()
-                + sum(t.numel() * t.element_size() for t in (po, pv, hp)))
-    b10 = (nbytes10 / H100_BYTES * 1e3, "bytes")
-    lib_ms10 = cuda_ms(lambda: hp[po[..., None], pv[:, None, :]], 20)
-    t10 = alternate(lambda: ps.pair_select_w_plain(po, pv, hp),
-                    lambda: ps.pair_select_w(po, pv, hp), 50, 20)
-    err10 = (ps.pair_select_w(po, pv, hp) - ps.pair_select_w_plain(po, pv, hp)).abs().max().item()
-    log(10, f"pair selection lane at the evaluation's chunk [{Be}, {n_u}, {n_v}]: both variants "
-            f"bitwise equal to the plain version; kernel {t10[0]:.4f} ms, plain {t10[1]:.4f} "
-            f"ms, one gather {lib_ms10:.4f} ms, bound {b10[0]:.4f} ms ({nbytes10 / 1e6:.2f} MB, "
-            f"bytes); gpu {smi}")
+    m10, err10 = time_pairs(10, po, pv, hp, 50, 1000)
 
     def entry(name, replaces, launches_n, err, times, bnd, source="fused_rnn.cu", lib=None,
               **extra):
@@ -1093,11 +1105,18 @@ def main():
               b8[bf16]["child"], "fused_rnn_mma.cu", prev_ms=t8[bf16]["child"][2],
               device_ms=dev8["child"][0], prev_device_ms=dev8["child"][1]),
         # lane: the evaluation's launches and chunk shape (phase 10);
-        # rowrow: pair_select_w(variant="rowrow") at [2048, 435, 45] (phase 9)
-        entry("pair_select_lane", "pynqs_tpu/ops/pallas_hij.py:48", l10["pair_select_lane"],
-              err10, t10, b10, "pair_select.cu", lib_ms10),
-        entry("pair_select_rowrow", "pynqs_tpu/ops/pallas_hij.py:82", l9["rowrow"],
-              err9["rowrow"], t9["rowrow"], b9, "pair_select.cu", lib_ms9),
+        # rowrow: pair_select_w(variant="rowrow") at [2048, 435, 45] (phase
+        # 9); prev_*: the earlier gather kernel on the same operands in
+        # this run
+        *(entry(name, replaces, n, err[v], (m[v]["ms"], m[v]["plain_ms"]),
+                (m[v]["bound_ms"], "bytes"), "pair_select.cu", m[v]["library_ms"],
+                device_ms=m[v]["device_ms"], prev_ms=m[v]["prev_ms"],
+                prev_device_ms=m[v]["prev_device_ms"])
+          for name, replaces, n, v, m, err in (
+              ("pair_select_lane", "pynqs_tpu/ops/pallas_hij.py:48", l10["pair_select_lane"],
+               "lane", m10, err10),
+              ("pair_select_rowrow", "pynqs_tpu/ops/pallas_hij.py:82", l9["rowrow"], "rowrow",
+               m9, err9))),
     ]}
     print(json.dumps(summary))
     print(f"gpu: {smi}")

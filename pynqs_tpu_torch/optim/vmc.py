@@ -47,9 +47,10 @@ class VMCConfig:
     grad_batch: int | None = None  # backward microbatch rows
     clip_grad: float | None = 1.0  # global-norm clip; None = off
     clip_schedule: Callable[[int], float] | None = None  # iteration -> max-norm
-    # the gradient-free eloc forwards: None/True = the fused forward
-    # (CUDA kernel for rows on the card, its plain version on the CPU);
-    # False = model.log_psi
+    # the gradient-free eloc forwards: True = the fused forward (its CUDA
+    # kernel for a model on the card, its plain version on the CPU);
+    # False = model.log_psi; None = the fused forward for a model on the
+    # card, model.log_psi on the CPU (as the JAX package off the TPU)
     fused_forward: bool | None = None
     fused_matmul_dtype: str = "bf16"  # "bf16" | "f32"
     # REDUCE: the screened and tail children through the prefix-sharing
@@ -74,8 +75,11 @@ class VMC:
         self._ops = tabs.astuple()
         self._hpair = tabs.hpair_best
         self._table = system.excitation
-        opt = {"adam": torch.optim.Adam, "adamw": torch.optim.AdamW}[self.cfg.optimizer]
-        self.opt = opt(model.parameters(), lr=self.cfg.lr)
+        # AdamW decays by optax.adamw's default 1e-4 (torch's default is
+        # 0.01): every AdamW run of the JAX package passes optax.adamw(lr)
+        opt, kw = {"adam": (torch.optim.Adam, {}),
+                   "adamw": (torch.optim.AdamW, {"weight_decay": 1e-4})}[self.cfg.optimizer]
+        self.opt = opt(model.parameters(), lr=self.cfg.lr, **kw)
         self.history: list[float] = []
 
     def _matmul_dtype(self):
@@ -84,13 +88,15 @@ class VMC:
     def _eloc_forward(self):
         """log ψ closure for the gradient-free eloc forwards."""
         use = self.cfg.fused_forward
-        if use is None or use:
+        if use is None:
+            use = self.model.M_re.device.type != "cpu"
+        if use:
             if fused_forward_available(self.model):
                 return partial(
                     graph_mpsrnn_logpsi_fused, self.model,
                     matmul_dtype=self._matmul_dtype(), tables=pack_tables(self.model),
                 )
-            if use:
+            if self.cfg.fused_forward:
                 raise ValueError("fused_forward=True needs a GraphMPSRNN model")
         return lambda b: self.model.log_psi(b).detach()
 

@@ -13,8 +13,9 @@ repetition, under the DFS sampling measure:
 
 Both operators read their doubles from the dense pair matrix, through
 the pair selection kernel on the card (``ops/pair_select.py``); the ψ
-forwards are the fused forward (its CUDA kernel on the card), optionally
-of the spin-flip-projected state ψ_P = (ψ + η·U_SF ψ)/2.
+forwards are the fused forward's CUDA kernel on the card and the model's
+exact forward on the CPU, optionally of the spin-flip-projected state
+ψ_P = (ψ + η·U_SF ψ)/2.
 
 The JAX script's command line needs the Fe2S2 integrals (the
 reference's ``fe2s2-OO.pth``), which are not in the repository, and
@@ -107,9 +108,11 @@ def evaluate(
     draws (``k_det = 0``: all n_sd terms and 8 draws of an empty tail),
     ``batch`` samples per chunk.  ``spin_project`` η ∈ {-1, 0, 1}: 0
     evaluates ψ itself; otherwise ψ_P (``projected_forward``) in the
-    weights and the ratios, while sampling stays on |ψ|².  ``fwd_dtype``:
-    the fused forward's matmul type ("bf16" or "f32").  Dead sample slots
-    take no forward and no local operator."""
+    weights and the ratios, while sampling stays on |ψ|².  The ψ forwards
+    are the fused forward on the card and ``model.log_psi`` on the CPU, as
+    in the JAX script; ``fwd_dtype``, the fused forward's matmul type
+    ("bf16" or "f32"), applies to the card only.  Dead sample slots take
+    no forward and no local operator."""
     dev, mdev = resolve_device(device), model.M_re.device
     if mdev.type != dev.type or dev.index not in (None, mdev.index):
         raise ValueError(f"the model is on {mdev}, not on {dev}")
@@ -124,8 +127,11 @@ def evaluate(
                                   system.nob)
     tabs_s = s_sys.tables(dev, f32)
     table = system.excitation
-    fwd = partial(fused_rnn.graph_mpsrnn_logpsi_fused, model, matmul_dtype=mm,
-                  tables=fused_rnn.pack_tables(model))
+    if dev.type == "cpu":  # the exact forward, as the JAX script off the accelerator
+        fwd = model.log_psi
+    else:
+        fwd = partial(fused_rnn.graph_mpsrnn_logpsi_fused, model, matmul_dtype=mm,
+                      tables=fused_rnn.pack_tables(model))
     if spin_project:
         fwd = projected_forward(fwd, float(spin_project))
     kd = k_det if k_det > 0 else table.n_sd

@@ -202,6 +202,27 @@ def test_evaluate_matches_the_exact_sum(spin_project):
         assert "E = " in r.line(0) and "mHa" in r.line(0, e_ref=r.e)
 
 
+def test_evaluate_on_the_cpu_takes_the_exact_forward(monkeypatch):
+    """As the JAX script off the accelerator: ``model.log_psi``, never the
+    fused forward, so ``fwd_dtype`` changes nothing on the CPU."""
+    from pynqs_tpu_torch.ops import fused_rnn
+
+    def boom(*a, **k):
+        raise AssertionError("the fused forward ran on the CPU")
+
+    monkeypatch.setattr(fused_rnn, "graph_mpsrnn_logpsi_fused", boom)
+    h1e, h2e = _integrals()
+    _, _, tm = _models(torch.float32, seed=2)
+    ts = System.from_integrals(h1e, h2e, SORB, NOA, NOB)
+    reps = {mm: evaluate(tm, ts, n_sample=10_000, capacity=64, n_group=2, split_depth=2,
+                         k_det=6, n_stoch=4, batch=16, n_rep=1, fwd_dtype=mm,
+                         generator=torch.Generator().manual_seed(0), device="cpu")[0]
+            for mm in ("bf16", "f32")}
+    for f in ("e", "e_ct", "var", "s", "dropped", "n_live"):
+        assert getattr(reps["bf16"], f) == getattr(reps["f32"], f), f
+    assert torch.equal(reps["bf16"].rows, reps["f32"].rows)
+
+
 def test_reduce_topk_approx_matches_jax():
     """f64.  ``"approx"`` is an exact top-k off the TPU, in both packages:
     on the Hubbard chain the k_det screened terms cover every non-zero

@@ -395,45 +395,105 @@ def test_vmc_steps_on_card_launch_the_kernel(dev):
     assert np.mean(hist[-5:]) < np.mean(hist[:5]) - 0.05, hist
 
 
-def _pair_inputs(sym, dt, idx, dev, B=64, n_u=435, n_v=45, npair=780, seed=0):
+def _pair_inputs(sym, dt, idx, dev, B=64, n_u=435, n_v=45, npair=780, seed=0, lo=0, hi=None):
+    """Indices drawn from [lo, hi) (default [0, npair)); outside
+    [0, npair) the kernel writes NaN."""
     rng = np.random.default_rng(seed)
     h = rng.standard_normal((npair, npair))
     if sym:
         h = h + h.T
-    po = rng.integers(0, npair, (B, n_u))
-    pv = rng.integers(0, npair, (B, n_v))
+    hi = npair if hi is None else hi
+    po = rng.integers(lo, hi, (B, n_u))
+    pv = rng.integers(lo, hi, (B, n_v))
     return (torch.as_tensor(po, dtype=idx, device=dev), torch.as_tensor(pv, dtype=idx, device=dev),
             torch.as_tensor(h, dtype=dt, device=dev), h, po, pv)
 
 
+# (B, n_u, n_v): the flagship's odd n_u·n_v in 3 bands of each variant;
+# one sample; n_u and n_v below one band; band counts that divide
+# neither n_u nor n_v; no sample
+PAIR_SHAPES = {"flagship": (64, 435, 45), "B1": (1, 435, 45), "small": (3, 7, 5),
+               "ragged": (25, 170, 17), "B0": (0, 435, 45)}
+
+
+@pytest.mark.parametrize("shape", list(PAIR_SHAPES))
 @pytest.mark.parametrize("idx", [torch.int32, torch.int64], ids=["i32", "i64"])
 @pytest.mark.parametrize("dt", [torch.float32, torch.float64], ids=["f32", "f64"])
 @pytest.mark.parametrize("sym", [True, False], ids=["sym", "asym"])
 @pytest.mark.parametrize("variant", ps.VARIANTS)
-def test_pair_select_kernel_equals_plain_bitwise(variant, sym, dt, idx, dev):
-    """One launch per call; bitwise the plain version (a gather does no
-    arithmetic) and the advertised hpair[po, pv], also for a
-    non-symmetric hpair."""
-    po, pv, h, h_np, po_np, pv_np = _pair_inputs(sym, dt, idx, dev)
+def test_pair_select_kernel_equals_plain_bitwise(variant, sym, dt, idx, shape, dev):
+    """One launch per call (none for an empty output); bitwise the plain
+    version (a gather does no arithmetic) and the advertised
+    hpair[po, pv], also for a non-symmetric hpair."""
+    B, n_u, n_v = PAIR_SHAPES[shape]
+    po, pv, h, h_np, po_np, pv_np = _pair_inputs(sym, dt, idx, dev, B, n_u, n_v)
     before = ps.LAUNCHES[variant].n
     k = ps.pair_select_w(po, pv, h, variant=variant)
     torch.cuda.synchronize()
-    assert ps.LAUNCHES[variant].n == before + 1
-    assert k.shape == (64, 435, 45) and k.dtype == dt
+    assert ps.LAUNCHES[variant].n == before + (B > 0)
+    assert k.shape == (B, n_u, n_v) and k.dtype == dt
     assert torch.equal(k, ps.pair_select_w_plain(po, pv, h, variant=variant))
     ref = h_np[po_np[:, :, None], pv_np[:, None, :]]
     assert torch.equal(k.cpu(), torch.as_tensor(ref, dtype=dt))
 
 
+@pytest.mark.parametrize("shape", ["flagship", "small", "ragged"])
+@pytest.mark.parametrize("dt", [torch.float32, torch.float64], ids=["f32", "f64"])
+@pytest.mark.parametrize("variant", ps.VARIANTS)
+def test_pair_select_out_of_range_indices_give_nan(variant, dt, shape, dev):
+    """An index outside [0, npair) gives NaN at exactly the positions it
+    reaches, and every other value is the plain version's."""
+    B, n_u, n_v = PAIR_SHAPES[shape]
+    po, pv, h, *_ = _pair_inputs(False, dt, torch.int64, dev, B, n_u, n_v, seed=3, lo=-3,
+                                 hi=783)
+    npair = h.shape[0]
+    po[0, 0], pv[-1, -1] = -1, npair  # at least one of each side
+    k = ps.pair_select_w(po, pv, h, variant=variant)
+    ok = (((po >= 0) & (po < npair))[:, :, None] & ((pv >= 0) & (pv < npair))[:, None, :])
+    assert 0 < int((~ok).sum()) < ok.numel()
+    plain = ps.pair_select_w_plain(po.clamp(0, npair - 1), pv.clamp(0, npair - 1), h,
+                                   variant=variant)
+    torch.cuda.synchronize()
+    assert torch.equal(torch.isnan(k), ~ok)
+    assert torch.equal(k[ok], plain[ok])
+
+
+@pytest.mark.parametrize("shape", ["flagship", "small", "ragged"])
+@pytest.mark.parametrize("dt", [torch.float32, torch.float64], ids=["f32", "f64"])
+@pytest.mark.parametrize("variant", ps.VARIANTS)
+def test_pair_select_band_kernel_equals_the_earlier_gather(variant, dt, shape, dev):
+    """The band kernel (reading hpair^T) and the earlier gather kernel
+    (timing only, reading hpair) give the same bits on a non-symmetric
+    hpair, out-of-range NaNs included; the gather counts no launch."""
+    B, n_u, n_v = PAIR_SHAPES[shape]
+    po, pv, h, *_ = _pair_inputs(False, dt, torch.int32, dev, B, n_u, n_v, seed=4, lo=-1,
+                                 hi=781)
+    before = {v: c.n for v, c in ps.LAUNCHES.items()}
+    g = ps._launch_gather(po, pv, h, variant)
+    torch.cuda.synchronize()
+    assert {v: c.n for v, c in ps.LAUNCHES.items()} == before
+    k = ps.pair_select_w(po, pv, h, variant=variant)
+    torch.cuda.synchronize()
+    assert g.shape == k.shape and torch.equal(torch.isnan(g), torch.isnan(k))
+    assert torch.equal(g.nan_to_num(), k.nan_to_num())
+
+
 def test_pair_select_on_cuda_never_calls_the_plain_version(dev, monkeypatch):
+    """CUDA tensors reach the band kernel or raise: never the plain
+    version, never the earlier gather."""
     def boom(*a, **k):
-        raise AssertionError("the plain version ran on CUDA tensors")
+        raise AssertionError("the plain version or the earlier gather ran on CUDA tensors")
 
     monkeypatch.setattr(ps, "pair_select_w_plain", boom)
+    monkeypatch.setattr(ps, "_launch_gather", boom)
     po, pv, h, *_ = _pair_inputs(True, torch.float32, torch.int64, dev)
     for variant in ps.VARIANTS:
         ps.pair_select_w(po, pv, h, variant=variant)
     torch.cuda.synchronize()
+    with pytest.raises(ValueError):
+        ps.pair_select_w(po.cpu(), pv, h)
+    with pytest.raises(ValueError):
+        ps.pair_select_w(po.int(), pv, h)
 
 
 def test_comb_hij_dense_on_card_equals_sector_form(dev):

@@ -3,9 +3,12 @@ pair matrix.
 
 ``pair_select_w_plain`` (the plain version of the CUDA kernel that
 replaces ``pynqs_tpu/ops/pallas_hij.py``) against the Pallas kernels in
-interpret mode and against numpy; the dense ``comb_hij`` against its
-sector-block and triangle forms, the JAX package and the oracle; REDUCE
-with the dense matrix against REDUCE with the sector blocks."""
+interpret mode and against numpy; the kernel's host side (its launch
+shape, an emulation of its walk over the flat output with its own
+integer arithmetic, the wrapper's checks); the dense ``comb_hij``
+against its sector-block and triangle forms, the JAX package and the
+oracle; REDUCE with the dense matrix against REDUCE with the sector
+blocks."""
 
 import numpy as np
 import jax.numpy as jnp
@@ -22,6 +25,7 @@ from pynqs_tpu_torch.energy.eloc import local_energy_reduce
 from pynqs_tpu_torch.models.graph_mps_rnn import GraphMPSRNN
 from pynqs_tpu_torch.ops import integrals
 from pynqs_tpu_torch.ops.hamiltonian import comb_hij, pair_indices
+from pynqs_tpu_torch.ops import pair_select as ps
 from pynqs_tpu_torch.ops.pair_select import VARIANTS, pair_select_w, pair_select_w_plain
 from pynqs_tpu_torch.utils.system import System
 
@@ -65,6 +69,183 @@ def test_asymmetric_hpair_keeps_the_advertised_indexing(variant, idx):
         np.testing.assert_array_equal(fn(*args, variant=variant).numpy(), ref)
     with pytest.raises(ValueError, match="variant"):
         pair_select_w(*args, variant="lanes")
+
+
+# (B, n_u, n_v): the flagship's odd n_u·n_v, several bands, one sample;
+# n_u < the lane band with an odd n_u·n_v; several samples, a band count
+# that does not divide n_u (lane) or n_v (rowrow); an even n_u·n_v
+RAGGED = [(1, 435, 45), (3, 7, 5), (25, 170, 17), (3, 130, 12)]
+
+
+@pytest.mark.parametrize("itemsize", [4, 8], ids=["f32", "f64"])
+@pytest.mark.parametrize("B,n_u,n_v", RAGGED + [(2048, 435, 45), (256, 435, 45), (5, 1, 1),
+                                                (4, 3000, 500), (0, 435, 45)])
+@pytest.mark.parametrize("variant", VARIANTS)
+def test_launch_shape_is_one_the_kernel_takes(variant, B, n_u, n_v, itemsize):
+    """Bands of at most BAND_MAX pairs that split their span evenly (the
+    kernel recomputes ``bands`` from ``band`` alike), one CTA per item,
+    shared memory within 48 KB; at the flagship's shapes 3 bands of 145
+    occupied pairs (lane, f32) or of 15 virtual pairs (rowrow)."""
+    sh = ps.pair_select_launch_shape(B, n_u, n_v, itemsize, variant)
+    band, bands = sh["band"], sh["bands"]
+    span = n_v if variant == "rowrow" else n_u
+    assert 1 <= band <= ps.BAND_MAX[variant] and sh["threads"] == ps.THREADS
+    assert bands == -(-span // band) and (bands - 1) * band < span <= bands * band
+    assert sh["items"] == B * bands
+    assert sh["smem_bytes"] == ps.band_smem(n_u, n_v, band, itemsize, variant) <= ps.SMEM_MAX
+    if (n_u, n_v) == (435, 45) and itemsize == 4:
+        assert (band, bands) == ((15, 3) if variant == "rowrow" else (145, 3))
+
+
+def test_launch_shape_raises_where_no_band_fits():
+    with pytest.raises(ValueError, match="shared memory"):
+        ps.pair_select_launch_shape(4, 10, 6000, 8, "lane")
+    with pytest.raises(ValueError, match="shared memory"):
+        ps.pair_select_launch_shape(4, 13000, 6, 4, "rowrow")
+    with pytest.raises(ValueError, match="items"):
+        ps.pair_select_launch_shape(2**30, 435, 45, 4, "lane")
+
+
+def _nan_ref(po, pv, h):
+    """hpair[po, pv] with NaN where an index lies outside [0, npair)."""
+    n = h.shape[0]
+    ok = ((po >= 0) & (po < n))[:, :, None] & ((pv >= 0) & (pv < n))[:, None, :]
+    ref = h[np.clip(po, 0, n - 1)[:, :, None], np.clip(pv, 0, n - 1)[:, None, :]]
+    return np.where(ok, ref, np.nan)
+
+
+def _emulate_band_kernel(po, pv, h, variant):
+    """``pair_select_band`` of csrc/pair_select.cu in numpy, with its own
+    integer arithmetic: every CTA (one per item) loads its indices, and
+    every thread walks its outputs, reading hT = h^T.  Returns the flat
+    output, each element's store count and the flat offsets of the lane
+    variant's vector stores."""
+    B, n_u = po.shape
+    n_v, npair = pv.shape[1], h.shape[0]
+    T, V = ps.THREADS, 16 // h.itemsize
+    hT = np.ascontiguousarray(h.T)
+    sh_ = ps.pair_select_launch_shape(B, n_u, n_v, h.itemsize, variant)
+    band = sh_["band"]
+    bands = ((n_v if variant == "rowrow" else n_u) + band - 1) // band
+    per = n_u * n_v
+    out = np.zeros(B * per, h.dtype)
+    count = np.zeros(B * per, np.int64)
+    vec = []
+
+    def checked(p):
+        return np.where((p >= 0) & (p < npair), p, -1)
+
+    def pick(r, c):
+        bad = (r < 0) | (c < 0)
+        return np.where(bad, np.nan, hT[np.where(bad, 0, r), np.where(bad, 0, c)])
+
+    def store(f, x):
+        np.add.at(count, f, 1)
+        out[f] = x
+
+    for blk in range(B * bands):
+        b, j0 = blk // bands, (blk % bands) * band
+        if variant == "rowrow":
+            rows = min(band, n_v - j0)
+            s_pv, s_po = checked(pv[b, j0:j0 + rows]), checked(po[b, :n_u])
+            m, o = rows * n_u, b * per + j0 * n_u
+            for t in range(T):
+                l = np.arange(t, m, T)
+                v = l // n_u
+                store(o + l, pick(s_pv[v], s_po[l - v * n_u]))
+            continue
+        rows = min(band, n_u - j0)
+        s_pv, s_po = checked(pv[b, :n_v]), checked(po[b, j0:j0 + rows])
+        base = b * per + j0 * n_v
+        sh = base % V
+        m = rows * n_v
+        tile = np.zeros(sh + m, h.dtype)
+        written = np.zeros(sh + m, np.int64)
+        for t in range(T):
+            l = np.arange(t, m, T)
+            v, u = l // rows, l - (l // rows) * rows
+            tile[sh + u * n_v + v] = pick(s_pv[v], s_po[u])
+            np.add.at(written, sh + u * n_v + v, 1)
+        assert (written[sh:] == 1).all() and (written[:sh] == 0).all()
+        head = min(m, (V - sh) % V)
+        nvec = (m - head) // V
+        tail0 = head + nvec * V
+        for t in range(T):
+            l = head + np.arange(t, nvec, T) * V
+            vec.append(base + l)
+            assert ((sh + l) % V == 0).all()  # an aligned vector of the tile
+            for k in range(V):
+                store(base + l + k, tile[sh + l + k])
+        t = np.arange(T)
+        t = t[t < head + (m - tail0)]
+        l = np.where(t < head, t, tail0 + (t - head))
+        store(base + l, tile[sh + l])
+    return out, count, np.concatenate(vec) if vec else np.zeros(0, np.int64)
+
+
+@pytest.mark.parametrize("dt", [np.float32, np.float64], ids=["f32", "f64"])
+@pytest.mark.parametrize("B,n_u,n_v", RAGGED)
+@pytest.mark.parametrize("variant", VARIANTS)
+def test_band_kernel_walk_covers_every_output_once(variant, B, n_u, n_v, dt):
+    """The kernel's partition of the flat output into items and bands,
+    with (lane) a tile written once per slot and stored as 16-byte
+    vectors on the run's aligned interior and scalars at its edges, or
+    (rowrow) direct stores, stores every element exactly once, the value
+    the plain version gives (NaN at an index outside [0, npair))."""
+    rng = np.random.default_rng(B * 1000 + n_u)
+    npair = 40
+    h = rng.standard_normal((npair, npair)).astype(dt)  # not symmetric
+    po = rng.integers(-1, npair + 1, (B, n_u))  # some out of range
+    pv = rng.integers(-1, npair + 1, (B, n_v))
+    po[0, 0], pv[-1, -1] = -1, npair
+    out, count, vec = _emulate_band_kernel(po, pv, h, variant)
+    assert (count == 1).all()
+    assert (vec % (16 // h.itemsize) == 0).all()  # each vector store 16-byte aligned
+    rowrow = variant == "rowrow"
+    W = out.reshape(B, n_v, n_u).transpose(0, 2, 1) if rowrow else out.reshape(B, n_u, n_v)
+    np.testing.assert_array_equal(W, _nan_ref(po, pv, h))
+    ok = ~np.isnan(_nan_ref(po, pv, h))
+    pl = pair_select_w_plain(torch.as_tensor(np.clip(po, 0, npair - 1)),
+                             torch.as_tensor(np.clip(pv, 0, npair - 1)), torch.as_tensor(h),
+                             variant=variant).numpy()
+    np.testing.assert_array_equal(W[ok], pl[ok])
+
+
+def test_transposed_operand_is_made_once_per_hpair():
+    """The kernel's operand hpair^T: made at the first call, kept while
+    hpair lives unchanged, made again after an in-place change."""
+    h = torch.arange(12.0).reshape(3, 4)[:, :3].contiguous()
+    a = ps._transposed(h)
+    assert torch.equal(a, h.t()) and a.is_contiguous() and ps._transposed(h) is a
+    h[0, 1] = -1.0
+    b = ps._transposed(h)
+    assert b is not a and torch.equal(b, h.t())
+    n = len(ps._HT)
+    del h
+    assert len(ps._HT) == n - 1  # dropped with its hpair
+
+
+def test_wrapper_checks_its_operands():
+    """What the kernels do not take raises before any launch."""
+    h = torch.zeros(10, 10)
+    po, pv = torch.zeros(3, 4, dtype=torch.int64), torch.zeros(3, 2, dtype=torch.int64)
+    out, *rest = ps._operands(po, pv, h, "rowrow")  # W laid out as [B, n_v, n_u]
+    assert out.shape == (3, 4, 2) and out.stride() == (8, 1, 4)
+    assert out.transpose(1, 2).is_contiguous() and rest == [3, 4, 2, 10, 0, 1, -1]
+    assert ps._operands(po, pv, h, "lane")[0].is_contiguous()
+    bad = [
+        (po, pv, torch.zeros(10, 9)),
+        (po, pv[:2], h),
+        (po, pv.int(), h),
+        (po, pv, h.half()),
+        (po.float(), pv, h),
+        (po[:, ::2], pv, h),
+        (po, pv, h.t()[:, :9].t()),
+        (po[0], pv, h),
+    ]
+    for args in bad:
+        with pytest.raises(ValueError):
+            ps._operands(*args, "lane")
 
 
 def _systems(kind, dtype=np.float64):

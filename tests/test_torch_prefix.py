@@ -177,8 +177,11 @@ def test_reduce_prefix_matches_jax(topk):
 
 def _vmc(model, ts, prefix, mm="f32"):
     sampler = ARSampler(SORB, N_EL, N_EL, n_sample=5000, capacity=64)
+    # the flat steps take the fused forward, as the prefix steps do (by
+    # default a model on the CPU takes model.log_psi)
     cfg = VMCConfig(lr=0.01, eloc_method="reduce", eloc_k_det=20, eloc_n_stoch=8,
-                    eloc_topk="segmax", fused_matmul_dtype=mm, eloc_prefix=prefix)
+                    eloc_topk="segmax", fused_forward=True, fused_matmul_dtype=mm,
+                    eloc_prefix=prefix)
     return VMC(model, ts, sampler, cfg)
 
 

@@ -6,6 +6,7 @@ import math
 import numpy as np
 import jax
 import jax.numpy as jnp
+import optax
 import pytest
 import torch
 
@@ -91,18 +92,70 @@ def test_vmc_hubbard_energy_goes_down(variant):
     assert min(hist) > e0 - 0.1, (min(hist), e0)
 
 
-def test_eloc_forward_is_the_fused_forward_unless_turned_off():
+def test_eloc_forward_is_the_fused_forward_when_turned_on():
     system, _ = _hubbard()
     model = GraphMPSRNN(8, 2, 2, dcut=4, device="cpu",
                         generator=torch.Generator().manual_seed(0))
     sampler = ARSampler(8, 2, 2, n_sample=100, capacity=36)
     bits = torch.as_tensor(fci.fci_bits(8, 2, 2))
-    fwd = VMC(model, system, sampler, VMCConfig(fused_matmul_dtype="f32"))._eloc_forward()
+    fwd = VMC(model, system, sampler,
+              VMCConfig(fused_forward=True, fused_matmul_dtype="f32"))._eloc_forward()
     assert fwd.func is fused_rnn.graph_mpsrnn_logpsi_fused
     np.testing.assert_allclose(fwd(bits).numpy(), model.log_psi(bits).detach().numpy(),
                                atol=1e-5, rtol=0)
     off = VMC(model, system, sampler, VMCConfig(fused_forward=False))._eloc_forward()
     assert torch.equal(off(bits), model.log_psi(bits).detach())
+
+
+def test_eloc_forward_by_default_is_log_psi_on_the_cpu(monkeypatch):
+    """As the JAX package off the accelerator (``fused_forward=None``):
+    the exact forward, never the fused one, whatever its matmul type."""
+    system, _ = _hubbard()
+    model = GraphMPSRNN(8, 2, 2, dcut=4, device="cpu",
+                        generator=torch.Generator().manual_seed(0))
+    sampler = ARSampler(8, 2, 2, n_sample=100, capacity=36)
+    bits = torch.as_tensor(fci.fci_bits(8, 2, 2))
+
+    def boom(*a, **k):
+        raise AssertionError("the fused forward ran on the CPU by default")
+
+    monkeypatch.setattr(fused_rnn, "graph_mpsrnn_logpsi_fused", boom)
+    for mm in ("bf16", "f32"):
+        fwd = VMC(model, system, sampler, VMCConfig(fused_matmul_dtype=mm))._eloc_forward()
+        assert torch.equal(fwd(bits), model.log_psi(bits).detach())
+
+
+def test_adamw_steps_equal_optax_adamw():
+    """Two AdamW steps of the port's optimizer equal ``optax.adamw(lr)``
+    (weight decay 1e-4, the default of every AdamW run of the JAX
+    package) to 1e-12 in f64, from the same parameters and gradients."""
+    system, _ = _hubbard()
+    model = GraphMPSRNN(8, 2, 2, dcut=4, device="cpu")
+    rng = np.random.default_rng(5)
+    names = [k for k, _ in model.named_parameters()]
+    p0 = {k: rng.standard_normal(tuple(p.shape)) for k, p in model.named_parameters()}
+    grads = [{k: rng.standard_normal(v.shape) for k, v in p0.items()} for _ in range(2)]
+    with torch.no_grad():
+        for k, p in model.named_parameters():
+            p.copy_(torch.as_tensor(p0[k]))
+    lr = 0.05
+    opt = VMC(model, system, ARSampler(8, 2, 2, n_sample=100, capacity=36),
+              VMCConfig(lr=lr, optimizer="adamw")).opt
+    tx = optax.adamw(lr)
+    jp = {k: jnp.asarray(v) for k, v in p0.items()}
+    state = tx.init(jp)
+    params = dict(model.named_parameters())
+    for g in grads:
+        for k in names:
+            params[k].grad = torch.as_tensor(g[k])
+        opt.step()
+        upd, state = tx.update({k: jnp.asarray(v) for k, v in g.items()}, state, jp)
+        jp = optax.apply_updates(jp, upd)
+    for k in names:
+        assert params[k].dtype == torch.float64
+        np.testing.assert_allclose(params[k].detach().numpy(), np.asarray(jp[k]), atol=1e-12,
+                                   rtol=0, err_msg=k)
+        assert np.abs(np.asarray(jp[k]) - p0[k]).max() > 1e-3  # the steps moved it
 
 
 def test_vmc_stops_on_a_dead_sampler():
