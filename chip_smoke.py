@@ -68,7 +68,21 @@ Phases, one line each (and a few detail lines):
      stage synchronized at every call, for the time split between the
      pair selection, comb_hij and the fused forward; both variants of the
      pair selection at the evaluation's chunk shape, bitwise and timed as
-     in phase 9.
+     in phase 9;
+ 11. the flagship training run (pynqs_tpu_torch/scripts/fe2s2_r3_push.main)
+     at the script's defaults: dcut 96 warm-started from
+     checkpoints/fe2s2_r2_dcut96_final.pkl, n = 2e6 in 8 groups, REDUCE
+     k_det 512 / n_stoch 128 in chunks of 4096 samples, AdamW on the
+     exp schedule, bf16, with --split-depth auto --exact-weights --ema
+     0.999 --ckpt-interval 2 --iters 4 (the stand-in integrals written to
+     a .pth file and read through the script's default system path):
+     every step finite, w_sum 1, at the schedule's lr, its eloc forwards
+     through the tensor-core kernel; the exact weights against the f32
+     kernel's |psi|^2; one step's stages; kernel #1 at dp 96 on one eloc
+     chunk's rows held to its plain version and timed, with ptxas'
+     registers and spills; a resume from iteration 2's checkpoint (state
+     restored bit for bit, 2 more steps); the evaluation's main on the
+     saved EMA state (kernel #4 launched).
 
 The last two lines are the kernels' JSON summary and the result JSON.
 Any failed check raises, so the script exits non-zero with no result.
@@ -246,6 +260,286 @@ def build(fused_rnn, pair_select):
     smem.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int]
     smem.restype = ctypes.c_longlong
     return smem
+
+
+def flagship_run(dev, smi, here, bound, flop_per_site, table_bytes, tol, timed):
+    """Phase 11: ``pynqs_tpu_torch/scripts/fe2s2_r3_push.main`` at the
+    script's defaults (dcut 96 warm-started from
+    checkpoints/fe2s2_r2_dcut96_final.pkl, n = 2e6 in 8 groups, REDUCE
+    k_det 512 / n_stoch 128, AdamW on the exp schedule, bf16) with the
+    split depth tuned, exact weights, the EMA and a checkpoint every 2 of
+    4 iterations, on stand-in integrals written to a .pth file and read
+    through the default system path; a resume from the iteration-2
+    checkpoint for 2 more; the evaluation's ``main`` on the saved EMA
+    state; kernel #1 at dp 96 on one eloc chunk's rows.  Writes only in
+    a temporary directory."""
+    import shutil
+    import tempfile
+
+    from pynqs_tpu_torch.energy.eloc import local_energy_reduce
+    from pynqs_tpu_torch.grad.energy_grad import energy_and_grad
+    from pynqs_tpu_torch.ops import cuda_build, fused_rnn
+    from pynqs_tpu_torch.ops import pair_select as ps
+    from pynqs_tpu_torch.ops.integrals import triangle_size
+    from pynqs_tpu_torch.optim import vmc as vmc_mod
+    from pynqs_tpu_torch.optim.schedule import exponential_decay
+    from pynqs_tpu_torch.scripts import eval_fe2s2_final, fe2s2_r3_push
+    from pynqs_tpu_torch.utils import flagship
+    from pynqs_tpu_torch.utils.checkpoint import load_checkpoint
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    bf16 = torch.bfloat16
+    work = tempfile.mkdtemp(prefix="chip_smoke_flagship_")
+    saved = (flagship.FE2S2_PTH, vmc_mod.VMC.step, vmc_mod.save_checkpoint)
+    steps, copies = [], []
+
+    def step(self, generator, clip_val, sampler=None):
+        """VMC.step, synchronized and recorded (host clock)."""
+        sync()
+        t = time.perf_counter()
+        out = saved[1](self, generator, clip_val, sampler)
+        sync()
+        steps.append({"s": time.perf_counter() - t, "count": self.count - 1, "lr": out["lr"],
+                      "energy": float(out["energy"]), "w_sum": float(out["w_sum"]),
+                      "dropped": float(out["dropped_frac"]),
+                      "n_unique": int(out["n_unique"])})
+        return out
+
+    def save_checkpoint(path, step_, *a, **k):
+        """save_checkpoint, keeping a copy of each file written."""
+        saved[2](path, step_, *a, **k)
+        copies.append((step_, f"{os.path.splitext(path)[0]}_{len(copies)}.pkl"))
+        shutil.copy(path, copies[-1][1])
+
+    try:
+        # the stand-in integrals (as the other phases) in a molecule file
+        irng = np.random.default_rng(0)
+        h1e = irng.standard_normal((SORB, SORB)) * 0.1
+        h1e = (h1e + h1e.T) / 2
+        h2e = irng.standard_normal(triangle_size(SORB)) * 0.01
+        pth = os.path.join(work, "fe2s2-standin.pth")
+        torch.save({"h1e": torch.as_tensor(h1e.ravel()), "h2e": torch.as_tensor(h2e),
+                    "sorb": SORB, "noa": NOA, "nob": NOB, "ecore": 0.0}, pth)
+        flagship.FE2S2_PTH = pth
+        vmc_mod.VMC.step = step
+        vmc_mod.save_checkpoint = save_checkpoint
+        extra = ["--split-depth", "auto", "--exact-weights", "--ema", "0.999",
+                 "--ckpt-interval", "2", "--iters", "4", "--tag", "smoke"]
+        a = fe2s2_r3_push.parser().parse_args(extra)
+        log(11, f"fe2s2_r3_push.main({' '.join(extra)}), defaults: dcut {a.dcut}, from "
+                f"{os.path.relpath(a.from_ckpt, here)}, n_sample {a.n_sample}, capacity "
+                f"{a.capacity}, {a.n_group} groups, capacity-root {a.capacity_root}, max-unique "
+                f"{a.max_unique}, eloc-batch {a.eloc_batch}, grad-batch {a.grad_batch}, k_det "
+                f"{a.k_det}, n_stoch {a.n_stoch}, topk {a.topk}, AdamW exp {a.lr:g} -> "
+                f"{a.lr_end:g}, clip {a.clip:g}, {a.fwd_dtype}; no cut")
+        counters = {"fused": fused_rnn.LAUNCHES, "fused_mma": fused_rnn.MMA_LAUNCHES}
+        for c in counters.values():
+            c.reset()
+        reset_peak()
+        t0 = time.perf_counter()
+        r1 = fe2s2_r3_push.main(extra, device=dev, root=work)
+        sync()
+        wall1 = time.perf_counter() - t0
+        l1 = {k: c.n for k, c in counters.items()}
+        peak1 = peak_gib()
+        live, kept = r1["profile"]
+        log(11, f"tuned split depth {r1['split_depth']}; live prefixes by depth "
+                f"{live.tolist()}; kept mass by depth {kept.tolist()}")
+        check(r1["split_depth"] >= 1 and len(live) == SORB // 2 - 1,
+              "no split depth tuned from the live profile")
+        sched1 = exponential_decay(a.lr, 4, a.lr_end / a.lr)
+        for st in steps:
+            log(11, f"step count {st['count']}: E {st['energy']:.6f} w_sum {st['w_sum']:.8f} "
+                    f"lr {st['lr']:.6e} dropped {st['dropped']:.3e} live {st['n_unique']} "
+                    f"wall {st['s']:.3f} s")
+        check(len(steps) == 4 and [st["count"] for st in steps] == [0, 1, 2, 3],
+              "the run took other than 4 steps")
+        check(all(np.isfinite(st["energy"]) and abs(st["w_sum"] - 1.0) <= 1e-5
+                  for st in steps), "non-finite energy or w_sum != 1")
+        check(all(st["lr"] == sched1(st["count"]) for st in steps),
+              "the lr of a step is not the schedule at its count")
+        check(l1["fused_mma"] > 0 and l1["fused_mma"] == l1["fused"],
+              f"the training run's eloc forwards did not all go through the tensor-core "
+              f"kernel: {l1}")
+        s_step = float(np.mean([st["s"] for st in steps[1:]]))
+        log(11, f"4 steps at dcut {a.dcut} in {wall1:.1f} s with set-up; {s_step:.3f} s/step (host "
+                f"clock to torch.cuda.synchronize(), steps 1-3; step 0 {steps[0]['s']:.3f} s); "
+                f"tensor-core kernel launches {l1['fused_mma']}; max_memory_allocated "
+                f"{peak1:.3f} GiB; gpu {smi}")
+
+        v = r1["vmc"]
+        m = v.model
+        # the exact weights: normalized |ψ|² of the live rows, against the
+        # f32 kernel's log|ψ| (the sampler takes model.log_psi)
+        g = torch.Generator(device=dev).manual_seed(12)
+        (sb, sw, diag), t_sample = timed(lambda: v.sampler.sample(m, g))
+        live_rows = sw > 0
+        lp = fused_rnn.graph_mpsrnn_logpsi_fused(m, sb[live_rows], matmul_dtype=torch.float32)
+        lp = lp[:, 0].double()
+        w_ref = torch.exp(2.0 * (lp - lp.max()))
+        w_ref = w_ref / w_ref.sum()
+        w_live = sw[live_rows].double()
+        big = w_ref > 1e-6 * w_ref.max()
+        rel = ((w_live[big] / w_ref[big]) - 1).abs().max().item()
+        l1_err = (w_live - w_ref).abs().sum().item()
+        log(11, f"exact weights on {int(live_rows.sum())} live rows (n_unique "
+                f"{int(diag['n_unique'])}): max relative difference from the f32 kernel's "
+                f"|psi|^2 {rel:.3e} (tol 1e-3), sum |dw| {l1_err:.3e} (tol 1e-3)")
+        check(int(live_rows.sum()) == int(diag["n_unique"]) and rel <= 1e-3 and l1_err <= 1e-3,
+              "the exact weights are not the normalized |psi|^2 of the live rows")
+        # one step's stages, each synchronized
+        fwd = v._eloc_forward()
+        kw = dict(k_det=v.cfg.eloc_k_det, n_stoch=v.cfg.eloc_n_stoch, batch=v.cfg.eloc_batch,
+                  hpair=v._hpair, topk=v.cfg.eloc_topk)
+        el, t_eloc = timed(lambda: local_energy_reduce(fwd, sb, v._ops, v._table, g, **kw))
+        _, t_grad = timed(lambda: energy_and_grad(m, sb, sw, el, grad_batch=v.cfg.grad_batch))
+        log(11, f"one step's stages (host clock, {sb.shape[0]} rows, {int(live_rows.sum())} "
+                f"live): sample with exact weights {t_sample:.1f} ms, eloc {t_eloc:.1f} ms, "
+                f"gradient {t_grad:.1f} ms; gpu {smi}")
+        # one more step under the profiler: the device's busy share
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            _, t_prof = timed(lambda: saved[1](v, g, v.cfg.clip_grad))
+        kerns = sorted((e for e in prof.key_averages() if e.device_type == DeviceType.CUDA),
+                       key=lambda e: -e.self_device_time_total)
+        busy = sum(e.self_device_time_total for e in kerns) / 1e3
+        log(11, f"profiled step {t_prof:.1f} ms wall, {sum(e.count for e in kerns)} kernels "
+                f"taking {busy:.1f} ms of device time: busy {busy / (1e3 * s_step):.1%} of an "
+                f"unprofiled step ({s_step:.3f} s)")
+        for e in kerns[:6]:
+            log(11, f"  {e.self_device_time_total / 1e3:8.2f} ms x{e.count:<5d} {e.key[:70]}")
+
+        # kernel #1 at dp 96 on one eloc chunk's rows
+        seen = []
+
+        def capture(b):
+            seen.append(b)
+            return fwd(b)
+
+        local_energy_reduce(capture, sb[:v.cfg.eloc_batch], v._ops, v._table,
+                            torch.Generator(device=dev).manual_seed(13), **kw)
+        trows = seen[0]
+        n_rows = trows.shape[0]
+        T = fused_rnn.pack_tables(m)
+        T64 = {key: t.double() for key, t in T.items()}
+        CH = 1 << 18
+
+        def plain(tables=T):
+            return torch.cat([fused_rnn.graph_mpsrnn_logpsi_fused_plain(
+                m, trows[i:i + CH], matmul_dtype=bf16, tables=tables)
+                for i in range(0, n_rows, CH)])
+
+        kern = lambda: fused_rnn.graph_mpsrnn_logpsi_fused(m, trows, matmul_dtype=bf16, tables=T)  # noqa: E731
+        k_out, p_out = kern(), plain()
+        sync()
+        ok, held, st = hold_rows(k_out, p_out, plain(T64), tol[bf16])
+        log(11, f"kernel #1 dp {fused_rnn.mma_width(a.dcut)} vs plain on {n_rows} rows: max|dlog|psi|| {st['max_a']:.3e} "
+                f"(tol {tol[bf16][0]:g}), max phase distance {st['max_p']:.3e}, median row "
+                f"{st['med_a']:.3e} / {st['med_p']:.3e}; plain with f64 sums vs plain: max phase "
+                f"distance {st['q_max_p']:.3e}; held: {held} (rows over {tol[bf16][1]:g}: "
+                f"{st['over']}, plain f64 {st['q_over']})")
+        check(ok, "kernel #1 at dp 96 disagrees with its plain version")
+        err = st["max_a"]
+        del k_out, p_out
+        simt = lambda: fused_rnn._launch_simt(m, trows, T)  # noqa: E731
+        s1 = cuda_ms(simt, 1)
+        p1 = cuda_ms(plain, 1)
+        k1 = cuda_ms(kern, 3)
+        k2 = cuda_ms(kern, 3)
+        p2 = cuda_ms(plain, 1)
+        prev = (s1 + cuda_ms(simt, 1)) / 2
+        k_ms, p_ms = (k1 + k2) / 2, (p1 + p2) / 2
+        flop = n_rows * (SORB // 2) * flop_per_site(a.dcut, 1)
+        b11 = bound(flop, n_rows * SORB + n_rows * 2 * 4 + table_bytes(T, bf16), bf16)
+        regs = [ln for ln in ptxas_report(cuda_build.BUILD_INFO.get("fused_rnn_mma", ""))
+                if "(dp 96)" in ln]
+        for ln in regs:
+            log(11, f"  ptxas fused_rnn_mma: {ln}")
+        flat96 = [ln for ln in regs if "flat forward" in ln]
+        n_reg = int(re.search(r": (\d+) registers", flat96[0]).group(1)) if flat96 else None
+        sp = re.search(r"spill stores (\d+) B, loads (\d+) B", flat96[0]) if flat96 else None
+        spill = [int(sp.group(1)), int(sp.group(2))] if sp else [0, 0]
+        sh = fused_rnn.mma_launch_shape(m)
+        log(11, f"fused forward bf16 dp {fused_rnn.mma_width(a.dcut)} at {n_rows} rows: tensor-core kernel {k_ms:.3f} ms "
+                f"({flop / k_ms / 1e9:.2f} TFLOP/s), CUDA-core kernel {prev:.3f} ms "
+                f"({prev / k_ms:.2f}x), plain {p_ms:.3f} ms (in chunks of {CH}), bound "
+                f"{b11[0]:.3f} ms ({b11[1]}; {flop / 1e12:.3f} TFLOP); {16 * sh['warps']} rows "
+                f"per CTA, {sh['smem_bytes']} B shared memory; registers {n_reg}, spill "
+                f"stores/loads {spill} B; gpu {smi}")
+        del trows, seen
+
+        # resume from the checkpoint written after iteration 2
+        check([it for it, _ in copies] == [1, 3],
+              f"checkpoints written at iterations {[it for it, _ in copies]}")
+        ck_path = copies[0][1]  # written after iteration 2
+        n_before = len(steps)
+        reset_peak()
+        extra2 = ["--split-depth", str(r1["split_depth"]), "--exact-weights", "--ema", "0.999",
+                  "--ckpt-interval", "2", "--iters", "2", "--tag", "smoke", "--resume", ck_path]
+        for c in counters.values():
+            c.reset()
+        r2 = fe2s2_r3_push.main(extra2, device=dev, root=work)
+        sync()
+        l2 = {k: c.n for k, c in counters.items()}
+        v2 = r2["vmc"]
+        resumed = steps[n_before:]
+        sched2 = exponential_decay(a.lr, 2, a.lr_end / a.lr)
+        for st in resumed:
+            log(11, f"resumed step count {st['count']}: E {st['energy']:.6f} w_sum "
+                    f"{st['w_sum']:.8f} lr {st['lr']:.6e} wall {st['s']:.3f} s")
+        check([st["count"] for st in resumed] == [2, 3], "the resume did not restore count 2")
+        check(all(np.isfinite(st["energy"]) and abs(st["w_sum"] - 1.0) <= 1e-5
+                  and st["lr"] == sched2(st["count"]) for st in resumed),
+              "a resumed step is not finite or not at the schedule's lr")
+        ck = load_checkpoint(ck_path)
+        check(v2.history[:2] == ck["history"] == r1["history"][:2] and len(v2.history) == 4,
+              "the resumed history does not continue the file's")
+        check(l2["fused_mma"] > 0 and l2["fused_mma"] == l2["fused"],
+              f"the resumed steps did not launch the tensor-core kernel alone: {l2}")
+        # the restore itself, bit for bit, on the resumed run's objects
+        v2.restore(ck_path)
+        adam = ck["opt_state"][0]  # the port writes optax's leaf order: (count, mu, nu)
+        bad = []
+        for key, p in v2.model.named_parameters():
+            stt = v2.opt.state[p]
+            for what, x, y in (("params", p, ck["params"][key]), ("ema", v2.ema_params[key],
+                                                                  ck["ema"][key]),
+                               ("exp_avg", stt["exp_avg"], adam[1][key]),
+                               ("exp_avg_sq", stt["exp_avg_sq"], adam[2][key])):
+                if not np.array_equal(x.detach().cpu().numpy(), y):
+                    bad.append((key, what))
+            if int(stt["step"]) != int(adam[0]):
+                bad.append((key, "step"))
+        check(not bad and v2.count == int(ck["opt_state"][2][0]) == 2
+              and v2.history == ck["history"],
+              f"the restore is not bit for bit the file's: {bad[:4]}")
+        log(11, f"resume from iteration 2's checkpoint: parameters, EMA, AdamW moments and "
+                f"step ({int(adam[0])}), schedule count {v2.count} and history restored bit for "
+                f"bit; 2 resumed steps finite; launches {l2}; max_memory_allocated "
+                f"{peak_gib():.3f} GiB")
+
+        # the evaluation's main on the saved EMA state
+        for c in (*ps.LAUNCHES.values(), *counters.values()):
+            c.reset()
+        ev_args = [r2["paths"]["ema"], "--dcut", str(a.dcut), "--n-sample", "1000000", "--n-group", "4",
+                   "--split-depth", "6", "--capacity", "4096", "--batch", "256", "--n-rep", "1"]
+        (rep,) = eval_fe2s2_final.main(ev_args, device=dev)
+        sync()
+        l3 = {"pair_select_lane": ps.LAUNCHES["lane"].n, **{k: c.n for k, c in counters.items()}}
+        log(11, f"eval main (n 1e6, 4 groups at depth 6, k_det 1024 / n_stoch 256, batch 256, "
+                f"1 rep) on the EMA state: E {rep.e:.6f} +- {rep.e_se:.2e}, <S-S+> {rep.s:.6f} "
+                f"+- {rep.s_se:.2e}, {rep.seconds:.3f} s, live {rep.n_live}; launches {l3}; "
+                f"gpu {smi}")
+        check(np.isfinite(rep.e) and np.isfinite(rep.s), "non-finite evaluation")
+        check(rep.s > -5 * rep.s_se, f"<S-S+> = {rep.s} below -5 se ({rep.s_se})")
+        check(l3["pair_select_lane"] > 0 and l3["fused_mma"] > 0,
+              f"the evaluation did not launch kernels #4 and #1: {l3}")
+        return {"launches": l1["fused_mma"] + l2["fused_mma"], "err": err,
+                "times": (k_ms, p_ms), "bound": b11, "prev_ms": prev, "registers": n_reg,
+                "spill_bytes": spill}
+    finally:
+        flagship.FE2S2_PTH, vmc_mod.VMC.step, vmc_mod.save_checkpoint = saved
+        shutil.rmtree(work, ignore_errors=True)
 
 
 def main():
@@ -1077,6 +1371,9 @@ def main():
               f"pair selection {v} != plain at the evaluation's chunk shape")
     m10, err10 = time_pairs(10, po, pv, hp, 50, 1000)
 
+    # ---- 11. the flagship training run at full width ----
+    f11 = flagship_run(dev, smi, here, bound, flop_per_site, table_bytes, tol, timed)
+
     def entry(name, replaces, launches_n, err, times, bnd, source="fused_rnn.cu", lib=None,
               **extra):
         return {
@@ -1117,6 +1414,14 @@ def main():
                "lane", m10, err10),
               ("pair_select_rowrow", "pynqs_tpu/ops/pallas_hij.py:82", l9["rowrow"], "rowrow",
                m9, err9))),
+        # kernel #1 at the training script's default width (dcut 96, dp 96)
+        # on one eloc chunk of phase 11's trained state; launches: the
+        # training run's, both runs (phase 11); prev_ms: the CUDA-core
+        # kernel in bf16 on the same rows
+        entry("fused_rnn_forward_mma_dp96", "pynqs_tpu/ops/fused_rnn.py:197",
+              f11["launches"], f11["err"], f11["times"], f11["bound"], "fused_rnn_mma.cu",
+              prev_ms=f11["prev_ms"], registers=f11["registers"],
+              spill_bytes=f11["spill_bytes"]),
     ]}
     print(json.dumps(summary))
     print(f"gpu: {smi}")

@@ -128,6 +128,17 @@ class GraphMPSRNN(nn.Module):
         return self.sorb // 2
 
     def _init_params(self, dev, dtype, gen):
+        for k, v in self._draw_params(dev, dtype, gen).items():
+            self.register_parameter(k, nn.Parameter(v.contiguous()))
+
+    def init_params(self, generator: torch.Generator | None = None) -> dict:
+        """A fresh draw of the initial parameters (the rule of ``__init__``)
+        as numpy arrays in the model's dtype: the counterpart of the JAX
+        model's ``init(key)`` for the warm starts (``utils/mps_import.py``)."""
+        p = self._draw_params(torch.device("cpu"), self.M_re.dtype, generator)
+        return {k: v.numpy() for k, v in p.items()}
+
+    def _draw_params(self, dev, dtype, gen) -> dict:
         norb, d, mp = self.norb, self.dcut, self.maxp
         s = 1.0 / np.sqrt(d * mp)
         shapeM = (norb, mp, 4, d, d)
@@ -160,8 +171,7 @@ class GraphMPSRNN(nn.Module):
             p["w_arg_im"] = nrm((norb, d), 1.0 / np.sqrt(d))
             p["c_arg_re"] = torch.ones((norb,), dtype=dtype, device=dev)
             p["c_arg_im"] = torch.zeros((norb,), dtype=dtype, device=dev)
-        for k, v in p.items():
-            self.register_parameter(k, nn.Parameter(v.contiguous()))
+        return p
 
     def load_numpy_params(self, tree: dict):
         """Copy a JAX parameter tree (numpy leaves, same key names) in."""

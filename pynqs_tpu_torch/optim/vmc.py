@@ -1,16 +1,25 @@
 """VMC optimization loop.
 
-Counterpart of ``pynqs_tpu/optim/vmc.py`` (``VMC``, ``VMCConfig``),
-restricted to the fields of the flagship step.  One step: AR sampling
+Counterpart of ``pynqs_tpu/optim/vmc.py`` (``VMC``, ``VMCConfig``)
+with the fields of the flagship training run.  One step: AR sampling
 → local energy (SIMPLE or REDUCE; the ψ ratio forwards go through the
-fused forward) → pair-form gradient → clip → Adam/AdamW update;
-``operator_expected`` measures any operator on the state.  Not
-ported yet (ROADMAP): SR, freeze-and-sweep, EMA, profiling,
-checkpoint resume, the sample-count ramp, 3σ clipping, the mesh.
+fused forward) → pair-form gradient → clip → Adam/AdamW update at the
+scheduled learning rate; ``run`` adds the parameter EMA, the
+sample-count ramp, 3σ clipping, the run log and the resume checkpoints
+(the JAX package's file format, ``utils/checkpoint.py``), and
+``operator_expected`` measures any operator on the state.  Not ported
+yet (ROADMAP): SR, freeze-and-sweep, profiling, the eloc dedup, the
+mesh.
+
+Resuming keeps two behaviours of the JAX loop: the loop's iteration
+restarts at 0 (the clip schedule, the ramp, the 3σ window and the
+checkpoint interval count from there again), and no random state is
+saved (the caller passes the generator).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
 import time
 from dataclasses import dataclass
@@ -29,15 +38,24 @@ from pynqs_tpu_torch.ops.fused_rnn import (
 )
 from pynqs_tpu_torch.ops.fused_rnn_prefix import ReducePrefixForward, prefix_available
 from pynqs_tpu_torch.ops.integrals import precompute_hij_tables
+from pynqs_tpu_torch.utils.checkpoint import (
+    adam_state_tree,
+    load_adam_state,
+    load_checkpoint,
+    save_checkpoint,
+)
+from pynqs_tpu_torch.utils.logging import RunLogger
 from pynqs_tpu_torch.utils.stats import operator_stats
 
-__all__ = ["VMC", "VMCConfig"]
+__all__ = ["VMC", "VMCConfig", "ema_update"]
 
 
 @dataclass
 class VMCConfig:
     n_iter: int = 500
-    lr: float = 1e-2
+    # a float, or a schedule: update count -> lr (optim/schedule.py), as
+    # optax's ``learning_rate: float | Schedule``
+    lr: float | Callable[[int], float] = 1e-2
     optimizer: str = "adam"  # "adam" | "adamw"
     eloc_batch: int | None = None  # samples per eloc chunk
     eloc_method: str = "simple"  # "simple" | "reduce"
@@ -58,6 +76,33 @@ class VMCConfig:
     # recurrence up to the child's first changed site; chain models only
     # (others take the flat forward)
     eloc_prefix: bool = False
+    log_every: int = 25
+    log_path: str | None = None
+    # log a warning when the sampler drops more than this share of the
+    # sampled mass (a truncated measure biases the energy)
+    dropped_warn: float = 0.005
+    # a resume checkpoint every checkpoint_interval iterations
+    checkpoint_path: str | None = None
+    checkpoint_interval: int = 100
+    # sample-count ramp: the sampler with n_sample = start_n_sample for
+    # the first ramp_iter iterations
+    start_n_sample: int | None = None
+    ramp_iter: int = 0
+    # 3σ clipping: after clip_window iterations the max-norm is
+    # min(clip, mean + 3 std of the last clip_window gradient norms)
+    adaptive_clip_3sigma: bool = False
+    clip_window: int = 100
+    # exponential moving average of the parameters, e ← d·e + (1−d)·p
+    # after every update; ``VMC.ema_params``, saved under "ema"
+    ema_decay: float | None = None
+
+
+@torch.no_grad()
+def ema_update(ema: dict, params: dict, decay: float) -> dict:
+    """One step of the parameter EMA, e ← d·e + (1−d)·p in e's dtype (the
+    JAX loop's expression)."""
+    d = float(decay)
+    return {k: d * e + (1.0 - d) * params[k].to(e.dtype) for k, e in ema.items()}
 
 
 class VMC:
@@ -75,12 +120,22 @@ class VMC:
         self._ops = tabs.astuple()
         self._hpair = tabs.hpair_best
         self._table = system.excitation
+        self.opt = self._new_optimizer()
+        self.count = 0  # updates so far: the schedule's count
+        self.ema_params: dict | None = None
+        self.history: list[float] = []
+
+    def _new_optimizer(self):
         # AdamW decays by optax.adamw's default 1e-4 (torch's default is
         # 0.01): every AdamW run of the JAX package passes optax.adamw(lr)
         opt, kw = {"adam": (torch.optim.Adam, {}),
                    "adamw": (torch.optim.AdamW, {"weight_decay": 1e-4})}[self.cfg.optimizer]
-        self.opt = opt(model.parameters(), lr=self.cfg.lr, **kw)
-        self.history: list[float] = []
+        return opt(self.model.parameters(), lr=self.lr_at(0), **kw)
+
+    def lr_at(self, count: int) -> float:
+        """The learning rate of the update after ``count`` updates."""
+        lr = self.cfg.lr
+        return float(lr(count)) if callable(lr) else float(lr)
 
     def _matmul_dtype(self):
         return {"bf16": torch.bfloat16, "f32": torch.float32}[self.cfg.fused_matmul_dtype]
@@ -107,11 +162,26 @@ class VMC:
             return None
         return ReducePrefixForward(self.model, matmul_dtype=self._matmul_dtype())
 
-    def step(self, generator: torch.Generator, clip_val: float | None):
-        """One training step; returns a dict of 0-d tensors (energy
-        without ecore, variance, w_sum, n_eff, gnorm, dropped_frac,
-        n_unique)."""
-        bits, w, diag = self.sampler.sample(self.model, generator)
+    def apply_gradients(self, grads: dict, scale=1.0) -> float:
+        """One optimizer update with ``grads`` × ``scale`` at the scheduled
+        learning rate ``lr_at(count)``; returns that rate."""
+        lr = self.lr_at(self.count)
+        for group in self.opt.param_groups:
+            group["lr"] = lr
+        for name, p in self.model.named_parameters():
+            if name in grads:
+                p.grad = (grads[name] * scale).to(p.dtype)
+        self.opt.step()
+        self.opt.zero_grad(set_to_none=True)
+        self.count += 1
+        return lr
+
+    def step(self, generator: torch.Generator, clip_val: float | None, sampler=None):
+        """One training step (samples from ``sampler``, default the VMC's
+        own); returns a dict of 0-d tensors (energy without ecore,
+        variance, w_sum, n_eff, gnorm, dropped_frac, n_unique) and the
+        update's lr."""
+        bits, w, diag = (sampler or self.sampler).sample(self.model, generator)
         fwd = self._eloc_forward()
         if self.cfg.eloc_method == "reduce":
             eloc = local_energy_reduce(
@@ -132,12 +202,9 @@ class VMC:
         scale = 1.0
         if clip_val is not None:
             scale = torch.clamp(clip_val / torch.clamp(gnorm, min=1e-30), max=1.0)
-        for name, p in self.model.named_parameters():
-            if name in grads:
-                p.grad = (grads[name] * scale).to(p.dtype)
-        self.opt.step()
-        self.opt.zero_grad(set_to_none=True)
+        lr = self.apply_gradients(grads, scale)
         return {
+            "lr": lr,
             "energy": e[0],
             "var": var,
             "w_sum": w.sum(),
@@ -178,34 +245,121 @@ class VMC:
                                        batch=self.cfg.eloc_batch, hpair=hp)
         return operator_stats(oloc[:, 0], w)
 
+    # ---------------- checkpoints ----------------
+
+    def _named(self) -> dict:
+        return dict(self.model.named_parameters())
+
+    def save_checkpoint(self, path: str, step: int) -> None:
+        """The JAX package's resume file: parameters, the optimizer state
+        as ``optax.adam``/``adamw`` lays it out (with the schedule count
+        where ``cfg.lr`` is a schedule), the history and the EMA."""
+        named = self._named()
+        opt_state = adam_state_tree(self.opt, named,
+                                    self.count if callable(self.cfg.lr) else None,
+                                    decay=self.cfg.optimizer == "adamw")
+        save_checkpoint(path, step, named, opt_state, self.history,
+                        extra={"ema": self.ema_params} if self.ema_params is not None else None)
+
+    def restore(self, path: str) -> dict:
+        """Load a resume file of either package: the parameters into the
+        model, the Adam moments and count into a fresh optimizer, the
+        schedule count, the history and (when the file has one) the EMA
+        into ``ema_params``.  Returns the file's tree."""
+        ck = load_checkpoint(path)
+        self.model.load_numpy_params(ck["params"])
+        self.opt = self._new_optimizer()
+        self.count = load_adam_state(self.opt, self._named(), ck["opt_state"])
+        self.history = [float(e) for e in ck["history"]]
+        self.ema_params = None
+        if ck.get("ema") is not None:
+            self.ema_params = {
+                k: torch.as_tensor(np.asarray(ck["ema"][k])).reshape(p.shape).to(p).clone()
+                for k, p in self._named().items()}
+        return ck
+
     def run(
         self,
         generator: torch.Generator,
         n_iter: int | None = None,
         callback: Callable[[int, dict], None] | None = None,
+        resume_from: str | None = None,
     ) -> list[float]:
         """Optimize; returns the energy history (total, ecore included).
-        Raises FloatingPointError on a NaN energy or a dead sampler."""
-        n_iter = n_iter or self.cfg.n_iter
-        for it in range(n_iter):
-            t0 = time.perf_counter()
-            clip_val = self.cfg.clip_grad
-            if self.cfg.clip_schedule is not None:
-                clip_val = float(self.cfg.clip_schedule(it))
-            out = self.step(generator, clip_val)
-            e_tot = float(out["energy"]) + self.system.ecore
-            w_sum = float(out["w_sum"])
-            if math.isnan(e_tot) or not w_sum > 0.0:
-                # NaN parameters give zero sample counts, which read as
-                # E = 0 rather than NaN: both stop the run
-                raise FloatingPointError(
-                    f"NaN/dead-sampler at iteration {it} (w_sum={w_sum}); "
-                    f"last good: {self.history[-1] if self.history else None}"
-                )
-            self.history.append(e_tot)
-            if callback is not None:
-                info = {k: float(v) for k, v in out.items()}
-                info["energy_total"] = e_tot
-                info["iter_time"] = time.perf_counter() - t0
-                callback(it, info)
+
+        ``resume_from``: a resume file of either package (``restore``);
+        otherwise the optimizer starts fresh.  Raises FloatingPointError
+        on a NaN energy or a dead sampler."""
+        cfg = self.cfg
+        n_iter = n_iter or cfg.n_iter
+        gnorms: list[float] = []
+        if resume_from is not None:
+            self.restore(resume_from)
+        else:
+            self.opt = self._new_optimizer()
+            self.count = 0
+        if cfg.ema_decay is None:
+            self.ema_params = None
+        elif resume_from is None or self.ema_params is None:
+            self.ema_params = {k: p.detach().clone() for k, p in self._named().items()}
+        ramp = None
+        if cfg.start_n_sample is not None and cfg.ramp_iter > 0:
+            ramp = dataclasses.replace(self.sampler, n_sample=cfg.start_n_sample)
+        clip_on = cfg.clip_grad is not None or cfg.clip_schedule is not None
+        ecore, e_ref = self.system.ecore, self.system.e_ref
+        log = RunLogger(cfg.log_path)
+        try:
+            for it in range(n_iter):
+                t0 = time.perf_counter()
+                clip_val = cfg.clip_grad if cfg.clip_grad is not None else 0.0
+                if cfg.clip_schedule is not None:
+                    clip_val = float(cfg.clip_schedule(it))
+                if cfg.adaptive_clip_3sigma and len(gnorms) >= cfg.clip_window:
+                    recent = np.asarray(gnorms[-cfg.clip_window:])
+                    clip_val = min(clip_val, float(recent.mean() + 3 * recent.std()))
+                out = self.step(generator, clip_val if clip_on else None,
+                                ramp if ramp is not None and it < cfg.ramp_iter else None)
+                if cfg.ema_decay is not None:
+                    self.ema_params = ema_update(self.ema_params, self._named(), cfg.ema_decay)
+                gnorms.append(float(out["gnorm"]))
+                e_tot = float(out["energy"]) + ecore
+                w_sum = float(out["w_sum"])
+                dt = time.perf_counter() - t0
+                if math.isnan(e_tot) or not w_sum > 0.0:
+                    # NaN parameters give zero sample counts, which read as
+                    # E = 0 rather than NaN: both stop the run
+                    log.info(f"iter {it}: energy NaN or dead sampler "
+                             f"(w_sum={w_sum}) — aborting run")
+                    raise FloatingPointError(
+                        f"NaN/dead-sampler at iteration {it} (w_sum={w_sum}); "
+                        f"last good: {self.history[-1] if self.history else None}"
+                    )
+                self.history.append(e_tot)
+                if callback is not None:
+                    info = {k: float(v) for k, v in out.items()}
+                    info["energy_total"] = e_tot
+                    info["iter_time"] = time.perf_counter() - t0
+                    callback(it, info)
+                if it % cfg.log_every == 0 or it == n_iter - 1:
+                    self._log(log, it, out, e_tot, e_ref, dt)
+                if cfg.checkpoint_path is not None and (it + 1) % cfg.checkpoint_interval == 0:
+                    self.save_checkpoint(cfg.checkpoint_path, it)
+        finally:
+            log.close()
         return self.history
+
+    def _log(self, log, it: int, out: dict, e_tot: float, e_ref, dt: float) -> None:
+        """The JAX loop's human line and ``@@`` record of one iteration."""
+        var, n_eff = float(out["var"]), float(out["n_eff"])
+        extra = f" Δref={1000 * (e_tot - e_ref):+.3f} mHa" if e_ref is not None else ""
+        se = (var / max(n_eff, 1.0)) ** 0.5
+        drop_f = float(out["dropped_frac"])
+        drop_s = f" drop={100 * drop_f:.3f}%" if drop_f >= 0 else ""
+        log.info(f"iter {it:5d}  E = {e_tot:.8f} ± {se:.2e} Ha  "
+                 f"σ² = {var:.3e}  t = {dt:.3f}s{extra}{drop_s}")
+        log.record(iter=it, energy=e_tot, var=var, se=se, n_eff=n_eff, iter_time=dt,
+                   dropped_frac=drop_f, n_unique=float(out["n_unique"]))
+        if drop_f > self.cfg.dropped_warn:
+            log.info(f"iter {it:5d}  WARNING: {100 * drop_f:.2f}% of the sampled mass was "
+                     f"dropped (capacity truncation) — energies are biased; raise "
+                     f"capacity/n_group")

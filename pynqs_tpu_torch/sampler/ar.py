@@ -1,7 +1,8 @@
 """Exact autoregressive sampling with fixed-capacity tree expansion.
 
 Counterpart of ``pynqs_tpu/sampler/ar.py`` (``multinomial_partition``,
-``ar_sampling``, ``ar_sampling_dfs``, ``compact_by_count``).  A buffer
+``ar_sampling``, ``ar_sampling_dfs``, ``dfs_depth_profile``,
+``tune_dfs_split_depth``, ``compact_by_count``).  A buffer
 of at most C branches is carried through the site loop; each step
 partitions every branch's count multinomially over the 4 values of the
 next site, then keeps the C largest of the 4C children (rows with count
@@ -25,6 +26,8 @@ __all__ = [
     "multinomial_partition",
     "ar_sampling",
     "ar_sampling_dfs",
+    "dfs_depth_profile",
+    "tune_dfs_split_depth",
     "compact_by_count",
 ]
 
@@ -163,6 +166,58 @@ def ar_sampling_dfs(
     bits = torch.cat(out_bits, 0)
     counts = torch.cat(out_counts, 0)
     return bits, counts, n_sample - counts.sum()
+
+
+@torch.no_grad()
+def dfs_depth_profile(model, n_sample: int, *, capacity_root: int, generator,
+                      max_depth: int | None = None):
+    """The measured phase-1 profile of ``ar_sampling_dfs``: one exact
+    multinomial expansion at ``capacity_root`` rows, recording after each
+    step d = 1..max_depth the live prefixes and the kept count mass
+    (kept[d-1] < n_sample marks the first depth at which phase 1 would
+    truncate).  Returns numpy (live, kept)."""
+    n_steps = model.sorb // 2
+    max_depth = min(n_steps - 1 if max_depth is None else max_depth, n_steps - 1)
+    state = _root_state(model, capacity_root, n_sample)
+    live, kept = [], []
+    for d in range(max_depth):
+        state = _ar_steps(model, state, d, d + 1, generator, n_sample)
+        live.append((state[1] > 0).sum())
+        kept.append(state[1].sum())
+    return torch.stack(live).cpu().numpy(), torch.stack(kept).cpu().numpy()
+
+
+def tune_dfs_split_depth(model, generator, n_sample: int, *, capacity: int, n_group: int,
+                         capacity_root: int | None = None, safety: float | None = None,
+                         max_depth: int | None = None, return_profile: bool = False):
+    """``ar_sampling_dfs``' split depth from the live-branch profile of the
+    current state (``dfs_depth_profile``): the deepest depth d at which
+    (a) phase 1 is still exact (kept mass = n_sample), (b) the live
+    branches leave room for the next step's children (live ≤ safety ×
+    capacity_root, safety 1/4 by default) and (c) at least n_group
+    branches are live to deal; the static rule of ``ar_sampling_dfs``
+    where no depth qualifies.  With ``return_profile``: (depth, live,
+    kept)."""
+    ncat = 4
+    n_steps = model.sorb // 2
+    if capacity_root is None:
+        capacity_root = capacity
+    if safety is None:
+        safety = 1.0 / ncat
+    live, kept = dfs_depth_profile(model, n_sample, capacity_root=capacity_root,
+                                   generator=generator, max_depth=max_depth)
+    n = int(n_sample)
+    best = None
+    for d in range(1, len(live) + 1):
+        if kept[d - 1] < n:
+            break  # phase 1 already truncated at this depth
+        if live[d - 1] > safety * capacity_root:
+            break  # the next step's children may overflow the root pool
+        if live[d - 1] >= n_group:
+            best = d
+    if best is None:
+        best = max(1, min(n_steps - 1, (capacity_root.bit_length() - 1) // 2))
+    return (int(best), live, kept) if return_profile else int(best)
 
 
 def compact_by_count(bits: torch.Tensor, counts: torch.Tensor, n_keep: int):

@@ -17,18 +17,24 @@ forwards are the fused forward's CUDA kernel on the card and the model's
 exact forward on the CPU, optionally of the spin-flip-projected state
 ψ_P = (ψ + η·U_SF ψ)/2.
 
-The JAX script's command line needs the Fe2S2 integrals (the
-reference's ``fe2s2-OO.pth``), which are not in the repository, and
-``System.from_pth`` is not ported: call ``evaluate`` with any ``System``.
+``main`` is the JAX script's command line around ``evaluate``:
+
+    python -m pynqs_tpu_torch.scripts.eval_fe2s2_final checkpoints/fe2s2_r3_dcut20_ref.pkl
+
+Its default system is the Fe2S2 integrals file
+(``utils.flagship.fe2s2_system``), which the repository does not hold:
+``main(system=...)`` takes any ``System``.
 """
 
 from __future__ import annotations
 
+import argparse
 import math
 import time
 from dataclasses import dataclass
 from functools import partial
 
+import numpy as np
 import torch
 
 from pynqs_tpu_torch.energy.eloc import local_energy_reduce
@@ -36,10 +42,11 @@ from pynqs_tpu_torch.ops import cplx, fused_rnn, onv
 from pynqs_tpu_torch.ops.integrals import spin_raising
 from pynqs_tpu_torch.sampler.ar import ar_sampling_dfs
 from pynqs_tpu_torch.utils.device import resolve_device
+from pynqs_tpu_torch.utils.flagship import fe2s2_system, flagship_model, load_flagship_params
 from pynqs_tpu_torch.utils.stats import weighted_stats
 from pynqs_tpu_torch.utils.system import System
 
-__all__ = ["evaluate", "EvalRep", "projected_forward"]
+__all__ = ["evaluate", "EvalRep", "projected_forward", "main", "parser"]
 
 
 @dataclass(frozen=True)
@@ -98,6 +105,7 @@ def evaluate(
     fwd_dtype: str = "bf16",
     generator: torch.Generator | None = None,
     device=None,
+    on_rep=None,
 ) -> list[EvalRep]:
     """``n_rep`` repetitions of the evaluation of ``model`` (a
     ``GraphMPSRNN`` on ``device``, default the card) on ``system``.
@@ -112,7 +120,8 @@ def evaluate(
     are the fused forward on the card and ``model.log_psi`` on the CPU, as
     in the JAX script; ``fwd_dtype``, the fused forward's matmul type
     ("bf16" or "f32"), applies to the card only.  Dead sample slots take
-    no forward and no local operator."""
+    no forward and no local operator.  ``on_rep(i, rep)`` is called after
+    each repetition."""
     dev, mdev = resolve_device(device), model.M_re.device
     if mdev.type != dev.type or dev.index not in (None, mdev.index):
         raise ValueError(f"the model is on {mdev}, not on {dev}")
@@ -163,4 +172,68 @@ def evaluate(
             dropped=float(dropped) / n_sample, n_live=rows.shape[0],
             seconds=time.perf_counter() - t0, rows=rows,
         ))
+        if on_rep is not None:
+            on_rep(len(reps) - 1, reps[-1])
     return reps
+
+
+def parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser(description="Final-state evaluation of a trained Fe2S2 "
+                                             "checkpoint.")
+    ap.add_argument("ckpt")
+    ap.add_argument("--dcut", type=int, default=20)
+    ap.add_argument("--n-sample", type=int, default=10_000_000)
+    ap.add_argument("--n-group", type=int, default=8)
+    ap.add_argument("--split-depth", type=int, default=8)
+    ap.add_argument("--capacity", type=int, default=4096)
+    ap.add_argument("--k-det", type=int, default=1024,
+                    help="0 = exact deterministic eloc (k_det = n_sd, no stochastic tail)")
+    ap.add_argument("--n-stoch", type=int, default=256)
+    ap.add_argument("--batch", type=int, default=2048)
+    ap.add_argument("--n-rep", type=int, default=4,
+                    help="independent sample/eloc repetitions")
+    ap.add_argument("--spin-project", type=int, default=0, choices=[-1, 0, 1],
+                    help="evaluate the spin-flip-projected state psi_P = (1 + eta*U_SF)/2 "
+                         "psi; sampling stays on |psi|^2")
+    ap.add_argument("--use-tensor", action="store_true",
+                    help="checkpoint was trained with tensor coupling")
+    ap.add_argument("--max-preds", type=int, default=1,
+                    help="checkpoint's multi-predecessor graph width")
+    ap.add_argument("--fwd-dtype", choices=["bf16", "f32"], default="bf16",
+                    help="fused-forward matmul dtype")
+    return ap
+
+
+def main(argv=None, *, system=None, device=None) -> list[EvalRep]:
+    """The JAX script's ``main``: evaluate the checkpoint ``ckpt`` on
+    ``system`` (default ``fe2s2_system()``) on ``device`` (default the
+    card), print each rep's line and the final line; returns the reps."""
+    args = parser().parse_args(argv)
+    dev = resolve_device(device)
+    sys_ = system if system is not None else fe2s2_system(np.float32)
+    model = flagship_model(sys_, args.dcut, use_tensor=args.use_tensor,
+                           max_preds=args.max_preds, device=dev)
+    model.load_numpy_params(load_flagship_params(args.ckpt))
+
+    def show(i, rep):
+        print(rep.line(i, sys_.e_ref), flush=True)
+
+    reps = evaluate(
+        model, sys_, n_sample=args.n_sample, capacity=args.capacity, n_group=args.n_group,
+        split_depth=args.split_depth, k_det=args.k_det, n_stoch=args.n_stoch,
+        batch=args.batch, n_rep=args.n_rep, spin_project=args.spin_project,
+        fwd_dtype=args.fwd_dtype, generator=torch.Generator(device=dev).manual_seed(1000),
+        device=dev, on_rep=show)
+    es = [r.e for r in reps]
+    e_m = float(np.mean(es))
+    se = float(np.std(es) / np.sqrt(len(es)))
+    delta = (f"   Delta = {(e_m - sys_.e_ref) * 1000:+.3f} mHa"
+             if sys_.e_ref is not None else "")
+    print(f"\nFINAL  E = {e_m:.6f} +- {se:.6f} Ha{delta}   "
+          f"<S-S+> = {np.mean([r.s for r in reps]):.4f}   "
+          f"dropped = {np.mean([r.dropped for r in reps]):.3%}")
+    return reps
+
+
+if __name__ == "__main__":
+    main()

@@ -2,8 +2,8 @@
 
 Counterpart of ``pynqs_tpu/utils/system.py``: electron counts, the
 compressed integrals and the core energy, with the Slater–Condon
-operand tables moved to a device on request.  ``from_pth`` is not
-ported: its molecule files are not in the repository.
+operand tables moved to a device on request; ``from_pth`` reads the
+reference's molecule files.
 """
 
 from __future__ import annotations
@@ -18,6 +18,7 @@ import torch
 from pynqs_tpu_torch.ops import integrals as ints
 from pynqs_tpu_torch.ops.excitation import ExcitationTable, excitation_table
 from pynqs_tpu_torch.utils.device import resolve_device
+from pynqs_tpu_torch.utils.torch_io import safe_torch_load
 
 __all__ = ["System", "DeviceTables"]
 
@@ -58,6 +59,7 @@ class System:
     h2e: np.ndarray  # compressed triangle
     ecore: float = 0.0
     e_ref: float | None = None
+    ci_space: np.ndarray | None = field(default=None, repr=False)
     dtype: np.dtype = np.float64
     _dev_cache: dict = field(default_factory=dict, repr=False, compare=False)
 
@@ -140,6 +142,27 @@ class System:
         """Spatial-orbital (hcore, chemist ERI) -> interleaved spin System."""
         h1e, h2e_c = ints.spin_orbital_from_spatial(hcore, eri_chemist)
         return cls.from_integrals(h1e, h2e_c, 2 * hcore.shape[0], noa, nob, ecore, **kw)
+
+    @classmethod
+    def from_pth(cls, path: str, **kw) -> "System":
+        """A reference-format molecule .pth file (reference
+        utils/pyscf_helper/integral.py:20-114): keys h1e [sorb²], h2e
+        [triangle], sorb, noa, nob, ecore, optional ci_space (packed uint8
+        ONVs) and e_lst (its first entry becomes ``e_ref``)."""
+        d = safe_torch_load(path)
+        e_lst = d.get("e_lst")
+        e_ref = None
+        if e_lst is not None and np.asarray(e_lst).size:
+            e_ref = float(np.asarray(e_lst).ravel()[0])
+        ci_space = d.get("ci_space")
+        if ci_space is not None:
+            ci_space = np.asarray(ci_space)
+        return cls.from_integrals(
+            np.asarray(d["h1e"], dtype=np.float64),
+            np.asarray(d["h2e"], dtype=np.float64),
+            int(d["sorb"]), int(d["noa"]), int(d["nob"]),
+            float(d.get("ecore", 0.0)), e_ref=e_ref, ci_space=ci_space, **kw,
+        )
 
     @classmethod
     def hubbard_1d(

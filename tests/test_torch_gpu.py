@@ -18,6 +18,7 @@ other test files.)  Without a card every test here skips.
 import itertools
 import math
 import os
+import shutil
 
 import numpy as np
 import pytest
@@ -393,6 +394,61 @@ def test_vmc_steps_on_card_launch_the_kernel(dev):
     assert (fused_rnn.LAUNCHES.n - before[0], fused_rnn.MMA_LAUNCHES.n - before[1]) == (20, 20)
     assert all(math.isfinite(e) for e in hist)
     assert np.mean(hist[-5:]) < np.mean(hist[:5]) - 0.05, hist
+
+
+def test_scheduled_adamw_run_checkpoint_and_resume_on_card(dev, tmp_path):
+    """The training run's loop on the card (the 4-site Hubbard chain): an
+    exponential lr schedule, AdamW, the EMA and exact weights for 4 steps
+    with a checkpoint every 2; a second VMC on other weights restores the
+    last one bit for bit (parameters, Adam moments and count, schedule
+    count, EMA, history) and resumes from it for 2 more finite steps at
+    the scheduled rates of counts 4 and 5, through the tensor-core
+    kernel."""
+    from pynqs_tpu_torch.optim.schedule import exponential_decay
+    from pynqs_tpu_torch.utils.checkpoint import load_checkpoint
+
+    system = System.hubbard_1d(4, 2, 2, u=4.0)
+    sched = exponential_decay(0.05, 4, 0.1)
+
+    def vmc(seed, path):
+        model = GraphMPSRNN(8, 2, 2, dcut=4, phase_mode="arg", norm_mode="mpsrnn",
+                            dtype=torch.float32, device=dev,
+                            generator=torch.Generator().manual_seed(seed))
+        sampler = ARSampler(8, 2, 2, n_sample=20_000, capacity=40, exact_weights=True)
+        return VMC(model, system, sampler, VMCConfig(
+            lr=sched, optimizer="adamw", eloc_method="reduce", eloc_k_det=8, eloc_n_stoch=4,
+            clip_grad=1.0, ema_decay=0.9, checkpoint_path=str(path), checkpoint_interval=2))
+
+    a = vmc(0, tmp_path / "a.pkl")
+    lrs = []
+    a.run(torch.Generator(device=dev).manual_seed(1), 4,
+          callback=lambda it, info: lrs.append(info["lr"]))
+    assert lrs == [sched(k) for k in range(4)] and len(a.history) == 4
+    ck = load_checkpoint(str(tmp_path / "a.pkl"))
+    assert ck["step"] == 3 and int(ck["opt_state"][2][0]) == 4
+    b = vmc(5, tmp_path / "b.pkl")
+    b.restore(str(tmp_path / "a.pkl"))
+    named = dict(b.model.named_parameters())
+    adam = ck["opt_state"][0]
+    for k, p in named.items():
+        assert p.device.type == dev.type
+        assert np.array_equal(p.detach().cpu().numpy(), ck["params"][k]), k
+        assert np.array_equal(b.ema_params[k].cpu().numpy(), ck["ema"][k]), k
+        st = b.opt.state[p]
+        assert np.array_equal(st["exp_avg"].cpu().numpy(), adam[1][k]), k
+        assert np.array_equal(st["exp_avg_sq"].cpu().numpy(), adam[2][k]), k
+        assert int(st["step"]) == 4
+    assert b.count == 4 and b.history == a.history
+    ck2 = str(tmp_path / "a2.pkl")
+    shutil.copy(tmp_path / "a.pkl", ck2)
+    before = fused_rnn.MMA_LAUNCHES.n
+    lrs = []
+    b.run(torch.Generator(device=dev).manual_seed(2), 2, resume_from=ck2,
+          callback=lambda it, info: lrs.append(info["lr"]))
+    assert fused_rnn.MMA_LAUNCHES.n > before
+    assert lrs == [sched(4), sched(5)] and b.count == 6
+    assert len(b.history) == 6 and all(math.isfinite(e) for e in b.history)
+    assert b.history[:4] == a.history
 
 
 def _pair_inputs(sym, dt, idx, dev, B=64, n_u=435, n_v=45, npair=780, seed=0, lo=0, hi=None):
