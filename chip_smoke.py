@@ -82,7 +82,22 @@ Phases, one line each (and a few detail lines):
      chunk's rows held to its plain version and timed, with ptxas'
      registers and spills; a resume from iteration 2's checkpoint (state
      restored bit for bit, 2 more steps); the evaluation's main on the
-     saved EMA state (kernel #4 launched).
+     saved EMA state (kernel #4 launched);
+ 12. the post-training refinement of the r5g64 flagship (weights of
+     checkpoints/fe2s2_r3_dcut64_r5g64.pkl, the stand-in integrals through
+     a .pth file as in phase 11): fixed-node GFMC through
+     pynqs_tpu_torch/scripts/fe2s2_gfmc.main at the runbook's 2048 walkers
+     (--p-steps 10 --init-capacity 8192 --tail 200), 20 iterations (two
+     branchings), its trial blocks of 2048 x 7876 rows through the
+     tensor-core kernel; on the run's last walkers one Green row with the
+     forward dedup at its measured distinct-row count against the plain
+     one, and one below the count raising; kernel #1 held to its plain
+     version on 65,536 trial-block rows and timed on the whole block; the
+     CI-NQS polish through pynqs_tpu_torch/scripts/fe2s2_ci_polish.main
+     (exact local energies, m 2048, n 1e6 in 4 groups of 4096 at depth 6),
+     its E_VMC pass through kernel #4 (timed at its chunk shape as in phase
+     9) and each exact-eloc pass timed; the bf16/f32 pair at a smaller
+     capture (n 1e5, 4 groups of 1024, m 512).
 
 The last two lines are the kernels' JSON summary and the result JSON.
 Any failed check raises, so the script exits non-zero with no result.
@@ -109,6 +124,17 @@ N_CMP, N_REF = 65536, 4096  # rows of the phase-3 comparisons
 N_ID = 64  # sampled rows of the phase-4 identity
 N_RED = 512  # sampled rows of the phase-8 REDUCE comparison
 STEPS = 3
+# phase 12: the runbook's flags for the r5g64 state, cut as PERF.md §4 says
+R5_FLAGS = ["--dcut", "64", "--use-tensor", "--max-preds", "2"]
+GFMC_ARGS = ["--n-walkers", "2048", "--p-steps", "10", "--init-capacity", "8192",
+             "--tail", "200", "--n-iter", "20"]
+POLISH_ARGS = ["--k-det", "0", "--eloc-batch", "128", "--ci-chunk", "128", "--m", "2048",
+               "--n-sample", "1000000", "--capacity", "4096", "--n-group", "4",
+               "--split-depth", "6"]
+PAIR_ARGS = ["--k-det", "0", "--eloc-batch", "128", "--ci-chunk", "128", "--m", "512",
+             "--n-sample", "100000", "--capacity", "1024", "--n-group", "4",
+             "--split-depth", "6"]
+N_HOLD = 65536  # trial-block rows of phase 12's kernel comparison
 H100_BF16_FLOPS = 989e12  # dense tensor-core peak, SXM data sheet
 H100_F32_FLOPS = 67e12  # f32 outside the tensor cores
 H100_BYTES = 3.35e12  # HBM3 bytes/s
@@ -280,7 +306,6 @@ def flagship_run(dev, smi, here, bound, flop_per_site, table_bytes, tol, timed):
     from pynqs_tpu_torch.grad.energy_grad import energy_and_grad
     from pynqs_tpu_torch.ops import cuda_build, fused_rnn
     from pynqs_tpu_torch.ops import pair_select as ps
-    from pynqs_tpu_torch.ops.integrals import triangle_size
     from pynqs_tpu_torch.optim import vmc as vmc_mod
     from pynqs_tpu_torch.optim.schedule import exponential_decay
     from pynqs_tpu_torch.scripts import eval_fe2s2_final, fe2s2_r3_push
@@ -313,15 +338,7 @@ def flagship_run(dev, smi, here, bound, flop_per_site, table_bytes, tol, timed):
         shutil.copy(path, copies[-1][1])
 
     try:
-        # the stand-in integrals (as the other phases) in a molecule file
-        irng = np.random.default_rng(0)
-        h1e = irng.standard_normal((SORB, SORB)) * 0.1
-        h1e = (h1e + h1e.T) / 2
-        h2e = irng.standard_normal(triangle_size(SORB)) * 0.01
-        pth = os.path.join(work, "fe2s2-standin.pth")
-        torch.save({"h1e": torch.as_tensor(h1e.ravel()), "h2e": torch.as_tensor(h2e),
-                    "sorb": SORB, "noa": NOA, "nob": NOB, "ecore": 0.0}, pth)
-        flagship.FE2S2_PTH = pth
+        flagship.FE2S2_PTH = standin_pth(work)
         vmc_mod.VMC.step = step
         vmc_mod.save_checkpoint = save_checkpoint
         extra = ["--split-depth", "auto", "--exact-weights", "--ema", "0.999",
@@ -539,6 +556,234 @@ def flagship_run(dev, smi, here, bound, flop_per_site, table_bytes, tol, timed):
                 "spill_bytes": spill}
     finally:
         flagship.FE2S2_PTH, vmc_mod.VMC.step, vmc_mod.save_checkpoint = saved
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def standin_pth(work):
+    """The stand-in integrals (as the other phases) in a molecule file."""
+    from pynqs_tpu_torch.ops.integrals import triangle_size
+
+    irng = np.random.default_rng(0)
+    h1e = irng.standard_normal((SORB, SORB)) * 0.1
+    h1e = (h1e + h1e.T) / 2
+    h2e = irng.standard_normal(triangle_size(SORB)) * 0.01
+    pth = os.path.join(work, "fe2s2-standin.pth")
+    torch.save({"h1e": torch.as_tensor(h1e.ravel()), "h2e": torch.as_tensor(h2e),
+                "sorb": SORB, "noa": NOA, "nob": NOB, "ecore": 0.0}, pth)
+    return pth
+
+
+def refine_run(dev, smi, here, bound, flop_per_site, table_bytes, tol, timed, time_pairs):
+    """Phase 12: the r5g64 state's post-training refinement through the two
+    scripts' ``main`` (GFMC, then the CI-NQS polish and its bf16/f32 pair),
+    the dedup'd Green row, and kernel #1 on the GFMC trial block.  Writes
+    only in a temporary directory."""
+    import shutil
+    import tempfile
+
+    from pynqs_tpu_torch.ci import nqs_ci
+    from pynqs_tpu_torch.energy.eloc import unique_rows
+    from pynqs_tpu_torch.gfmc import walker
+    from pynqs_tpu_torch.ops import fused_rnn
+    from pynqs_tpu_torch.ops import hamiltonian as ham_mod
+    from pynqs_tpu_torch.ops import pair_select as ps
+    from pynqs_tpu_torch.scripts import fe2s2_ci_polish, fe2s2_gfmc
+    from pynqs_tpu_torch.utils import flagship
+
+    bf16 = torch.bfloat16
+    ck = os.path.join(here, "checkpoints", "fe2s2_r3_dcut64_r5g64.pkl")
+    work = tempfile.mkdtemp(prefix="chip_smoke_refine_")
+    saved = (flagship.FE2S2_PTH, nqs_ci.local_energy_reduce,
+             fe2s2_ci_polish.local_energy_reduce, ham_mod.pair_select_w)
+    passes, pairs = [], []
+
+    def clocked_reduce(orig, where):
+        def run(fwd, bits, *a, **k):
+            sync()
+            t = time.perf_counter()
+            out = orig(fwd, bits, *a, **k)
+            sync()
+            passes.append((where, bits.shape[0], k["k_det"], time.perf_counter() - t))
+            return out
+        return run
+
+    def pair_select_w(po, pv, hp, *a, **k):
+        if not pairs:
+            pairs.append((po, pv, hp))
+        return saved[3](po, pv, hp, *a, **k)
+
+    counters = {"fused": fused_rnn.LAUNCHES, "fused_mma": fused_rnn.MMA_LAUNCHES,
+                "pair_select_lane": ps.LAUNCHES["lane"],
+                "pair_select_rowrow": ps.LAUNCHES["rowrow"]}
+
+    def launches():
+        return {k: c.n for k, c in counters.items()}
+
+    try:
+        flagship.FE2S2_PTH = standin_pth(work)
+        nqs_ci.local_energy_reduce = clocked_reduce(saved[1], "H_nn")
+        fe2s2_ci_polish.local_energy_reduce = clocked_reduce(saved[2], "E_VMC")
+        ham_mod.pair_select_w = pair_select_w
+
+        # ---- fixed-node GFMC at the runbook's walkers ----
+        argv = [ck, *R5_FLAGS, *GFMC_ARGS]
+        log(12, f"fe2s2_gfmc.main({' '.join(argv[1:])}) on {os.path.relpath(ck, here)}")
+        for c in counters.values():
+            c.reset()
+        reset_peak()
+        out = fe2s2_gfmc.main(argv, device=dev)
+        sync()
+        l_g = launches()
+        peak_g = peak_gib()
+        a = fe2s2_gfmc.parser().parse_args(argv)
+        n_iter = a.n_iter
+        stats = np.concatenate([out["e_gen"], out["e_gen_b"], out["wbar"]])
+        check(np.isfinite(stats).all() and len(out["e_gen"]) == n_iter,
+              "a non-finite GFMC generation statistic")
+        check(all(np.isfinite(e) and np.isfinite(se) for _, e, se in out["mixed"]),
+              "a non-finite mixed estimate")
+        check(l_g["fused_mma"] > 0 and l_g["fused_mma"] == l_g["fused"],
+              f"the GFMC trial forwards did not all go through the tensor-core kernel: {l_g}")
+        log(12, f"GFMC {n_iter} iterations, {a.n_walkers} walkers: {out['ms_per_iter']:.1f} "
+                f"ms/iter (host clock, the run's {out['seconds']:.3f} s / {n_iter}, nothing "
+                f"inside it synchronized); e_gen[0] {out['e_gen'][0]:.6f}, e_gen[-1] "
+                f"{out['e_gen'][-1]:.6f}; launches {l_g}; max_memory_allocated {peak_g:.3f} "
+                f"GiB; gpu {smi}")
+        log(12, "E(p) " + ", ".join(f"p={p}: {e:.6f} +- {se:.2e}" for p, e, se in out["mixed"]))
+
+        # ---- the dedup'd Green row on the run's last walkers ----
+        system = flagship.fe2s2_system(np.float32)
+        model = flagship.flagship_model(system, 64, use_tensor=True, max_preds=2, device=dev)
+        model.load_numpy_params(flagship.load_flagship_params(ck))
+        trial = fe2s2_gfmc.trial_forward(model)
+
+        def gfmc_with(cap):
+            """A GFMC of the run's walker count with dedup cap ``cap`` (0: off)."""
+            return walker.GFMC(trial, system, walker.GFMCConfig(n_walkers=a.n_walkers,
+                                                                dedup_unique_max=cap), device=dev)
+
+        # the Green row alone, synchronized around it, outside the run
+        wk = torch.as_tensor(out["walkers"], device=dev)
+        g_plain = gfmc_with(0)
+        plain_row, t_plain = timed(lambda: g_plain.green_row(wk))
+        g_ms = t_plain
+        trows = plain_row.comb.reshape(-1, SORB)
+        n_rows = trows.shape[0]
+        n_u = unique_rows(trows)[0].shape[0]
+        g_ded = gfmc_with(n_u)
+        ded_row, t_ded = timed(lambda: g_ded.green_row(wk))
+        check(ded_row.n_unique == n_u, "the dedup'd Green row counted other distinct rows")
+        scale = (plain_row.g_off.abs().sum(-1) + plain_row.g_diag.abs()).double()
+        d_e = (ded_row.e_loc - plain_row.e_loc).abs().double()
+        d_b = (ded_row.b - plain_row.b).abs().double()
+        bitwise = torch.equal(ded_row.e_loc, plain_row.e_loc) and torch.equal(ded_row.b,
+                                                                             plain_row.b)
+        log(12, f"Green row of the last {wk.shape[0]} walkers ({len(np.unique(out['walkers'], axis=0))} "
+                f"distinct): {n_rows} trial rows, {n_u} distinct ({n_u / n_rows:.2%}); dedup at "
+                f"n_unique_max {n_u}: max|de_loc| {d_e.max().item():.3e}, max|db| "
+                f"{d_b.max().item():.3e} (tol 1e-4 x sum|G| per walker), bitwise equal "
+                f"{bitwise}; Green row {t_plain:.1f} ms plain, {t_ded:.1f} ms with dedup "
+                f"(host clock, synchronized); gpu {smi}")
+        check(bool((d_e <= 1e-4 * scale).all() and (d_b <= 1e-4 * scale).all()),
+              "the dedup'd Green row disagrees with the plain one")
+        try:
+            gfmc_with(n_u - 1).green_row(wk)
+            raised = False
+        except OverflowError:
+            raised = True
+        check(raised, "a dedup cap one below the distinct-row count did not raise")
+        log(12, f"dedup cap {n_u - 1}: OverflowError raised")
+        del ded_row, g_plain, g_ded
+
+        # ---- kernel #1 on the trial block ----
+        T = fused_rnn.pack_tables(model)
+        sub = trows[torch.linspace(0, n_rows - 1, N_HOLD, device=dev).long()]
+        k_out = fused_rnn.graph_mpsrnn_logpsi_fused(model, sub, matmul_dtype=bf16, tables=T)
+        p_out = fused_rnn.graph_mpsrnn_logpsi_fused_plain(model, sub, matmul_dtype=bf16,
+                                                          tables=T)
+        q_out = fused_rnn.graph_mpsrnn_logpsi_fused_plain(
+            model, sub, matmul_dtype=bf16, tables={k: v.double() for k, v in T.items()})
+        sync()
+        ok, held, st = hold_rows(k_out, p_out, q_out, tol[bf16])
+        log(12, f"kernel #1 r5g64 vs plain on {N_HOLD} trial-block rows: max|dlog|psi|| "
+                f"{st['max_a']:.3e} (tol {tol[bf16][0]:g}), max phase distance "
+                f"{st['max_p']:.3e}, median row {st['med_a']:.3e} / {st['med_p']:.3e}; plain "
+                f"with f64 sums vs plain: max phase distance {st['q_max_p']:.3e}; held: {held} "
+                f"(rows over {tol[bf16][1]:g}: {st['over']}, plain f64 {st['q_over']})")
+        check(ok, "kernel #1 disagrees with its plain version on the trial block")
+        err = st["max_a"]
+        del k_out, p_out, q_out
+        CH = 1 << 18
+
+        def plain():
+            return torch.cat([fused_rnn.graph_mpsrnn_logpsi_fused_plain(
+                model, trows[i:i + CH], matmul_dtype=bf16, tables=T)
+                for i in range(0, n_rows, CH)])
+
+        kern = lambda: fused_rnn.graph_mpsrnn_logpsi_fused(model, trows, matmul_dtype=bf16, tables=T)  # noqa: E731
+        p1 = cuda_ms(plain, 1)
+        k_ms = (cuda_ms(kern, 2) + cuda_ms(kern, 2)) / 2
+        p_ms = (p1 + cuda_ms(plain, 1)) / 2
+        flop = n_rows * sum(flop_per_site(64, len(p), model.dcut_cmpr) for p in model.preds)
+        b_k = bound(flop, n_rows * SORB + n_rows * 2 * 4 + table_bytes(T, bf16), bf16)
+        log(12, f"fused forward bf16 r5g64 on the trial block ({n_rows} rows): tensor-core "
+                f"kernel {k_ms:.3f} ms ({flop / k_ms / 1e9:.2f} TFLOP/s), plain {p_ms:.3f} ms "
+                f"(in chunks of {CH}), bound {b_k[0]:.3f} ms ({b_k[1]}; {flop / 1e12:.3f} "
+                f"TFLOP), {k_ms / g_ms:.1%} of a Green row; gpu {smi}")
+        del plain_row, trows, sub, model
+
+        # ---- the CI-NQS polish ----
+        def polish(args, what):
+            argv = [ck, *R5_FLAGS, *args]
+            log(12, f"fe2s2_ci_polish.main({' '.join(argv[1:])}) {what}")
+            passes.clear()
+            for c in counters.values():
+                c.reset()
+            reset_peak()
+            r = fe2s2_ci_polish.main(argv, device=dev)
+            sync()
+            lc = launches()
+            for where, n, kd, s_ in passes:
+                log(12, f"  exact-eloc pass {where}: {n} rows x k_det {kd} "
+                        f"({n * (1 + kd)} forward rows) {s_:.3f} s")
+            for res in r["results"]:
+                info = res["info"]
+                log(12, f"  m {res['m']}: E_CI-NQS {res['e']:.6f} (E_VMC {r['e_vmc']:.6f}, "
+                        f"gain {1e3 * (r['e_vmc'] - res['e']):+.3f} mHa) in {res['seconds']:.1f} s; "
+                        f"info {info}")
+                check(np.isfinite(res["e"]) and all(np.isfinite(v) for k, v in info.items()
+                                                    if k != "restrict"),
+                      "a non-finite polish result")
+                check(0.0 <= info["captured_complement_fraction"] <= 1.0,
+                      f"captured_complement_fraction {info['captured_complement_fraction']}")
+            check(np.isfinite(r["e_vmc"]), "non-finite E_VMC")
+            log(12, f"  {r['n_live']} live captured rows, dropped {r['dropped']:.3%}; E_VMC pass "
+                    f"{r['seconds_vmc']:.3f} s; launches {lc}; max_memory_allocated "
+                    f"{peak_gib():.3f} GiB; gpu {smi}")
+            check(lc["fused_mma" if "f32" not in args else "fused"] > 0
+                  and lc["pair_select_lane"] > 0,
+                  f"the polish did not launch kernels #1 and #4: {lc}")
+            return r, lc, list(passes)
+
+        pol, l_p, passes_p = polish(POLISH_ARGS, "(bf16)")
+        e_pass = [s_ for *_, s_ in passes_p]
+        po, pv, hp = pairs[0]
+        m_ps, err_ps = time_pairs(12, po, pv, hp, 50, 1000)
+        pair = {}
+        for dt in ("bf16", "f32"):
+            pair[dt] = polish([*PAIR_ARGS, "--fwd-dtype", dt], f"(the {dt} half of the pair)")[0]
+        e16, e32 = pair["bf16"]["results"][0]["e"], pair["f32"]["results"][0]["e"]
+        v16, v32 = pair["bf16"]["e_vmc"], pair["f32"]["e_vmc"]
+        log(12, f"bf16/f32 pair (m 512): E_CI-NQS bf16 {e16:.6f}, f32 {e32:.6f}, difference "
+                f"{(e16 - e32) * 1e3:+.4f} mHa; E_VMC bf16 {v16:.6f}, f32 {v32:.6f}, difference "
+                f"{(v16 - v32) * 1e3:+.4f} mHa; gpu {smi}")
+        return {"gfmc_launches": l_g["fused_mma"], "err": err, "times": (k_ms, p_ms),
+                "bound": b_k, "rows": n_rows, "ms_per_iter": out["ms_per_iter"],
+                "polish_lane": l_p["pair_select_lane"], "pair_select": (m_ps, err_ps),
+                "pass_s": e_pass}
+    finally:
+        (flagship.FE2S2_PTH, nqs_ci.local_energy_reduce, fe2s2_ci_polish.local_energy_reduce,
+         ham_mod.pair_select_w) = saved
         shutil.rmtree(work, ignore_errors=True)
 
 
@@ -1247,15 +1492,18 @@ def main():
 
     def time_pairs(phase, po, pv, hp, reps, host_calls):
         """``time_pair_select.measure`` of both variants on these operands,
-        the earlier gather kernel held bitwise to the band kernel first;
-        returns ({variant: numbers}, {variant: max|kernel − plain|})."""
+        the band kernel held bitwise to the earlier gather kernel and to the
+        plain version first; returns ({variant: numbers}, {variant: max|kernel − plain|})."""
         res, err = {}, {}
         for v in ps.VARIANTS:
             k = ps.pair_select_w(po, pv, hp, variant=v)
             check(torch.equal(ps._launch_gather(po, pv, hp, v), k),
                   f"the earlier gather kernel ({v}) != the band kernel")
-            err[v] = (k - ps.pair_select_w_plain(po, pv, hp, variant=v)).abs().max().item()
-            del k
+            p = ps.pair_select_w_plain(po, pv, hp, variant=v)
+            check(torch.equal(k, p), f"pair selection {v} != plain at {tuple(k.shape)} "
+                                     f"(phase {phase})")
+            err[v] = (k - p).abs().max().item()
+            del k, p
             r = res[v] = tps.measure(po, pv, hp, v, reps=reps, host_calls=host_calls)
             log(phase, f"pair selection {v} {r['shape']}: wrapper call {r['ms']:.4f} ms, kernel "
                        f"alone {r['device_ms']:.4f} ms (profiler), host {r['host_ms']:.4f} ms per "
@@ -1374,6 +1622,10 @@ def main():
     # ---- 11. the flagship training run at full width ----
     f11 = flagship_run(dev, smi, here, bound, flop_per_site, table_bytes, tol, timed)
 
+    # ---- 12. the post-training refinement of the r5g64 flagship ----
+    f12 = refine_run(dev, smi, here, bound, flop_per_site, table_bytes, tol, timed, time_pairs)
+    m12, err12 = f12["pair_select"]
+
     def entry(name, replaces, launches_n, err, times, bnd, source="fused_rnn.cu", lib=None,
               **extra):
         return {
@@ -1422,6 +1674,18 @@ def main():
               f11["launches"], f11["err"], f11["times"], f11["bound"], "fused_rnn_mma.cu",
               prev_ms=f11["prev_ms"], registers=f11["registers"],
               spill_bytes=f11["spill_bytes"]),
+        # kernel #1's tensor branch on one GFMC trial block (2048 walkers x
+        # 7876 rows, phase 12); launches: the GFMC run's
+        entry("fused_rnn_forward_mma_gfmc", "pynqs_tpu/ops/fused_rnn.py:254",
+              f12["gfmc_launches"], f12["err"], f12["times"], f12["bound"], "fused_rnn_mma.cu",
+              rows=f12["rows"]),
+        # kernel #4 in the polish's E_VMC pass (phase 12): its launches and
+        # its chunk's shape
+        entry("pair_select_lane_polish", "pynqs_tpu/ops/pallas_hij.py:48",
+              f12["polish_lane"], err12["lane"], (m12["lane"]["ms"], m12["lane"]["plain_ms"]),
+              (m12["lane"]["bound_ms"], "bytes"), "pair_select.cu", m12["lane"]["library_ms"],
+              device_ms=m12["lane"]["device_ms"], prev_ms=m12["lane"]["prev_ms"],
+              prev_device_ms=m12["lane"]["prev_device_ms"]),
     ]}
     print(json.dumps(summary))
     print(f"gpu: {smi}")

@@ -2,7 +2,7 @@
 singles and doubles.
 
 Counterpart of ``pynqs_tpu/energy/eloc.py`` (``local_energy_simple``,
-``local_energy_reduce``).  Ratios are formed in log space from
+``local_energy_reduce``, ``dedup_eval``, ``reduce_unique_count``).  Ratios are formed in log space from
 (log|ψ|, arg ψ) pairs.  The JAX package's one-hot block fetches
 (``_sample_tail_cdf_blkloc``, ``_onehot_fetch_i32``) are a TPU
 workaround for gathers; here the tail draw is ``torch.searchsorted`` on
@@ -17,10 +17,44 @@ import torch
 
 from pynqs_tpu_torch.ops import cplx
 from pynqs_tpu_torch.ops import onv
+from pynqs_tpu_torch.ops.lut import row_keys
 from pynqs_tpu_torch.ops.excitation import ExcitationTable, excite_bits
 from pynqs_tpu_torch.ops.hamiltonian import comb_hij
 
-__all__ = ["local_energy_simple", "local_energy_reduce", "sample_tail_cdf"]
+__all__ = ["local_energy_simple", "local_energy_reduce", "sample_tail_cdf", "unique_rows",
+           "dedup_eval", "reduce_unique_count"]
+
+
+def unique_rows(flat_bits: torch.Tensor):
+    """(first [U] int64, inverse [N] int64): the first row of each distinct
+    determinant of flat_bits [N, sorb], in key order, and each row's
+    place among them."""
+    packed = onv.pack_bits(flat_bits)
+    key = row_keys(packed)
+    if key is not None:
+        _, inverse = torch.unique(key, return_inverse=True)
+    else:
+        _, inverse = torch.unique(packed, dim=0, return_inverse=True)
+    n_u = int(inverse.max()) + 1 if inverse.numel() else 0
+    pos = torch.arange(flat_bits.shape[0], device=flat_bits.device)
+    first = torch.full((n_u,), flat_bits.shape[0], dtype=torch.long, device=flat_bits.device)
+    return first.scatter_reduce_(0, inverse, pos, "amin"), inverse
+
+
+@torch.no_grad()
+def dedup_eval(log_psi_fn: Callable[[torch.Tensor], torch.Tensor], flat_bits: torch.Tensor,
+               n_unique_max: int):
+    """log ψ once per distinct row of flat_bits [N, sorb]: returns
+    (lp [N, 2], n_unique).  Raises when more than ``n_unique_max`` rows
+    are distinct: the cap is the forward's batch budget, kept as it was
+    given and never grown (the JAX package turns the overflowed rows to
+    NaN instead)."""
+    first, inverse = unique_rows(flat_bits)
+    n_unique = first.shape[0]
+    if n_unique > n_unique_max:
+        raise OverflowError(f"dedup_eval: {n_unique} distinct rows exceed n_unique_max = "
+                            f"{n_unique_max}")
+    return log_psi_fn(flat_bits[first])[inverse], n_unique
 
 
 def _chunks(n: int, batch: int | None):
@@ -82,6 +116,7 @@ def local_energy_reduce(
     batch: int | None = None,
     hpair=None,
     topk: str = "exact",
+    dedup_unique_max: int | None = None,
     prefix_fwd=None,
 ) -> torch.Tensor:
     """Semi-stochastic screened E_loc (reference ElocMethod.REDUCE).
@@ -102,9 +137,16 @@ def local_energy_reduce(
     deterministic and tail children go through it, each reusing its
     sample's recurrence up to its first changed site; the children, the
     tail draws and the generator's use are the same as without it.
+
+    ``dedup_unique_max``: evaluate ψ once per distinct row of each chunk's
+    forward (``dedup_eval``, which raises when a chunk has more distinct
+    rows than this); exclusive with ``prefix_fwd``.  The rows, the tail
+    draws and the generator's use are the same as without it.
     """
     if topk not in ("exact", "approx", "segmax"):
         raise ValueError(f"unknown topk {topk!r}")
+    if prefix_fwd is not None and dedup_unique_max:
+        raise ValueError("prefix_fwd and dedup_unique_max are exclusive")
     ns = table.n_singles
     pos = torch.as_tensor(table.pos, dtype=torch.long, device=bits.device)
     out = []
@@ -149,8 +191,13 @@ def local_energy_reduce(
             lp_p, lp_c = prefix_fwd(chunk, kids, t_min)
             lp = torch.cat([lp_p[:, None, :], lp_c], 1)
         else:
-            all_bits = torch.cat([chunk.to(torch.int8)[:, None, :], det_bits, st_bits], 1)
-            lp = log_psi_fn(all_bits.reshape(-1, sorb)).reshape(b, 1 + kd + n_stoch, 2)
+            flat = torch.cat([chunk.to(torch.int8)[:, None, :], det_bits, st_bits], 1)
+            flat = flat.reshape(-1, sorb)
+            if dedup_unique_max:
+                lp = dedup_eval(log_psi_fn, flat, dedup_unique_max)[0]
+            else:
+                lp = log_psi_fn(flat)
+            lp = lp.reshape(b, 1 + kd + n_stoch, 2)
         r_re, r_im = cplx.ratio_re_im(lp, lp[:, :1])
         dt = r_re.dtype
         det_hr = det_h.to(dt)
@@ -164,3 +211,18 @@ def local_energy_reduce(
             torch.stack([hij[:, 0].to(dt) + e_det_re + e_tail_re, e_det_im + e_tail_im], -1)
         )
     return torch.cat(out, 0)
+
+
+def reduce_unique_count(bits: torch.Tensor, tables: tuple, table: ExcitationTable,
+                        generator: torch.Generator, **kw) -> list[int]:
+    """The distinct forward rows of each chunk of ``local_energy_reduce``
+    (``kw``: its keywords, ``batch`` the chunk): what ``dedup_unique_max``
+    must hold.  No ψ forward runs; the generator draws as the energy's."""
+    counts = []
+
+    def spy(rows):
+        counts.append(unique_rows(rows)[0].shape[0])
+        return torch.zeros(rows.shape[0], 2, device=rows.device)
+
+    local_energy_reduce(spy, bits, tables, table, generator, **kw)
+    return counts

@@ -1,7 +1,7 @@
 """Slater–Condon matrix elements over the connected singles and doubles.
 
 Counterpart of ``pynqs_tpu/ops/hamiltonian.py`` (``hij_diagonal``,
-``comb_hij``).  On a GPU a data-dependent gather is cheap, so the JAX
+``comb_hij``, ``hij_pairs``, ``hij_dense``).  On a GPU a data-dependent gather is cheap, so the JAX
 package's one-hot selections and three-way bf16 splits are not ported:
 
   * diagonal  <n|H|n> = occ·diag(h1e) + ½ occᵀ K occ;
@@ -13,7 +13,9 @@ package's one-hot selections and three-way bf16 splits are not ported:
     (``ops/pair_select.py``, a CUDA kernel on the card) and one static
     gather of each double's entry; or the compressed triangle where no
     pair matrix is built;
-  * signs from one exclusive prefix count per sample.
+  * signs from one exclusive prefix count per sample;
+  * between arbitrary determinants (``hij_pairs``, ``hij_dense``): the
+    excitation degree from the differing bits, zero beyond doubles.
 
 The operands' dtype is the arithmetic's: f32 on the card, f64 in the
 CPU tests.  No TF32 (the package switches it off on import).
@@ -30,7 +32,8 @@ from pynqs_tpu_torch.ops import onv
 from pynqs_tpu_torch.ops.excitation import ExcitationTable, make_comb_bits
 from pynqs_tpu_torch.ops.pair_select import pair_select_w
 
-__all__ = ["hij_diagonal", "comb_hij", "pair_indices", "PAIR_SELECT"]
+__all__ = ["hij_diagonal", "comb_hij", "pair_indices", "hij_pairs", "hij_dense",
+           "PAIR_SELECT", "DENSE_PAIRS"]
 
 # comb_hij's ``pair_select`` values, the JAX package's names: all read the
 # dense matrix through pair_select_w (the kernel for CUDA rows, the plain
@@ -209,3 +212,58 @@ def comb_hij(
         exc = make_comb_bits(bits, orbs, is_double)
         comb = torch.cat([bits.to(torch.int8)[:, None, :], exc], dim=1)
     return comb, hij
+
+
+def hij_pairs(bra_bits, ket_bits, h1e, h2e, diag1, K, J) -> torch.Tensor:
+    """<bra|H|ket> for elementwise pairs of determinants [..., sorb]:
+    excitation degree 0, 1 or 2, zero beyond."""
+    sorb = bra_bits.shape[-1]
+    dtype = K.dtype
+    bra, ket = torch.broadcast_tensors(bra_bits.long(), ket_bits.long())
+    d = bra ^ ket
+    cre = d & bra  # occupied in bra only
+    ann = d & ket  # occupied in ket only
+    ncre, nann = cre.sum(-1), ann.sum(-1)
+    pref_bra, pref_ket = onv.prefix_occ(bra), onv.prefix_occ(ket)
+    ar = torch.arange(sorb, device=bra.device)
+
+    def hi_lo(mask):  # highest and lowest set position (clipped when none)
+        hi = torch.where(mask > 0, ar, -1).amax(-1).clamp(0, sorb - 1)
+        lo = torch.where(mask > 0, ar, sorb).amin(-1).clamp(0, sorb - 1)
+        return hi, lo
+
+    def at(pref, pos):
+        return torch.gather(pref, -1, pos[..., None])[..., 0]
+
+    p_hi, p_lo = hi_lo(cre)
+    q_hi, q_lo = hi_lo(ann)
+    hij0 = hij_diagonal(bra.reshape(-1, sorb), diag1, K).reshape(bra.shape[:-1])
+    # singles: h1e[p, q] + Σ_{k ∈ occ(bra)} <pk||qk>, p = p_hi, q = q_hi
+    val1 = (bra.to(dtype) * J.t()[p_hi * sorb + q_hi]).sum(-1) + h1e[p_hi, q_hi]
+    hij1 = val1 * _parity_from_count(at(pref_bra, p_hi) + at(pref_ket, q_hi)).to(dtype)
+    # doubles
+    # (clamped: rows of other degrees give indices that are not read)
+    val2 = h2e[_tri_index(p_hi, p_lo, q_hi, q_lo).clamp(max=h2e.shape[0] - 1)]
+    cnt2 = at(pref_bra, p_hi) + at(pref_bra, p_lo) + at(pref_ket, q_hi) + at(pref_ket, q_lo)
+    hij2 = val2 * _parity_from_count(cnt2).to(dtype)
+    zero = torch.zeros_like(hij0)
+    return torch.where(
+        (ncre == 0) & (nann == 0), hij0,
+        torch.where((ncre == 1) & (nann == 1), hij1,
+                    torch.where((ncre == 2) & (nann == 2), hij2, zero)))
+
+
+DENSE_PAIRS = 1 << 19  # (bra, ket) pairs per block of hij_dense
+
+
+def hij_dense(bra_bits, ket_bits, h1e, h2e, diag1, K, J):
+    """Dense [n, m] matrix <bra_i|H|ket_j>, built in row blocks of at most
+    ``DENSE_PAIRS`` (bra, ket) pairs, so that [rows, m, sorb] never forms
+    whole."""
+    n, m = bra_bits.shape[0], ket_bits.shape[0]
+    out = torch.empty(n, m, dtype=K.dtype, device=K.device)
+    rows = max(1, DENSE_PAIRS // max(m, 1))
+    for s in range(0, n, rows):
+        out[s:s + rows] = hij_pairs(bra_bits[s:s + rows, None, :], ket_bits[None, :, :],
+                                    h1e, h2e, diag1, K, J)
+    return out

@@ -3,6 +3,13 @@
 Counterpart of ``pynqs_tpu/ops/onv.py``.  A determinant over ``sorb``
 spin orbitals is an unpacked 0/1 row ``bits[..., sorb]`` (int8); even
 indices are alpha, odd are beta, spatial orbital of ``s`` is ``s // 2``.
+
+The packed form, the key of sorting, dedup and the lookup table, is the
+JAX package's word layout: ``n_words32(sorb)`` 32-bit words, bit ``s`` in
+word ``s // 32`` at position ``s % 32``, keys ordered with word 0 least
+significant.  torch has little uint32 support, so the words are held in
+int64 (values 0 .. 2³² − 1); ``ops/lut.row_keys`` folds up to two
+words into one order-keeping int64 per row.
 """
 
 from __future__ import annotations
@@ -11,6 +18,12 @@ import numpy as np
 import torch
 
 __all__ = [
+    "n_words32",
+    "pack_bits",
+    "unpack_bits",
+    "popcount_u32",
+    "compare_keys_lt",
+    "compare_keys_le",
     "hf_bits",
     "prefix_occ",
     "parity",
@@ -20,6 +33,59 @@ __all__ = [
     "spin_flip_bits",
     "spin_flip_sign",
 ]
+
+
+def n_words32(sorb: int) -> int:
+    """Number of 32-bit words that hold ``sorb`` bits."""
+    return (sorb + 31) // 32
+
+
+def pack_bits(bits: torch.Tensor) -> torch.Tensor:
+    """0/1 bits [..., sorb] -> the words [..., n_words32(sorb)] as int64."""
+    sorb = bits.shape[-1]
+    nw = n_words32(sorb)
+    b = torch.nn.functional.pad(bits.long(), (0, nw * 32 - sorb))
+    pow2 = torch.bitwise_left_shift(torch.ones(32, dtype=torch.long, device=bits.device),
+                                    torch.arange(32, device=bits.device))
+    return (b.reshape(bits.shape[:-1] + (nw, 32)) * pow2).sum(-1)
+
+
+def unpack_bits(words: torch.Tensor, sorb: int) -> torch.Tensor:
+    """The words [..., nw] -> 0/1 bits [..., sorb] int8."""
+    shifts = torch.arange(32, device=words.device)
+    b = torch.bitwise_right_shift(words.long()[..., :, None], shifts) & 1
+    return b.reshape(words.shape[:-1] + (words.shape[-1] * 32,))[..., :sorb].to(torch.int8)
+
+
+def popcount_u32(x: torch.Tensor) -> torch.Tensor:
+    """Population count of 32-bit words (held in int64), int64."""
+    x = x.long() & 0xFFFFFFFF
+    x = x - ((x >> 1) & 0x55555555)
+    x = (x & 0x33333333) + ((x >> 2) & 0x33333333)
+    x = (x + (x >> 4)) & 0x0F0F0F0F
+    return ((x * 0x01010101) & 0xFFFFFFFF) >> 24
+
+
+def _cmp_words(a: torch.Tensor, b: torch.Tensor):
+    """(a < b, a == b) of multi-word keys, word 0 least significant."""
+    shape = torch.broadcast_shapes(a.shape[:-1], b.shape[:-1])
+    lt = torch.zeros(shape, dtype=torch.bool, device=a.device)
+    eq = torch.ones(shape, dtype=torch.bool, device=a.device)
+    for w in range(a.shape[-1] - 1, -1, -1):  # most significant word first
+        lt = lt | (eq & (a[..., w] < b[..., w]))
+        eq = eq & (a[..., w] == b[..., w])
+    return lt, eq
+
+
+def compare_keys_lt(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a < b for packed keys [..., nw]."""
+    return _cmp_words(a, b)[0]
+
+
+def compare_keys_le(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a <= b for packed keys [..., nw]."""
+    lt, eq = _cmp_words(a, b)
+    return lt | eq
 
 
 def hf_bits(sorb: int, noa: int, nob: int) -> np.ndarray:

@@ -8,8 +8,7 @@ scheduled learning rate; ``run`` adds the parameter EMA, the
 sample-count ramp, 3σ clipping, the run log and the resume checkpoints
 (the JAX package's file format, ``utils/checkpoint.py``), and
 ``operator_expected`` measures any operator on the state.  Not ported
-yet (ROADMAP): SR, freeze-and-sweep, profiling, the eloc dedup, the
-mesh.
+yet (ROADMAP): SR, freeze-and-sweep, profiling, the mesh.
 
 Resuming keeps two behaviours of the JAX loop: the loop's iteration
 restarts at 0 (the clip schedule, the ramp, the 3σ window and the
@@ -76,6 +75,11 @@ class VMCConfig:
     # recurrence up to the child's first changed site; chain models only
     # (others take the flat forward)
     eloc_prefix: bool = False
+    # REDUCE: evaluate ψ once per distinct row of each eloc chunk's
+    # forward, at most this many (energy/eloc.dedup_eval, which raises
+    # above it; size it with reduce_unique_count); exclusive with
+    # eloc_prefix
+    eloc_dedup_max: int | None = None
     log_every: int = 25
     log_path: str | None = None
     # log a warning when the sampler drops more than this share of the
@@ -188,7 +192,8 @@ class VMC:
                 fwd, bits, self._ops, self._table, generator,
                 k_det=self.cfg.eloc_k_det, n_stoch=self.cfg.eloc_n_stoch,
                 batch=self.cfg.eloc_batch, hpair=self._hpair,
-                topk=self.cfg.eloc_topk, prefix_fwd=self._eloc_prefix_fwd(),
+                topk=self.cfg.eloc_topk, dedup_unique_max=self.cfg.eloc_dedup_max,
+                prefix_fwd=self._eloc_prefix_fwd(),
             )
         else:
             eloc = local_energy_simple(

@@ -62,7 +62,7 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--max-unique", type=int, default=24576)
     ap.add_argument("--eloc-batch", type=int, default=4096)
     ap.add_argument("--eloc-dedup-max", type=int, default=None,
-                    help="REDUCE forward dedup capacity per eloc chunk (not ported)")
+                    help="REDUCE forward dedup capacity per eloc chunk")
     ap.add_argument("--grad-batch", type=int, default=8192)
     ap.add_argument("--k-det", type=int, default=512)
     ap.add_argument("--n-stoch", type=int, default=128)
@@ -124,9 +124,6 @@ def main(argv=None, *, system=None, device=None, root: str = REPO) -> dict:
     card), writing under ``root``.  Returns {"vmc", "history",
     "split_depth", "profile" (live, kept) or None, "seconds", "paths"}."""
     args = parser().parse_args(argv)
-    if args.eloc_dedup_max is not None:
-        raise SystemExit("--eloc-dedup-max needs the REDUCE forward dedup (dedup_eval), "
-                         "which is not ported yet (ROADMAP A5)")
     dev = resolve_device(device)
     if args.fwd_dtype == "f32":
         # full-precision ansatz arithmetic everywhere, as the JAX script's
@@ -203,6 +200,7 @@ def main(argv=None, *, system=None, device=None, root: str = REPO) -> dict:
         clip_grad=args.clip, clip_schedule=_clip_schedule(args.clip_stages),
         eloc_method="reduce", eloc_k_det=args.k_det, eloc_n_stoch=args.n_stoch,
         eloc_topk=args.topk, eloc_batch=args.eloc_batch, grad_batch=args.grad_batch,
+        eloc_dedup_max=args.eloc_dedup_max,
         ema_decay=args.ema, fused_matmul_dtype=args.fwd_dtype, log_every=50,
         log_path=paths["log"], checkpoint_path=paths["resume"],
         checkpoint_interval=args.ckpt_interval,

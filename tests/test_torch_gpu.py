@@ -3,8 +3,8 @@ tensor-core kernel in bf16, the CUDA-core kernel in f32; tensor coupling
 included), the prefix-sharing kernels (on the tensor cores in bf16,
 bit for bit the flat tensor-core kernel's rows; on the CUDA cores in
 f32) and the doubles pair
-selection against their plain versions, and VMC steps and the dense
-``comb_hij`` that go through the kernels.
+selection against their plain versions, and VMC steps (with the REDUCE
+forward dedup too) and the dense ``comb_hij`` that go through the kernels.
 
 They import neither JAX nor the JAX package, so they also run where only
 PyTorch for CUDA is installed.  On a machine with a card:
@@ -365,6 +365,35 @@ def test_vmc_step_with_eloc_prefix_on_card(dev):
         assert [a - b for a, b in zip(after, before)] == ([1, 1, 0] if prefix else [0, 0, 1])
     assert math.isfinite(out[True]["energy"].item())
     assert abs(out[True]["energy"].item() - out[False]["energy"].item()) < 1e-4
+
+
+def test_vmc_step_with_eloc_dedup_on_card(dev):
+    """REDUCE with ``eloc_dedup_max``: one tensor-core launch per step on the
+    distinct rows, and the step of the same generator without it (bf16
+    forwards; the kernel rounds each row alone, so the rows agree within
+    the bf16 rule of ``chip_smoke.hold_rows`` and the energies to 1e-4)."""
+    system = System.hubbard_1d(4, 2, 2, u=4.0)
+    out, params = {}, {}
+    for cap in (None, 20_000):
+        model = GraphMPSRNN(8, 2, 2, dcut=4, phase_mode="arg", norm_mode="mpsrnn",
+                            dtype=torch.float32, device=dev,
+                            generator=torch.Generator().manual_seed(0))
+        sampler = ARSampler(8, 2, 2, n_sample=20_000, capacity=36)
+        vmc = VMC(model, system, sampler, VMCConfig(
+            lr=0.05, eloc_method="reduce", eloc_k_det=8, eloc_n_stoch=4, eloc_dedup_max=cap))
+        before = fused_rnn.MMA_LAUNCHES.n
+        out[cap] = vmc.step(torch.Generator(device=dev).manual_seed(1), 1.0)
+        torch.cuda.synchronize()
+        assert fused_rnn.MMA_LAUNCHES.n - before == 1
+        params[cap] = {k: p.detach().clone() for k, p in model.named_parameters()}
+    e0, e1 = out[None]["energy"].item(), out[20_000]["energy"].item()
+    assert math.isfinite(e1) and abs(e1 - e0) <= 1e-4 * max(1.0, abs(e0))
+    for k, p in params[None].items():
+        assert (params[20_000][k] - p).abs().max().item() <= 1e-4, k
+    with pytest.raises(OverflowError):
+        VMC(model, system, ARSampler(8, 2, 2, n_sample=20_000, capacity=36), VMCConfig(
+            eloc_method="reduce", eloc_k_det=8, eloc_n_stoch=4, eloc_dedup_max=1)).step(
+            torch.Generator(device=dev).manual_seed(1), 1.0)
 
 
 def test_cuda_kernel_f32_matches_log_psi(dev):

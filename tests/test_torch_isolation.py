@@ -108,6 +108,35 @@ def test_evaluation_entry_points_raise_without_a_card(monkeypatch):
     assert np.isfinite(rep.e) and rep.n_live > 0 and rep.rows.device.type == "cpu"
 
 
+def test_refinement_entry_points_raise_without_a_card(monkeypatch):
+    """GFMC, its CI trial and the CI-NQS polish default to the card; asked
+    for the CPU, they run there."""
+    from pynqs_tpu_torch.ci.nqs_ci import ci_polish
+    from pynqs_tpu_torch.ci.wavefunction import CIWavefunction
+    from pynqs_tpu_torch.gfmc.walker import GFMC, ci_trial_log_psi
+    from pynqs_tpu_torch.models.graph_mps_rnn import GraphMPSRNN
+    from pynqs_tpu_torch.utils.fci import fci_bits
+    from pynqs_tpu_torch.utils.system import System
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    system = System.hubbard_1d(4, 2, 2)
+    space = fci_bits(8, 2, 2)
+    ci = CIWavefunction(coeffs=np.ones(len(space)), bits=space)
+    model = GraphMPSRNN(8, 2, 2, dcut=4, device="cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ci_trial_log_psi(ci)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        GFMC(model.log_psi, system)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ci_polish(model, system, space[:4], space, torch.Generator())
+    trial = ci_trial_log_psi(ci, device="cpu")
+    out = GFMC(trial, system, device="cpu").run(space[:16], n_iter=2)
+    assert np.isfinite(out["e_gen"]).all()
+    e, _, _ = ci_polish(model, system, space[:4], space, torch.Generator(), device="cpu",
+                        k_det=system.excitation.n_sd)
+    assert np.isfinite(e)
+
+
 @pytest.mark.parametrize("where", ["repo", "alone"])
 def test_chip_smoke_fails_without_a_card(where, tmp_path):
     """No card (hidden from the process) or no repository beside the

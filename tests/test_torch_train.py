@@ -403,6 +403,14 @@ def test_scripts_main_on_the_cpu(tmp_path, capsys):
     out = capsys.readouterr().out
     assert len(reps) == 2 and all(np.isfinite(x.e) and np.isfinite(x.s) for x in reps)
     assert "rep 1: E = " in out and "FINAL  E = " in out
-    with pytest.raises(SystemExit, match="A5"):
-        fe2s2_r3_push.main(args + ["--eloc-dedup-max", "100"], system=system, device="cpu",
-                           root=str(tmp_path))
+    # --eloc-dedup-max: the same run, each forward row evaluated once
+    r3 = fe2s2_r3_push.main(args + ["--iters", "2", "--split-depth", str(r["split_depth"]),
+                                    "--eloc-dedup-max", "10000", "--tag", "d"],
+                            system=system, device="cpu", root=str(tmp_path))
+    # (f32 model: the forward's rounding follows its batch, about 1e-7)
+    assert r3["vmc"].cfg.eloc_dedup_max == 10000
+    np.testing.assert_allclose(r3["history"], r["history"], rtol=1e-6, atol=0)
+    with pytest.raises(OverflowError, match="n_unique_max"):
+        fe2s2_r3_push.main(args + ["--iters", "1", "--split-depth", str(r["split_depth"]),
+                                   "--eloc-dedup-max", "2", "--tag", "d"],
+                           system=system, device="cpu", root=str(tmp_path))
