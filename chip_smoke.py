@@ -97,7 +97,23 @@ Phases, one line each (and a few detail lines):
      (exact local energies, m 2048, n 1e6 in 4 groups of 4096 at depth 6),
      its E_VMC pass through kernel #4 (timed at its chunk shape as in phase
      9) and each exact-eloc pass timed; the bf16/f32 pair at a smaller
-     capture (n 1e5, 4 groups of 1024, m 512).
+     capture (n 1e5, 4 groups of 1024, m 512);
+ 13. the CI ladder on the r5g64 state (the same weights and stand-in
+     integrals): pynqs_tpu_torch/scripts/fe2s2_hci_precompute.main at a
+     cut (--max-space 256 --max-rounds 3), its file read back by load_ci;
+     NqsCi training through pynqs_tpu_torch/scripts/fe2s2_nqsci_train.main
+     on checkpoints/fe2s2_hci_m1024.npz at full width (m 1024, eloc batch
+     256; cut: capacity 1024, n 1e5, 2 iterations), its gradient-free
+     forwards through kernel #1 in f32 (the CUDA-core kernel), every
+     e_tot and |c_m| finite, the parameters changed, the saved state
+     loaded, one more iteration timed stage by stage; the capture ->
+     selected CI route at m 256 (64 seed determinants, 1 iteration);
+     kernel #1 held to its plain version on 65,536 rows of one H_nn
+     connected block in f32 and bf16 and timed on one eloc batch's rows,
+     one iteration with --fwd-dtype bf16 against the f32 e_tot; the
+     chunked H_cn gradient against one chunk on a sub-block, and one
+     gradient chunk of the run's size timed and profiled (device busy
+     share, top kernels).
 
 The last two lines are the kernels' JSON summary and the result JSON.
 Any failed check raises, so the script exits non-zero with no result.
@@ -135,6 +151,15 @@ PAIR_ARGS = ["--k-det", "0", "--eloc-batch", "128", "--ci-chunk", "128", "--m", 
              "--n-sample", "100000", "--capacity", "1024", "--n-group", "4",
              "--split-depth", "6"]
 N_HOLD = 65536  # trial-block rows of phase 12's kernel comparison
+# phase 13: the runbook's NqsCi stage (r5_runbook.sh:64-78; the script's
+# default --ci-chunk 65536) on the repository's HCI space, cut as PERF.md
+# §4 says
+NQSCI_ARGS = ["--ci-file", os.path.join("checkpoints", "fe2s2_hci_m1024.npz"), "--eloc-batch",
+              "256", "--capacity", "1024", "--n-sample", "100000"]
+HCI_ARGS = ["--max-space", "256", "--max-rounds", "3"]
+SEL_ARGS = ["--m", "256", "--seed-dets", "64", "--iters", "1", "--eloc-batch", "256",
+            "--capacity", "1024", "--n-sample", "100000"]
+N_SUB = 9  # CI determinants of phase 13's chunked-gradient check (70,884 connected rows)
 H100_BF16_FLOPS = 989e12  # dense tensor-core peak, SXM data sheet
 H100_F32_FLOPS = 67e12  # f32 outside the tensor cores
 H100_BYTES = 3.35e12  # HBM3 bytes/s
@@ -787,7 +812,250 @@ def refine_run(dev, smi, here, bound, flop_per_site, table_bytes, tol, timed, ti
         shutil.rmtree(work, ignore_errors=True)
 
 
+def nqsci_run(dev, smi, here, bound, flop_per_site, table_bytes, tol, timed):
+    """Phase 13: the CI ladder on the r5g64 state through the two scripts'
+    ``main`` (the HCI precompute at a cut; NqsCi from the repository's
+    m-1024 HCI space at full width, f32 and one bf16 iteration; the
+    capture -> selected CI route), one NqsCi iteration timed stage by
+    stage, kernel #1 on H_nn rows, and the chunked H_cn gradient on a
+    sub-block.  Writes only in a temporary directory."""
+    import shutil
+    import tempfile
+
+    from pynqs_tpu_torch.ci.nqs_ci import NqsCi, NqsCiConfig
+    from pynqs_tpu_torch.ci.solve import load_ci
+    from pynqs_tpu_torch.ops import cplx, fused_rnn
+    from pynqs_tpu_torch.ops.hamiltonian import comb_hij
+    from pynqs_tpu_torch.scripts import fe2s2_ci_polish, fe2s2_hci_precompute, fe2s2_nqsci_train
+    from pynqs_tpu_torch.utils import flagship
+    from pynqs_tpu_torch.utils.checkpoint import load_params
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    ck = os.path.join(here, "checkpoints", "fe2s2_r3_dcut64_r5g64.pkl")
+    work = tempfile.mkdtemp(prefix="chip_smoke_nqsci_")
+    saved = flagship.FE2S2_PTH
+    counters = {"fused": fused_rnn.LAUNCHES, "fused_mma": fused_rnn.MMA_LAUNCHES}
+
+    def launches():
+        return {k: c.n for k, c in counters.items()}
+
+    def finite_run(out, what):
+        for it, st in enumerate(out["stats"]):
+            log(13, f"  {what} iteration {it}: e_tot {st['e_tot']:.6f}, |c_m| "
+                    f"{abs(st['c_m']):.6f}, h_nn {st['h_nn']:.6f}, CI mass sum_D |phi(d)|^2 "
+                    f"{st['ci_mass']:.6e}, |phi'|^2 = 1 - mass {1.0 - st['ci_mass']:.6e}")
+            check(all(np.isfinite(st[k]) for k in ("e_tot", "c_m", "h_nn", "ci_mass")),
+                  f"{what}: a non-finite NqsCi iteration {it}: {st}")
+
+    def train(args, what):
+        argv = [ck, *R5_FLAGS, *args]
+        log(13, f"fe2s2_nqsci_train.main({' '.join(argv[1:])}) {what}")
+        for c in counters.values():
+            c.reset()
+        reset_peak()
+        out, ms = timed(lambda: fe2s2_nqsci_train.main(argv, device=dev, root=work))
+        lc = launches()
+        log(13, f"  m {out['m']}: {len(out['history'])} iterations in {ms / 1e3:.3f} s "
+                f"(host clock, synchronized at the ends; the script's own {out['seconds']:.3f} "
+                f"s); launches {lc}; max_memory_allocated {peak_gib():.3f} GiB; gpu {smi}")
+        finite_run(out, what)
+        mma = "bf16" in args
+        check(lc["fused"] > 0 and lc["fused_mma"] == (lc["fused"] if mma else 0),
+              f"{what}: the gradient-free forwards did not all go through kernel #1 in "
+              f"{'bf16 (tensor cores)' if mma else 'f32 (CUDA cores)'}: {lc}")
+        return out, lc
+
+    try:
+        flagship.FE2S2_PTH = standin_pth(work)
+
+        # ---- (a) the HCI precompute at a cut ----
+        log(13, f"fe2s2_hci_precompute.main({' '.join(HCI_ARGS)}) on the stand-in integrals, f64")
+        hci, ms = timed(lambda: fe2s2_hci_precompute.main(HCI_ARGS, device=dev, root=work))
+        ci_a, meta = load_ci(hci["path"])
+        hist = hci["info"]["e_history"]
+        log(13, f"  m {hci['m']}, sizes {hci['info']['space_sizes']}, e_var per round "
+                f"{['%.8f' % e for e in hist]} in {ms / 1e3:.3f} s; file {os.path.basename(hci['path'])} "
+                f"read back: {ci_a.bits.shape} bits, e_var {float(meta['e_var']):.8f}")
+        check(np.isfinite(hist).all() and len(hist) > 1
+              and all(b < a for a, b in zip(hist, hist[1:])),
+              f"the HCI e_var did not fall in every round: {hist}")
+        check(ci_a.bits.shape == (hci["m"], SORB) and float(meta["e_var"]) == hci["e_var"]
+              and hci["m"] <= 256, "the HCI file did not round-trip through load_ci")
+
+        # ---- (b) NqsCi from the repository's HCI space, full width, f32 ----
+        out_b, l_b = train([*NQSCI_ARGS, "--iters", "2", "--tag", "smoke"],
+                           "(f32, the repository's m-1024 HCI space)")
+        peak_b = peak_gib()
+        start = flagship.load_flagship_params(ck)
+        after = load_params(out_b["path"])
+        check(set(after) == set(start) and any(
+            not np.array_equal(np.asarray(after[k]), np.asarray(start[k])) for k in start),
+            "the saved NqsCi state did not load or its parameters did not change")
+        log(13, f"  saved {os.path.basename(out_b['path'])}: {len(after)} parameter arrays, "
+                f"changed from the checkpoint")
+
+        # one more iteration, each stage synchronized (host clock)
+        system = flagship.fe2s2_system(np.float32)
+        model = flagship.flagship_model(system, 64, use_tensor=True, max_preds=2, device=dev)
+        model.load_numpy_params(after)
+        a = fe2s2_nqsci_train.parser().parse_args([ck, *R5_FLAGS, *NQSCI_ARGS])
+        ci, _ = load_ci(a.ci_file)
+        cfg = NqsCiConfig(n_sample=a.n_sample, capacity=a.capacity, lr=a.lr,
+                          ci_chunk=a.ci_chunk, eloc_batch=a.eloc_batch, log_every=0)
+        reset_peak()
+        nq, t_init = timed(lambda: NqsCi(model, system, ci.bits, cfg,
+                                         eval_fwd=fe2s2_ci_polish.polish_forward(model, "f32")))
+        g = torch.Generator(device=dev).manual_seed(29)
+        (bits, w), t_draw = timed(lambda: nq.draw(g))
+        (eloc, h_nn), t_nn = timed(lambda: nq.eloc_eval(bits, w))
+        peak_nn = peak_gib()
+        reset_peak()
+        (h_cn, ci_mass), t_cn = timed(lambda: nq.hcn_eval())
+        (e_tot, c), t_eig = timed(lambda: nq.solve(h_nn, h_cn))
+        peak_cn = peak_gib()
+        reset_peak()
+        _, t_grad = timed(lambda: nq.grad_step(bits, w, eloc, h_nn, c, 1.0))
+        peak_grad = peak_gib()
+        n_alive = int((w > 0).sum())
+        n_sd1 = nq._ci_hij.shape[1]
+        n_chunks = -(-nq._ci_flat.shape[0] // a.ci_chunk) + -(-n_alive // a.ci_chunk)
+        total = t_draw + t_nn + t_cn + t_eig + t_grad
+        log(13, f"one NqsCi iteration, stages synchronized (host clock): setup (the m x (1+n_sd) "
+                f"connected block, H_cc) {t_init:.1f} ms; draw {t_draw:.1f} ms ({n_alive} live "
+                f"rows outside D of {bits.shape[0]}); H_nn eloc {t_nn:.1f} ms ({n_alive * n_sd1} "
+                f"forward rows, f32 kernel #1); no-grad H_cn {t_cn:.1f} ms "
+                f"({nq._ci_flat.shape[0]} forward rows); eigensolve {t_eig:.1f} ms (m+1 = "
+                f"{nq.m + 1}, f64 on the card); grad step {t_grad:.1f} ms ({nq._ci_flat.shape[0]} "
+                f"+ {n_alive} + {nq.m} rows through model.log_psi and autograd in {n_chunks} chunks "
+                f"of at most {a.ci_chunk}, {t_grad / n_chunks:.1f} ms per chunk); total {total:.1f} ms; e_tot {e_tot + system.ecore:.6f}, |c_m| "
+                f"{abs(c[-1]):.6f}, CI mass {float(ci_mass):.6e}")
+        log(13, f"  max_memory_allocated: H_nn stage {peak_nn:.3f} GiB, H_cn + eigensolve "
+                f"{peak_cn:.3f} GiB, grad step {peak_grad:.3f} GiB (chunks of {a.ci_chunk} "
+                f"rows); the whole main() run {peak_b:.3f} GiB; gpu {smi}")
+        split = {"init": t_init, "draw": t_draw, "h_nn": t_nn, "h_cn": t_cn, "eigh": t_eig,
+                 "grad": t_grad}
+
+        # ---- (d) kernel #1 on the rows of one H_nn connected block ----
+        live = bits[w > 0][:a.eloc_batch]
+        comb, _ = comb_hij(live, *system.tables(dev).astuple(), system.tables(dev).hpair_best,
+                           table=system.excitation, with_comb=True)
+        hrows = comb.reshape(-1, SORB)
+        del comb, nq, eloc
+        n_rows = hrows.shape[0]
+        T = fused_rnn.pack_tables(model)
+        sub = hrows[torch.linspace(0, n_rows - 1, N_HOLD, device=dev).long()]
+        errs = {}
+        for mm in (f32, bf16):
+            k_out = fused_rnn.graph_mpsrnn_logpsi_fused(model, sub, matmul_dtype=mm, tables=T)
+            p_out = fused_rnn.graph_mpsrnn_logpsi_fused_plain(model, sub, matmul_dtype=mm,
+                                                              tables=T)
+            q_out = fused_rnn.graph_mpsrnn_logpsi_fused_plain(
+                model, sub, matmul_dtype=mm, tables={k: v.double() for k, v in T.items()})
+            sync()
+            ok, held, st = hold_rows(k_out, p_out, q_out, tol[mm])
+            log(13, f"kernel #1 r5g64 {str(mm).split('.')[-1]} vs plain on {N_HOLD} H_nn rows: "
+                    f"max|dlog|psi|| {st['max_a']:.3e} (tol {tol[mm][0]:g}), max phase distance "
+                    f"{st['max_p']:.3e}, median row {st['med_a']:.3e} / {st['med_p']:.3e}; plain "
+                    f"with f64 sums vs plain: max phase distance {st['q_max_p']:.3e}; held: "
+                    f"{held} (rows over {tol[mm][1]:g}: {st['over']}, plain f64 {st['q_over']})")
+            check(ok, f"kernel #1 ({mm}) disagrees with its plain version on H_nn rows")
+            errs[mm] = st["max_a"]
+            del k_out, p_out, q_out
+        CH = 1 << 18
+
+        def plain():
+            return torch.cat([fused_rnn.graph_mpsrnn_logpsi_fused_plain(
+                model, hrows[i:i + CH], matmul_dtype=f32, tables=T)
+                for i in range(0, n_rows, CH)])
+
+        def kern(mm):
+            return lambda: fused_rnn.graph_mpsrnn_logpsi_fused(model, hrows, matmul_dtype=mm,
+                                                               tables=T)
+
+        p1 = cuda_ms(plain, 1)
+        k32 = (cuda_ms(kern(f32), 2) + cuda_ms(kern(f32), 2)) / 2
+        k16 = cuda_ms(kern(bf16), 3)
+        p_ms = (p1 + cuda_ms(plain, 1)) / 2
+        flop = n_rows * sum(flop_per_site(64, len(p), model.dcut_cmpr) for p in model.preds)
+        b_k = bound(flop, n_rows * SORB + n_rows * 2 * 4 + table_bytes(T, f32), f32)
+        log(13, f"fused forward r5g64 on one eloc batch's H_nn rows ({a.eloc_batch} samples, "
+                f"{n_rows} rows): f32 CUDA-core kernel {k32:.3f} ms ({flop / k32 / 1e9:.2f} "
+                f"TFLOP/s, {k32 / n_rows * 1e6:.1f} ns/row), bf16 tensor-core kernel {k16:.3f} ms, "
+                f"plain f32 {p_ms:.3f} ms (in chunks of {CH}), f32 bound {b_k[0]:.3f} ms "
+                f"({b_k[1]}; {flop / 1e12:.3f} TFLOP); gpu {smi}")
+        del hrows, sub, model
+
+        # the bf16 iteration from the same parameters and draw
+        out_d, _ = train([*NQSCI_ARGS, "--iters", "1", "--fwd-dtype", "bf16", "--tag", "bf16"],
+                         "(bf16, one iteration)")
+        e32, e16 = out_b["history"][0], out_d["history"][0]
+        log(13, f"  bf16 vs f32, iteration 0 from the same parameters and draw: e_tot bf16 "
+                f"{e16:.6f}, f32 {e32:.6f}, difference {(e16 - e32) * 1e3:+.4f} mHa; h_nn "
+                f"{(out_d['stats'][0]['h_nn'] - out_b['stats'][0]['h_nn']) * 1e3:+.4f} mHa; "
+                f"gpu {smi}")
+
+        # ---- (c) capture -> selected CI -> NqsCi at a cut ----
+        out_c, _ = train([*SEL_ARGS, "--tag", "sel"], "(capture -> selected CI, f32)")
+        check(0 < out_c["m"] <= 256 and np.isfinite(out_c["e_var"]),
+              f"the capture route's selected CI: m {out_c['m']}, e_var {out_c['e_var']}")
+        log(13, f"  selected CI from the capture: m {out_c['m']}, e_var {out_c['e_var']:.6f}")
+
+        # ---- (e) the chunked H_cn gradient on a sub-block ----
+        model = flagship.flagship_model(system, 64, use_tensor=True, max_preds=2, device=dev)
+        model.load_numpy_params(start)
+        grads = {}
+        for chunk in (4096, None):
+            sub_nq = NqsCi(model, system, ci.bits[:N_SUB], NqsCiConfig(
+                n_sample=a.n_sample, capacity=a.capacity, ci_chunk=chunk, eloc_batch=256),
+                eval_fwd=fe2s2_ci_polish.polish_forward(model, "f32"))
+            g = torch.Generator(device=dev).manual_seed(3)
+            bits, w = sub_nq.draw(g)
+            eloc, h_nn = sub_nq.eloc_eval(bits, w)
+            _, c = sub_nq.solve(h_nn, sub_nq.hcn_eval()[0])
+            reset_peak()
+            grads[chunk], t_g = timed(lambda: sub_nq.gradients(bits, w, eloc, h_nn, c, 1.0))
+            log(13, f"  sub-block gradient, {N_SUB} CI rows ({sub_nq._ci_flat.shape[0]} connected "
+                    f"rows), chunk {chunk}: {t_g:.1f} ms (host clock, synchronized), "
+                    f"max_memory_allocated {peak_gib():.3f} GiB")
+        # one H_cn chunk of the main run's size, forward and backward as in
+        # NqsCi.gradients, timed and then under the profiler: how much of it
+        # the card is busy, and in which kernels
+        rows = sub_nq._ci_flat[:a.ci_chunk]
+        params = list(model.parameters())
+
+        def one_chunk():
+            return torch.autograd.grad(cplx.exp_pair(model.log_psi(rows))[0].sum(), params,
+                                       allow_unused=True)
+
+        one_chunk()
+        _, t_chunk = timed(one_chunk)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            _, t_prof = timed(one_chunk)
+        kerns = sorted((e for e in prof.key_averages() if e.device_type == DeviceType.CUDA),
+                       key=lambda e: -e.self_device_time_total)
+        busy = sum(e.self_device_time_total for e in kerns) / 1e3
+        log(13, f"  one gradient chunk of {rows.shape[0]} connected rows: {t_chunk:.1f} ms "
+                f"(host clock, synchronized); profiled {t_prof:.1f} ms wall, "
+                f"{sum(e.count for e in kerns)} kernels taking {busy:.1f} ms of device time: "
+                f"busy {busy / t_chunk:.1%} of the unprofiled chunk; gpu {smi}")
+        for e in kerns[:5]:
+            log(13, f"    {e.self_device_time_total / 1e3:8.2f} ms x{e.count:<5d} {e.key[:90]}")
+        big = max(float(x.abs().max()) for x in grads[None])
+        d = max(float((x - y).abs().max()) for x, y in zip(grads[4096], grads[None]))
+        log(13, f"chunked (4096 rows) vs one-chunk H_cn gradient: max |d| {d:.3e}, largest "
+                f"entry {big:.3e}, ratio {d / big:.3e} (tol 1e-5)")
+        check(big > 0 and d <= 1e-5 * big, "the chunked H_cn gradient differs from one chunk")
+        return {"launches": l_b["fused"], "err": errs[f32], "times": (k32, p_ms), "bound": b_k,
+                "rows": n_rows, "bf16_ms": k16, "split": split, "de_bf16": e16 - e32}
+    finally:
+        flagship.FE2S2_PTH = saved
+        shutil.rmtree(work, ignore_errors=True)
+
+
 def main():
+    t_script = time.perf_counter()
     if not torch.cuda.is_available():
         print("no CUDA device: chip_smoke.py needs one GPU", file=sys.stderr)
         return 2
@@ -1626,6 +1894,11 @@ def main():
     f12 = refine_run(dev, smi, here, bound, flop_per_site, table_bytes, tol, timed, time_pairs)
     m12, err12 = f12["pair_select"]
 
+    # ---- 13. the CI ladder on the r5g64 state ----
+    t13 = time.perf_counter()
+    f13 = nqsci_run(dev, smi, here, bound, flop_per_site, table_bytes, tol, timed)
+    log(13, f"phase 13 in {time.perf_counter() - t13:.1f} s")
+
     def entry(name, replaces, launches_n, err, times, bnd, source="fused_rnn.cu", lib=None,
               **extra):
         return {
@@ -1686,7 +1959,13 @@ def main():
               (m12["lane"]["bound_ms"], "bytes"), "pair_select.cu", m12["lane"]["library_ms"],
               device_ms=m12["lane"]["device_ms"], prev_ms=m12["lane"]["prev_ms"],
               prev_device_ms=m12["lane"]["prev_device_ms"]),
+        # kernel #1 in f32 (the CUDA-core kernel) on one eloc batch's H_nn
+        # rows of the NqsCi run (phase 13); launches: that run's; bf16_ms:
+        # the tensor-core kernel on the same rows
+        entry("fused_rnn_forward_nqsci", "pynqs_tpu/ops/fused_rnn.py:254", f13["launches"],
+              f13["err"], f13["times"], f13["bound"], rows=f13["rows"], bf16_ms=f13["bf16_ms"]),
     ]}
+    log("end", f"chip_smoke.py in {time.perf_counter() - t_script:.1f} s; gpu {smi}")
     print(json.dumps(summary))
     print(f"gpu: {smi}")
     print(json.dumps({"ok": True, "device": {

@@ -68,14 +68,16 @@ def parser() -> argparse.ArgumentParser:
 def polish_forward(model, fwd_dtype: str):
     """The forward of ``--fwd-dtype``: on the card the fused forward in
     bf16 or f32, or ``model.log_psi`` for "xla"; on the CPU
-    ``model.log_psi``."""
+    ``model.log_psi``.  The fused forward packs its tables from the
+    model's parameters at each call (the tensor-core tables are cached
+    per parameter version), so it follows a model in training too
+    (``fe2s2_nqsci_train``)."""
     if fwd_dtype not in ("bf16", "f32", "xla"):
         raise ValueError(f"fwd_dtype must be bf16, f32 or xla, not {fwd_dtype!r}")
     if model.M_re.device.type == "cpu" or fwd_dtype == "xla":
         return model.log_psi
     mm = torch.bfloat16 if fwd_dtype == "bf16" else torch.float32
-    return partial(fused_rnn.graph_mpsrnn_logpsi_fused, model, matmul_dtype=mm,
-                   tables=fused_rnn.pack_tables(model))
+    return partial(fused_rnn.graph_mpsrnn_logpsi_fused, model, matmul_dtype=mm)
 
 
 @torch.no_grad()

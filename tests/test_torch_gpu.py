@@ -600,3 +600,68 @@ def test_comb_hij_dense_on_card_equals_sector_form(dev):
         assert ps.LAUNCHES["lane"].n == before["lane"] + 1
         assert ps.LAUNCHES["rowrow"].n == before["rowrow"]
         assert torch.equal(out, ref)
+
+
+def _nqsci_setup(dev, mm, ci_chunk=64):
+    """NqsCi on a 12-orbital stand-in (the DAG with tensor coupling, dcut
+    8, f32) with 8 CI determinants, its gradient-free forwards the fused
+    forward in ``mm`` ("f32", "bf16" or "xla" = model.log_psi)."""
+    from pynqs_tpu_torch.ci.nqs_ci import NqsCi, NqsCiConfig
+    from pynqs_tpu_torch.scripts.fe2s2_ci_polish import polish_forward
+
+    rng = np.random.default_rng(3)
+    h1e = rng.standard_normal((12, 12)) * 0.2
+    system = System.from_integrals((h1e + h1e.T) / 2,
+                                   rng.standard_normal(triangle_size(12)) * 0.05, 12, 3, 3)
+    model = flagship_model(system, 8, use_tensor=True, max_preds=2, device=dev,
+                           generator=torch.Generator().manual_seed(4))
+    d_bits = _all_dets(12, 3, 3)[::50][:8]
+    cfg = NqsCiConfig(n_sample=20_000, capacity=256, ci_chunk=ci_chunk, eloc_batch=32,
+                      lr=1e-2, log_every=0)
+    return model, NqsCi(model, system, d_bits, cfg, eval_fwd=polish_forward(model, mm))
+
+
+@pytest.mark.parametrize("mm", ["f32", "bf16"])
+def test_nqsci_iteration_on_card_launches_kernel_1(mm, dev):
+    """One NqsCi iteration on the card: the gradient-free forwards launch
+    kernel #1 (f32: the CUDA-core kernel only; bf16: the tensor-core
+    kernel only), the iteration is finite and moves the parameters, and
+    h_nn and H_cn agree with model.log_psi's on the same draw (f32 1e-4,
+    bf16 5e-2 relative to the largest |H_cn|)."""
+    model, nq = _nqsci_setup(dev, mm)
+    before = (fused_rnn.LAUNCHES.n, fused_rnn.MMA_LAUNCHES.n)
+    bits, w = nq.draw(torch.Generator(device=dev).manual_seed(1))
+    eloc, h_nn = nq.eloc_eval(bits, w)
+    h_cn, ci_mass = nq.hcn_eval()
+    torch.cuda.synchronize()
+    n, n_mma = fused_rnn.LAUNCHES.n - before[0], fused_rnn.MMA_LAUNCHES.n - before[1]
+    assert n > 0 and n_mma == (n if mm == "bf16" else 0), (n, n_mma)
+    nq.eval_fwd = model.log_psi
+    eloc_x, h_nn_x = nq.eloc_eval(bits, w)
+    h_cn_x, mass_x = nq.hcn_eval()
+    tol = 1e-4 if mm == "f32" else 5e-2
+    scale = float(h_cn_x.abs().max())
+    assert abs(float(h_nn) - float(h_nn_x)) <= tol * max(1.0, abs(float(h_nn_x)))
+    assert float((h_cn - h_cn_x).abs().max()) <= tol * scale
+    assert abs(float(ci_mass) - float(mass_x)) <= tol
+    p0 = {k: p.detach().clone() for k, p in model.named_parameters()}
+    e_tot, c = nq.solve(h_nn, h_cn)
+    nq.grad_step(bits, w, eloc, h_nn, c, 1.0)
+    assert math.isfinite(e_tot) and np.isfinite(c).all()
+    assert any(not torch.equal(p0[k], p) for k, p in model.named_parameters())
+    assert all(torch.isfinite(p).all() for p in model.parameters())
+
+
+def test_nqsci_chunked_gradient_on_card_equals_one_chunk(dev):
+    """The H_cn and sampled-row backward in chunks of 64 rows against one
+    chunk, f32 on the card: within 1e-5 of the largest gradient entry."""
+    grads = []
+    for chunk in (64, None):
+        _, nq = _nqsci_setup(dev, "f32", chunk)
+        bits, w = nq.draw(torch.Generator(device=dev).manual_seed(1))
+        eloc, h_nn = nq.eloc_eval(bits, w)
+        _, c = nq.solve(h_nn, nq.hcn_eval()[0])
+        grads.append(nq.gradients(bits, w, eloc, h_nn, c, 1.0))
+    assert nq._ci_flat.shape[0] > 64 * 10
+    big = max(float(g.abs().max()) for g in grads[1])
+    assert big > 0 and max(float((a - b).abs().max()) for a, b in zip(*grads)) <= 1e-5 * big

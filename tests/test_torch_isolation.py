@@ -151,3 +151,35 @@ def test_chip_smoke_fails_without_a_card(where, tmp_path):
                        capture_output=True, text=True, timeout=300)
     assert r.returncode != 0
     assert '"ok"' not in r.stdout
+
+
+def test_ci_ladder_entry_points_raise_without_a_card(monkeypatch, tmp_path):
+    """Selected CI, EN-PT2, both CI-ladder scripts and NqsCi's model default
+    to the card; asked for the CPU, they run there."""
+    from pynqs_tpu_torch.ci.nqs_ci import NqsCi, NqsCiConfig
+    from pynqs_tpu_torch.ci.selected import en_pt2, selected_ci
+    from pynqs_tpu_torch.ci.wavefunction import CIWavefunction
+    from pynqs_tpu_torch.scripts import fe2s2_hci_precompute, fe2s2_nqsci_train
+    from pynqs_tpu_torch.utils.flagship import flagship_model
+    from pynqs_tpu_torch.utils.system import System
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    system = System.hubbard_1d(4, 2, 2)
+    ci = CIWavefunction.hf_rooted(8, 2, 2)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        selected_ci(system)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        en_pt2(system, ci, -1.0)
+    for script in (fe2s2_hci_precompute, fe2s2_nqsci_train):
+        argv = [] if script is fe2s2_hci_precompute else ["unused.pkl"]
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            script.main(argv, system=system, root=str(tmp_path))
+    e, ci2, _ = selected_ci(system, eps1=1e-3, max_rounds=2, device="cpu")
+    assert np.isfinite(e) and ci2.bits.shape[0] > 1
+    assert np.isfinite(en_pt2(system, ci2, e, device="cpu"))
+    model = flagship_model(system, 4, device="cpu")
+    nq = NqsCi(model, system, ci2.bits[:4], NqsCiConfig(n_sample=1000, capacity=36,
+                                                         log_every=0))
+    c, hist = nq.run(torch.Generator().manual_seed(0), n_iter=1)
+    assert np.isfinite(hist).all() and c.shape == (5,)
+    assert nq._h_cc.device.type == "cpu"
