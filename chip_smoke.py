@@ -6,19 +6,23 @@
 Phases, one line each (and a few detail lines):
   1. environment probe (torch, CUDA, nvcc, triton, nvidia-smi);
   2. build of the CUDA kernels, one nvcc per source, started together
-     (pynqs_tpu_torch/csrc/fused_rnn_mma.cu: the fused forward's and the
-     prefix-sharing parent and child passes' bf16 mode on the tensor
-     cores; csrc/fused_rnn.cu: their f32 mode on the CUDA cores;
+     (pynqs_tpu_torch/csrc/fused_rnn_mma.cu: the fused forward's bf16 and
+     f32 modes and the prefix-sharing parent and child passes' bf16 mode
+     on the tensor cores; csrc/fused_rnn.cu: the prefix passes' f32 mode
+     and the earlier fused forward on the CUDA cores;
      csrc/pair_select.cu: the doubles pair selection), with the
      compiler's register report of every instantiation and the shared
-     memory of each fused launch, the tensor-core kernel's at the chain
-     and r5g64 shapes and the prefix passes' at the step's row counts;
+     memory of each fused launch, the tensor-core kernel's at the chain,
+     r5g64 and dp-96 shapes in both modes and the prefix passes' at the
+     step's row counts;
   3. the fused forward against its plain torch version on the card (bf16
-     through the tensor-core kernel, f32 through the CUDA-core one): the
-     dcut-48 Fe2S2 chain (checkpoints/fe2s2_dcut48_final.pkl; sorb 40,
-     15α/15β) on 65,536 random valid rows in f32 and bf16, a small DAG
-     model, the linear/unit modes, and the structured r5g64 flagship
-     (dcut 64, tensor coupling, 2 predecessors; weights of
+     and f32 through the tensor-core kernel, f32 as three TF32 products,
+     each launch counted in its mode; in f32 the CUDA-core kernel's error
+     on the same rows beside it): the dcut-48 Fe2S2 chain
+     (checkpoints/fe2s2_dcut48_final.pkl; sorb 40, 15α/15β) on 65,536
+     random valid rows in f32 and bf16, a small DAG model, the
+     linear/unit modes, and the structured r5g64 flagship (dcut 64,
+     tensor coupling, 2 predecessors; weights of
      checkpoints/fe2s2_r3_dcut64_r5g64.pkl on the stand-in graph) on
      65,536 rows, each comparison held by ``hold_rows``;
   4. local-energy identity: REDUCE with k_det = n_sd equals SIMPLE;
@@ -29,10 +33,11 @@ Phases, one line each (and a few detail lines):
      launch count, as in phases 7 and 10);
   6. the kernel on the 657,408 rows of one step's eloc forward (captured
      in phase 5): agreement with the plain version, then CUDA-event
-     times beside the card's bound: in bf16 of the tensor-core kernel,
-     of the CUDA-core kernel in bf16 (``_launch_simt``, its time before
-     the tensor cores) and of the plain version; in f32 of the CUDA-core
-     kernel and the plain version;
+     times beside the card's bound: of the tensor-core kernel, of the
+     CUDA-core kernel in the same mode (``_launch_simt`` in bf16,
+     ``_launch_f32_cuda_cores`` in f32: the earlier designs) and of the
+     plain version, in f32 beside both bounds (3xTF32 on the tensor
+     cores, f32 on the CUDA cores);
   7. three VMC steps of the r5g64 flagship in the same configuration,
      through the tensor-core kernel's tensor coupling; the kernel on one
      step's rows, held and timed as in phase 6, with W's L2 traffic;
@@ -40,8 +45,9 @@ Phases, one line each (and a few detail lines):
      chain, on one step's rows: in bf16 the tensor-core parent and child
      passes held to their plain versions (``hold_rows``) and bit for bit
      equal to the flat tensor-core kernel on the same rows; in f32 the
-     CUDA-core passes against their plain versions and the flat
-     CUDA-core kernel; REDUCE with and without it, three VMC steps
+     CUDA-core passes against their plain versions, the flat CUDA-core
+     kernel and the flat tensor-core kernel's f32 mode; REDUCE with and
+     without it, three VMC steps
      through it (the tensor-core passes' launches counted), the site-steps
      the child's CTAs run, and CUDA-event times of each pass (in bf16 the
      tensor-core kernel, the CUDA-core kernel in bf16 and the plain
@@ -80,7 +86,8 @@ Phases, one line each (and a few detail lines):
      through the tensor-core kernel; the exact weights against the f32
      kernel's |psi|^2; one step's stages; kernel #1 at dp 96 on one eloc
      chunk's rows held to its plain version and timed, with ptxas'
-     registers and spills; a resume from iteration 2's checkpoint (state
+     registers and spills, and in f32 held on 65,536 of those rows; a
+     resume from iteration 2's checkpoint (state
      restored bit for bit, 2 more steps); the evaluation's main on the
      saved EMA state (kernel #4 launched);
  12. the post-training refinement of the r5g64 flagship (weights of
@@ -104,13 +111,16 @@ Phases, one line each (and a few detail lines):
      NqsCi training through pynqs_tpu_torch/scripts/fe2s2_nqsci_train.main
      on checkpoints/fe2s2_hci_m1024.npz at full width (m 1024, eloc batch
      256; cut: capacity 1024, n 1e5, 2 iterations), its gradient-free
-     forwards through kernel #1 in f32 (the CUDA-core kernel), every
-     e_tot and |c_m| finite, the parameters changed, the saved state
-     loaded, one more iteration timed stage by stage; the capture ->
-     selected CI route at m 256 (64 seed determinants, 1 iteration);
-     kernel #1 held to its plain version on 65,536 rows of one H_nn
-     connected block in f32 and bf16 and timed on one eloc batch's rows,
-     one iteration with --fwd-dtype bf16 against the f32 e_tot; the
+     forwards through kernel #1 in f32 (the tensor-core kernel's 3xTF32
+     mode), every e_tot and |c_m| finite, the parameters changed, the
+     saved state loaded, one more iteration timed stage by stage, its
+     h_nn through the CUDA-core kernel too (within 0.01 mHa); the
+     capture -> selected CI route at m 256 (64 seed determinants, 1
+     iteration); kernel #1 held to its plain version on 65,536 rows of
+     one H_nn connected block in f32 (the CUDA-core kernel's error
+     beside it) and bf16 and timed on one eloc batch's rows, the f32
+     mode beside the CUDA-core kernel, one iteration with --fwd-dtype
+     bf16 against the f32 e_tot; the
      chunked H_cn gradient against one chunk on a sub-block, and one
      gradient chunk of the run's size timed and profiled (device busy
      share, top kernels).
@@ -161,7 +171,9 @@ SEL_ARGS = ["--m", "256", "--seed-dets", "64", "--iters", "1", "--eloc-batch", "
             "--capacity", "1024", "--n-sample", "100000"]
 N_SUB = 9  # CI determinants of phase 13's chunked-gradient check (70,884 connected rows)
 H100_BF16_FLOPS = 989e12  # dense tensor-core peak, SXM data sheet
+H100_TF32_FLOPS = 495e12  # dense tensor-core peak in TF32
 H100_F32_FLOPS = 67e12  # f32 outside the tensor cores
+F32X3 = "3xtf32"  # the f32 mode on the tensor cores: 3 TF32 products per product
 H100_BYTES = 3.35e12  # HBM3 bytes/s
 DEV = "cuda"
 
@@ -267,14 +279,15 @@ def ptxas_report(text):
         m = re.search(r"Compiling entry function '(\S+)'", ln)
         if m:
             t = re.search(r"ILi(\d+)ELi(\d+)ELb([01])E", m.group(1))
-            w = re.search(r"fused_rnn_mma_kernelILi(\d+)ELi(\d+)ELi(\d+)EE", m.group(1))
+            w = re.search(r"fused_rnn_mma_kernelILi(\d+)ELi(\d+)ELi(\d+)ELi(\d+)EE",
+                          m.group(1))
             u = re.search(r"pair_select_(band|gather)I([fd])([il])Lb([01])E", m.group(1))
             if w:
                 mode = ("flat forward", "prefix parent", "prefix child")[int(w.group(3))]
                 warps = (f"{w.group(2)} warps of 16 rows" if w.group(2) != "0"
                          else "warps of 16 rows set at launch")
-                name = (f"tensor cores, {mode}, O {16 * int(w.group(1))} outputs (dp "
-                        f"{8 * int(w.group(1))}), {warps}")
+                name = (f"tensor cores {('bf16', 'f32')[int(w.group(4))]}, {mode}, O "
+                        f"{16 * int(w.group(1))} outputs (dp {8 * int(w.group(1))}), {warps}")
             elif t:
                 name = (f"rows/warp {t.group(1)}, outputs/lane {t.group(2)}, "
                         f"W {'bf16' if t.group(3) == '1' else 'f32'}")
@@ -497,18 +510,49 @@ def flagship_run(dev, smi, here, bound, flop_per_site, table_bytes, tol, timed):
                 if "(dp 96)" in ln]
         for ln in regs:
             log(11, f"  ptxas fused_rnn_mma: {ln}")
-        flat96 = [ln for ln in regs if "flat forward" in ln]
-        n_reg = int(re.search(r": (\d+) registers", flat96[0]).group(1)) if flat96 else None
-        sp = re.search(r"spill stores (\d+) B, loads (\d+) B", flat96[0]) if flat96 else None
-        spill = [int(sp.group(1)), int(sp.group(2))] if sp else [0, 0]
+
+        def reg_spill(mode, warps):
+            """(registers, [spill stores, loads] B) of the flat dp-96
+            instantiation of ``mode`` at ``warps`` warps (ptxas)."""
+            ln = [x for x in regs if f"tensor cores {mode}, flat forward" in x
+                  and f"{warps} warps of 16 rows" in x]
+            n = int(re.search(r": (\d+) registers", ln[0]).group(1)) if ln else None
+            sp = re.search(r"spill stores (\d+) B, loads (\d+) B", ln[0]) if ln else None
+            return n, ([int(sp.group(1)), int(sp.group(2))] if sp else [0, 0])
+
         sh = fused_rnn.mma_launch_shape(m)
+        n_reg, spill = reg_spill("bf16", sh["warps"])
         log(11, f"fused forward bf16 dp {fused_rnn.mma_width(a.dcut)} at {n_rows} rows: tensor-core kernel {k_ms:.3f} ms "
                 f"({flop / k_ms / 1e9:.2f} TFLOP/s), CUDA-core kernel {prev:.3f} ms "
                 f"({prev / k_ms:.2f}x), plain {p_ms:.3f} ms (in chunks of {CH}), bound "
                 f"{b11[0]:.3f} ms ({b11[1]}; {flop / 1e12:.3f} TFLOP); {16 * sh['warps']} rows "
                 f"per CTA, {sh['smem_bytes']} B shared memory; registers {n_reg}, spill "
                 f"stores/loads {spill} B; gpu {smi}")
-        del trows, seen
+        # the f32 mode at dp 96 (the script's --fwd-dtype f32) on N_HOLD of
+        # the chunk's rows
+        f32 = torch.float32
+        sub = trows[torch.linspace(0, n_rows - 1, N_HOLD, device=dev).long()]
+        before = (fused_rnn.MMA_LAUNCHES.n, fused_rnn.F32_MMA_LAUNCHES.n)
+        k_out = fused_rnn.graph_mpsrnn_logpsi_fused(m, sub, matmul_dtype=f32, tables=T)
+        sync()
+        check((fused_rnn.MMA_LAUNCHES.n, fused_rnn.F32_MMA_LAUNCHES.n)
+              == (before[0], before[1] + 1), "the f32 rows did not launch the f32 mode once")
+        p_out = fused_rnn.graph_mpsrnn_logpsi_fused_plain(m, sub, matmul_dtype=f32, tables=T)
+        q_out = fused_rnn.graph_mpsrnn_logpsi_fused_plain(m, sub, matmul_dtype=f32, tables=T64)
+        ok, held, st = hold_rows(k_out, p_out, q_out, tol[f32])
+        shx = fused_rnn.mma_launch_shape(m, matmul_dtype=f32)
+        n_reg32, spill32 = reg_spill("f32", shx["warps"])
+        log(11, f"kernel #1 f32 (3xTF32) dp {fused_rnn.mma_width(a.dcut)} vs plain on {N_HOLD} of "
+                f"the chunk's rows: max|dlog|psi|| {st['max_a']:.3e} (tol {tol[f32][0]:g}), max "
+                f"phase distance {st['max_p']:.3e}, median row {st['med_a']:.3e} / "
+                f"{st['med_p']:.3e}; plain with f64 sums vs plain: max phase distance "
+                f"{st['q_max_p']:.3e}; held: {held} (rows over {tol[f32][1]:g}: {st['over']}, "
+                f"plain f64 {st['q_over']}); {16 * shx['warps']} rows per CTA, slots in "
+                f"{shx['slots']} memory, {shx['smem_bytes']} B shared memory; registers "
+                f"{n_reg32}, spill stores/loads {spill32} B")
+        check(ok, "kernel #1's f32 mode at dp 96 disagrees with its plain version")
+        err32 = st["max_a"]
+        del trows, seen, sub, k_out, p_out, q_out
 
         # resume from the checkpoint written after iteration 2
         check([it for it, _ in copies] == [1, 3],
@@ -578,7 +622,8 @@ def flagship_run(dev, smi, here, bound, flop_per_site, table_bytes, tol, timed):
               f"the evaluation did not launch kernels #4 and #1: {l3}")
         return {"launches": l1["fused_mma"] + l2["fused_mma"], "err": err,
                 "times": (k_ms, p_ms), "bound": b11, "prev_ms": prev, "registers": n_reg,
-                "spill_bytes": spill}
+                "spill_bytes": spill, "f32_err": err32, "f32_registers": n_reg32,
+                "f32_spill_bytes": spill32}
     finally:
         flagship.FE2S2_PTH, vmc_mod.VMC.step, vmc_mod.save_checkpoint = saved
         shutil.rmtree(work, ignore_errors=True)
@@ -638,6 +683,7 @@ def refine_run(dev, smi, here, bound, flop_per_site, table_bytes, tol, timed, ti
         return saved[3](po, pv, hp, *a, **k)
 
     counters = {"fused": fused_rnn.LAUNCHES, "fused_mma": fused_rnn.MMA_LAUNCHES,
+                "fused_f32_mma": fused_rnn.F32_MMA_LAUNCHES,
                 "pair_select_lane": ps.LAUNCHES["lane"],
                 "pair_select_rowrow": ps.LAUNCHES["rowrow"]}
 
@@ -785,18 +831,19 @@ def refine_run(dev, smi, here, bound, flop_per_site, table_bytes, tol, timed, ti
             log(12, f"  {r['n_live']} live captured rows, dropped {r['dropped']:.3%}; E_VMC pass "
                     f"{r['seconds_vmc']:.3f} s; launches {lc}; max_memory_allocated "
                     f"{peak_gib():.3f} GiB; gpu {smi}")
-            check(lc["fused_mma" if "f32" not in args else "fused"] > 0
+            check(lc["fused_mma" if "f32" not in args else "fused_f32_mma"] > 0
                   and lc["pair_select_lane"] > 0,
-                  f"the polish did not launch kernels #1 and #4: {lc}")
+                  f"the polish did not launch kernels #1 (in its mode) and #4: {lc}")
             return r, lc, list(passes)
 
         pol, l_p, passes_p = polish(POLISH_ARGS, "(bf16)")
         e_pass = [s_ for *_, s_ in passes_p]
         po, pv, hp = pairs[0]
         m_ps, err_ps = time_pairs(12, po, pv, hp, 50, 1000)
-        pair = {}
+        pair, l_pair = {}, {}
         for dt in ("bf16", "f32"):
-            pair[dt] = polish([*PAIR_ARGS, "--fwd-dtype", dt], f"(the {dt} half of the pair)")[0]
+            pair[dt], l_pair[dt], _ = polish([*PAIR_ARGS, "--fwd-dtype", dt],
+                                             f"(the {dt} half of the pair)")
         e16, e32 = pair["bf16"]["results"][0]["e"], pair["f32"]["results"][0]["e"]
         v16, v32 = pair["bf16"]["e_vmc"], pair["f32"]["e_vmc"]
         log(12, f"bf16/f32 pair (m 512): E_CI-NQS bf16 {e16:.6f}, f32 {e32:.6f}, difference "
@@ -805,7 +852,7 @@ def refine_run(dev, smi, here, bound, flop_per_site, table_bytes, tol, timed, ti
         return {"gfmc_launches": l_g["fused_mma"], "err": err, "times": (k_ms, p_ms),
                 "bound": b_k, "rows": n_rows, "ms_per_iter": out["ms_per_iter"],
                 "polish_lane": l_p["pair_select_lane"], "pair_select": (m_ps, err_ps),
-                "pass_s": e_pass}
+                "pass_s": e_pass, "f32_launches": l_pair["f32"]["fused_f32_mma"]}
     finally:
         (flagship.FE2S2_PTH, nqs_ci.local_energy_reduce, fe2s2_ci_polish.local_energy_reduce,
          ham_mod.pair_select_w) = saved
@@ -836,7 +883,8 @@ def nqsci_run(dev, smi, here, bound, flop_per_site, table_bytes, tol, timed):
     ck = os.path.join(here, "checkpoints", "fe2s2_r3_dcut64_r5g64.pkl")
     work = tempfile.mkdtemp(prefix="chip_smoke_nqsci_")
     saved = flagship.FE2S2_PTH
-    counters = {"fused": fused_rnn.LAUNCHES, "fused_mma": fused_rnn.MMA_LAUNCHES}
+    counters = {"fused": fused_rnn.LAUNCHES, "fused_mma": fused_rnn.MMA_LAUNCHES,
+                "fused_f32_mma": fused_rnn.F32_MMA_LAUNCHES}
 
     def launches():
         return {k: c.n for k, c in counters.items()}
@@ -861,10 +909,11 @@ def nqsci_run(dev, smi, here, bound, flop_per_site, table_bytes, tol, timed):
                 f"(host clock, synchronized at the ends; the script's own {out['seconds']:.3f} "
                 f"s); launches {lc}; max_memory_allocated {peak_gib():.3f} GiB; gpu {smi}")
         finite_run(out, what)
-        mma = "bf16" in args
-        check(lc["fused"] > 0 and lc["fused_mma"] == (lc["fused"] if mma else 0),
-              f"{what}: the gradient-free forwards did not all go through kernel #1 in "
-              f"{'bf16 (tensor cores)' if mma else 'f32 (CUDA cores)'}: {lc}")
+        mode, other = ("fused_mma", "fused_f32_mma") if "bf16" in args else ("fused_f32_mma",
+                                                                             "fused_mma")
+        check(lc["fused"] > 0 and lc[mode] == lc["fused"] and lc[other] == 0,
+              f"{what}: the gradient-free forwards did not all go through kernel #1 on the "
+              f"tensor cores in {'bf16' if mode == 'fused_mma' else 'f32 (3xTF32)'}: {lc}")
         return out, lc
 
     try:
@@ -911,6 +960,20 @@ def nqsci_run(dev, smi, here, bound, flop_per_site, table_bytes, tol, timed):
         (bits, w), t_draw = timed(lambda: nq.draw(g))
         (eloc, h_nn), t_nn = timed(lambda: nq.eloc_eval(bits, w))
         peak_nn = peak_gib()
+        # the same stage through the CUDA-core kernel (the f32 forward's
+        # earlier design), on the same parameters and draw
+        nq.eval_fwd = lambda b: fused_rnn._launch_f32_cuda_cores(model, b)
+        reset_peak()
+        (_, h_nn_cc), t_nn_cc = timed(lambda: nq.eloc_eval(bits, w))
+        peak_nn_cc = peak_gib()
+        nq.eval_fwd = fe2s2_ci_polish.polish_forward(model, "f32")
+        d_hnn = abs(float(h_nn) - float(h_nn_cc)) * 1e3
+        log(13, f"h_nn of one iteration, same parameters and draw: tensor-core kernel (3xTF32) "
+                f"{float(h_nn):.9f}, CUDA-core kernel {float(h_nn_cc):.9f}, difference "
+                f"{d_hnn:.3e} mHa (tol 0.01); the H_nn stage {t_nn:.1f} ms and peak "
+                f"{peak_nn:.3f} GiB, through the CUDA-core kernel {t_nn_cc:.1f} ms and "
+                f"{peak_nn_cc:.3f} GiB; gpu {smi}")
+        check(d_hnn <= 0.01, "h_nn through the f32 mode differs from the CUDA-core kernel's")
         reset_peak()
         (h_cn, ci_mass), t_cn = timed(lambda: nq.hcn_eval())
         (e_tot, c), t_eig = timed(lambda: nq.solve(h_nn, h_cn))
@@ -962,6 +1025,13 @@ def nqsci_run(dev, smi, here, bound, flop_per_site, table_bytes, tol, timed):
                     f"{held} (rows over {tol[mm][1]:g}: {st['over']}, plain f64 {st['q_over']})")
             check(ok, f"kernel #1 ({mm}) disagrees with its plain version on H_nn rows")
             errs[mm] = st["max_a"]
+            if mm == f32:  # the CUDA-core kernel on the same rows
+                sp = hold_rows(fused_rnn._launch_f32_cuda_cores(model, sub, T), p_out, q_out,
+                               tol[mm])[2]
+                log(13, f"  the CUDA-core kernel on the same rows: max|dlog|psi|| "
+                        f"{sp['max_a']:.3e}, max phase distance {sp['max_p']:.3e}, median row "
+                        f"{sp['med_a']:.3e} / {sp['med_p']:.3e}")
+                errs["cuda_cores"] = sp["max_a"]
             del k_out, p_out, q_out
         CH = 1 << 18
 
@@ -974,17 +1044,27 @@ def nqsci_run(dev, smi, here, bound, flop_per_site, table_bytes, tol, timed):
             return lambda: fused_rnn.graph_mpsrnn_logpsi_fused(model, hrows, matmul_dtype=mm,
                                                                tables=T)
 
+        def cuda_cores():
+            return fused_rnn._launch_f32_cuda_cores(model, hrows, T)
+
         p1 = cuda_ms(plain, 1)
+        c1 = cuda_ms(cuda_cores, 1)
         k32 = (cuda_ms(kern(f32), 2) + cuda_ms(kern(f32), 2)) / 2
+        c_ms = (c1 + cuda_ms(cuda_cores, 1)) / 2
         k16 = cuda_ms(kern(bf16), 3)
         p_ms = (p1 + cuda_ms(plain, 1)) / 2
         flop = n_rows * sum(flop_per_site(64, len(p), model.dcut_cmpr) for p in model.preds)
-        b_k = bound(flop, n_rows * SORB + n_rows * 2 * 4 + table_bytes(T, f32), f32)
+        nbytes = n_rows * SORB + n_rows * 2 * 4 + table_bytes(T, f32)
+        b_k = bound(flop, nbytes, F32X3)
+        b_f32 = bound(flop, nbytes, f32)
         log(13, f"fused forward r5g64 on one eloc batch's H_nn rows ({a.eloc_batch} samples, "
-                f"{n_rows} rows): f32 CUDA-core kernel {k32:.3f} ms ({flop / k32 / 1e9:.2f} "
-                f"TFLOP/s, {k32 / n_rows * 1e6:.1f} ns/row), bf16 tensor-core kernel {k16:.3f} ms, "
-                f"plain f32 {p_ms:.3f} ms (in chunks of {CH}), f32 bound {b_k[0]:.3f} ms "
-                f"({b_k[1]}; {flop / 1e12:.3f} TFLOP); gpu {smi}")
+                f"{n_rows} rows): f32 tensor-core kernel (3xTF32) {k32:.3f} ms "
+                f"({flop / k32 / 1e9:.2f} TFLOP/s, {k32 / n_rows * 1e6:.1f} ns/row), f32 "
+                f"CUDA-core kernel {c_ms:.3f} ms ({c_ms / k32:.2f}x), bf16 tensor-core kernel "
+                f"{k16:.3f} ms, plain f32 {p_ms:.3f} ms (in chunks of {CH}), bound {b_k[0]:.3f} ms "
+                f"in 3xTF32, {b_f32[0]:.3f} ms on the CUDA cores ({b_k[1]}; {flop / 1e12:.3f} "
+                f"TFLOP); the split's max|dlog|psi|| {errs[f32]:.3e} on {N_HOLD} rows (the CUDA "
+                f"cores' {errs['cuda_cores']:.3e}); gpu {smi}")
         del hrows, sub, model
 
         # the bf16 iteration from the same parameters and draw
@@ -1047,8 +1127,9 @@ def nqsci_run(dev, smi, here, bound, flop_per_site, table_bytes, tol, timed):
         log(13, f"chunked (4096 rows) vs one-chunk H_cn gradient: max |d| {d:.3e}, largest "
                 f"entry {big:.3e}, ratio {d / big:.3e} (tol 1e-5)")
         check(big > 0 and d <= 1e-5 * big, "the chunked H_cn gradient differs from one chunk")
-        return {"launches": l_b["fused"], "err": errs[f32], "times": (k32, p_ms), "bound": b_k,
-                "rows": n_rows, "bf16_ms": k16, "split": split, "de_bf16": e16 - e32}
+        return {"launches": l_b["fused_f32_mma"], "err": errs[f32], "times": (k32, p_ms),
+                "bound": b_k, "bound_f32": b_f32, "prev_ms": c_ms, "rows": n_rows,
+                "bf16_ms": k16, "split": split, "de_bf16": e16 - e32, "d_hnn_mha": d_hnn}
     finally:
         flagship.FE2S2_PTH = saved
         shutil.rmtree(work, ignore_errors=True)
@@ -1113,9 +1194,9 @@ def main():
     # ---- 2. build ----
     t0 = time.perf_counter()
     smem = build(fused_rnn, ps)
-    log(2, f"built csrc/fused_rnn_mma.cu (the fused forward, prefix parent and child on the "
-           f"tensor cores), csrc/fused_rnn.cu (the same on the CUDA cores) "
-           f"and csrc/pair_select.cu (pair selection) for sm_90a in "
+    log(2, f"built csrc/fused_rnn_mma.cu (the fused forward in bf16 and f32, prefix parent "
+           f"and child in bf16, on the tensor cores), csrc/fused_rnn.cu (the same on the CUDA "
+           f"cores) and csrc/pair_select.cu (pair selection) for sm_90a in "
            f"{time.perf_counter() - t0:.2f} s")
     for name in ("fused_rnn_mma", "fused_rnn", "pair_select"):
         for ln in ptxas_report(cuda_build.BUILD_INFO.get(name, "")):
@@ -1124,12 +1205,13 @@ def main():
            f"{DCUT} (chain; the prefix passes too), {smem(DCUT_R5, MAXP_R5, DCMP_R5)} B at the "
            f"r5g64 shape (dcut {DCUT_R5}, {MAXP_R5} predecessors, dcut_cmpr {DCMP_R5}; limit "
            f"232,448 B), {smem(16, 2, 0)} B at dcut 16 with 2 predecessors")
-    for what, m in (("chain dcut 48", GraphMPSRNN(SORB, NOA, NOB, dcut=DCUT, device=dev)),
-                    ("r5g64 (dcut 64, tensor coupling, stand-in graph)",
-                     flagship_model(system, DCUT_R5, use_tensor=True, max_preds=MAXP_R5,
-                                    device=dev))):
-        sh = fused_rnn.mma_launch_shape(m)
-        log(2, f"  tensor-core kernel at {what}: dp {fused_rnn.mma_width(m.dcut)}, "
+    for (what, m), mm in itertools.product((
+            ("chain dcut 48", GraphMPSRNN(SORB, NOA, NOB, dcut=DCUT, device=dev)),
+            ("r5g64 (dcut 64, tensor coupling, stand-in graph)",
+             flagship_model(system, DCUT_R5, use_tensor=True, max_preds=MAXP_R5, device=dev)),
+            ("chain dcut 96", GraphMPSRNN(SORB, NOA, NOB, dcut=96, device=dev))), (bf16, f32)):
+        sh = fused_rnn.mma_launch_shape(m, matmul_dtype=mm)
+        log(2, f"  tensor-core kernel {mmname(mm)} at {what}: dp {fused_rnn.mma_width(m.dcut)}, "
                f"{sh['warps']} warps = {16 * sh['warps']} rows per CTA, {sh['nslots']} hidden "
                f"slot(s) in {sh['slots']} memory, dynamic shared memory {sh['smem_bytes']} B "
                f"per CTA (3 weight stages of 24,576 B + the slots)")
@@ -1169,14 +1251,20 @@ def main():
     # sites, most on random rows of small amplitude
     tol = {torch.float32: (1e-4, 1e-3), torch.bfloat16: (1e-1, 1e-1)}
 
-    def agree(phase, name, m, x, mm, k, p, tables=None):
+    def agree(phase, name, m, x, mm, k, p, tables=None, prev=None):
         """``hold_rows`` of the kernel's rows ``k`` against the plain
-        version's ``p``; returns max|Δlog|ψ||."""
+        version's ``p``; ``prev``: the CUDA-core kernel's rows, whose error
+        is shown beside (not held).  Returns max|Δlog|ψ||."""
         ta, tp = tol[mm]
         T = fused_rnn.pack_tables(m) if tables is None else tables
         q = fused_rnn.graph_mpsrnn_logpsi_fused_plain(
             m, x, matmul_dtype=mm, tables={key: v.double() for key, v in T.items()})
         ok, held, st = hold_rows(k, p, q, tol[mm])
+        if prev is not None:
+            sp = hold_rows(prev, p, q, tol[mm])[2]
+            log(phase, f"{name} {mmname(mm)} rows {x.shape[0]}: the CUDA-core kernel on the same "
+                       f"rows: max|Δlog|ψ|| {sp['max_a']:.3e}, max phase distance "
+                       f"{sp['max_p']:.3e}, median row {sp['med_a']:.3e} / {sp['med_p']:.3e}")
         del q
         msg = (f"{name} {mmname(mm)} rows {x.shape[0]}: max|Δlog|ψ|| {st['max_a']:.3e} "
                f"(tol {ta:g}), max phase distance {st['max_p']:.3e}, median row "
@@ -1191,14 +1279,21 @@ def main():
         check(ok, f"{name}: kernel disagrees with its plain version")
         return st["max_a"]
 
+    def mode_launches():
+        return fused_rnn.MMA_LAUNCHES.n, fused_rnn.F32_MMA_LAUNCHES.n
+
     def compare(name, m, x, mm):
-        before = fused_rnn.MMA_LAUNCHES.n
+        before = mode_launches()
         k = fused_rnn.graph_mpsrnn_logpsi_fused(m, x, matmul_dtype=mm)
-        p = fused_rnn.graph_mpsrnn_logpsi_fused_plain(m, x, matmul_dtype=mm)
         sync()
-        check(fused_rnn.MMA_LAUNCHES.n == before + (mm == bf16),
-              f"{name} {mmname(mm)}: the tensor-core kernel ran in f32 or not in bf16")
-        agree(3, name, m, x, mm, k, p)
+        after = mode_launches()
+        check(after == (before[0] + (mm == bf16), before[1] + (mm == f32)),
+              f"{name} {mmname(mm)}: not one launch of the tensor-core kernel in its mode "
+              f"(bf16, f32 launches {before} -> {after})")
+        p = fused_rnn.graph_mpsrnn_logpsi_fused_plain(m, x, matmul_dtype=mm)
+        prev = fused_rnn._launch_f32_cuda_cores(m, x) if mm == f32 else None
+        sync()
+        agree(3, name, m, x, mm, k, p, prev=prev)
 
     def compare_log_psi(name, m, x):
         ref = m.log_psi(x).detach()
@@ -1242,6 +1337,7 @@ def main():
     compare_log_psi("r5g64 dcut64 tensor", r5, rows[:N_REF])
 
     # ---- 4. local-energy identity ----
+    fused_rnn.F32_MMA_LAUNCHES.reset()  # the f32 E_loc forwards of this phase
     gen = torch.Generator(device=dev).manual_seed(2)
     sbits, counts, _ = ar_sampling_dfs(model, 1_000_000, capacity=4096, n_group=4,
                                        split_depth=6, capacity_root=4096, generator=gen)
@@ -1271,6 +1367,8 @@ def main():
            f"max|Δ| {diff.max().item():.3e}, max |Δ|/Σ|h r| "
            f"{(diff / scale).max().item():.3e} (tol 1e-4)")
     check(bool((diff <= 1e-4 * scale).all()), "REDUCE(k_det=n_sd) != SIMPLE")
+    l4_f32 = fused_rnn.F32_MMA_LAUNCHES.n
+    check(l4_f32 > 0, "the f32 local energies did not launch the tensor-core kernel's f32 mode")
 
     # ---- the flagship step configuration (phases 5, 7 and 8) ----
     sampler = ARSampler(SORB, NOA, NOB, n_sample=1_000_000, capacity=4096,
@@ -1341,14 +1439,15 @@ def main():
             fl += 4 * dc * npred * d * 8 + 6 * (npred - 1) * 4 * dc + 4 * O * dc * 4
         return fl
 
-    peak = {bf16: H100_BF16_FLOPS, f32: H100_F32_FLOPS}
+    peak = {bf16: H100_BF16_FLOPS, f32: H100_F32_FLOPS, F32X3: H100_TF32_FLOPS / 3}
 
     def bound(flop, nbytes, mm):
         op_ms, byte_ms = flop / peak[mm] * 1e3, nbytes / H100_BYTES * 1e3
         return max(op_ms, byte_ms), ("operations" if op_ms >= byte_ms else "bytes")
 
     def table_bytes(tables, mm):
-        """Each table read once; W in the matmul type."""
+        """Each table read once; W in the matmul type (f32 in both f32
+        kernels)."""
         n = sum(t.numel() for t in tables.values()) * 4
         return n - (tables["W"].numel() * 2 if mm == bf16 else 0)
 
@@ -1378,33 +1477,36 @@ def main():
     def time_flat(phase, name, m, trows, kreps):
         """Agreement with the plain version (as ``compare``) and CUDA-event
         times, both modes, on one step's rows: {mm: (kernel ms, plain ms,
-        max|Δlog|ψ||, the CUDA-core kernel's ms in bf16 or None)}.  The
-        kernel of bf16 mode is the tensor-core one; the CUDA-core kernel
-        in bf16 (``_launch_simt``) is timed before and after it."""
+        max|Δlog|ψ||, the CUDA-core kernel's ms in the same mode)}.  The
+        kernel is the tensor-core one; the CUDA-core kernel in the same
+        mode (``_launch_simt``, ``_launch_f32_cuda_cores``: the earlier
+        designs) is timed before and after it, and in f32 its error on the
+        same rows shown."""
         tables = fused_rnn.pack_tables(m)
         res = {}
         for mm in (bf16, f32):
             kern = lambda mm=mm: fused_rnn.graph_mpsrnn_logpsi_fused(m, trows, matmul_dtype=mm, tables=tables)  # noqa: E731
             plain = lambda mm=mm: fused_rnn.graph_mpsrnn_logpsi_fused_plain(m, trows, matmul_dtype=mm, tables=tables)  # noqa: E731
-            simt = lambda: fused_rnn._launch_simt(m, trows, tables)  # noqa: E731
+            simt = ((lambda: fused_rnn._launch_simt(m, trows, tables)) if mm == bf16 else  # noqa: E731
+                    (lambda: fused_rnn._launch_f32_cuda_cores(m, trows, tables)))
             k_out, p_out = kern(), plain()
+            s_out = simt() if mm == f32 else None
             sync()
-            err = agree(phase, f"{name} step rows", m, trows, mm, k_out, p_out, tables)
-            del k_out, p_out
-            if mm == bf16:
-                s1 = cuda_ms(simt, kreps)
-                k, p = alternate(plain, kern, kreps)
-                prev = (s1 + cuda_ms(simt, kreps)) / 2
-            else:
-                (k, p), prev = alternate(plain, kern, kreps), None
+            err = agree(phase, f"{name} step rows", m, trows, mm, k_out, p_out, tables,
+                        prev=s_out)
+            del k_out, p_out, s_out
+            s1 = cuda_ms(simt, kreps)
+            k, p = alternate(plain, kern, kreps)
+            prev = (s1 + cuda_ms(simt, kreps)) / 2
             res[mm] = (k, p, err, prev)
         return res, tables
 
-    def w_traffic(m, tables, n):
+    def w_traffic(m, tables, n, mm=bf16):
         """(launch shape, bytes of W every CTA streams, the L2 traffic of
-        W over all CTAs) of the tensor-core kernel at n rows."""
-        sh = fused_rnn.mma_launch_shape(m)
-        w = fused_rnn.pack_mma_tables(m, tables)["tab"].numel() * 2
+        W over all CTAs) of the tensor-core kernel in ``mm`` at n rows."""
+        sh = fused_rnn.mma_launch_shape(m, matmul_dtype=mm)
+        tab = fused_rnn.pack_mma_tables(m, tables, mm)["tab"]
+        w = tab.numel() * tab.element_size()
         return sh, w, w * -(-n // (16 * sh["warps"]))
 
     # ---- 5. three VMC steps, flagship configuration ----
@@ -1452,13 +1554,19 @@ def main():
     norb = SORB // 2
     flop6 = n_rows * norb * flop_per_site(DCUT, 1)
     nbytes6 = {mm: n_rows * SORB + n_rows * 2 * 4 + table_bytes(tables, mm) for mm in t6}
-    b6 = {mm: bound(flop6, nbytes6[mm], mm) for mm in t6}
+    b6 = {mm: bound(flop6, nbytes6[mm], F32X3 if mm == f32 else mm) for mm in t6}
+    b6_f32 = bound(flop6, nbytes6[f32], f32)  # on the CUDA cores
+
+    def flat_line(mm, k, p, prev, b, b_f32, flop, nbytes):
+        return (f"tensor-core kernel {k:.3f} ms, CUDA-core kernel {prev:.3f} ms "
+                f"({prev / k:.2f}x), plain {p:.3f} ms, bound {b[0]:.3f} ms"
+                + (f" (3xTF32; on the CUDA cores {b_f32[0]:.3f} ms)" if mm == f32 else "")
+                + f" ({flop / 1e12:.3f} TFLOP, {nbytes / 1e6:.1f} MB), "
+                f"{flop / k / 1e9:.2f} TFLOP/s; gpu {smi}")
+
     for mm, (k, p, _, prev) in t6.items():
         log(6, f"fused forward {mmname(mm)} at {n_rows} rows: "
-               + (f"tensor-core kernel {k:.3f} ms, CUDA-core kernel {prev:.3f} ms "
-                  f"({prev / k:.2f}x), " if prev else f"CUDA-core kernel {k:.3f} ms, ")
-               + f"plain {p:.3f} ms, bound {b6[mm][0]:.3f} ms ({flop6 / 1e12:.3f} TFLOP, "
-               f"{nbytes6[mm] / 1e6:.1f} MB), {flop6 / k / 1e9:.2f} TFLOP/s; gpu {smi}")
+               + flat_line(mm, k, p, prev, b6[mm], b6_f32, flop6, nbytes6[mm]))
     sh6, w6, l2_6 = w_traffic(model, tables, n_rows)
     log(6, f"tensor-core kernel at {n_rows} rows: {16 * sh6['warps']} rows per CTA, "
            f"{sh6['nslots']} slot(s) in {sh6['slots']} memory, {sh6['smem_bytes']} B shared "
@@ -1486,20 +1594,22 @@ def main():
     n7 = trows7.shape[0]
     flop7 = n7 * sum(flop_per_site(DCUT_R5, len(p), DCMP_R5) for p in r5.preds)
     nbytes7 = {mm: n7 * SORB + n7 * 2 * 4 + table_bytes(tables7, mm) for mm in t7}
-    b7 = {mm: bound(flop7, nbytes7[mm], mm) for mm in t7}
+    b7 = {mm: bound(flop7, nbytes7[mm], F32X3 if mm == f32 else mm) for mm in t7}
+    b7_f32 = bound(flop7, nbytes7[f32], f32)
     for mm, (k, p, _, prev) in t7.items():
         log(7, f"fused forward with tensor coupling {mmname(mm)} at {n7} rows: "
-               + (f"tensor-core kernel {k:.3f} ms, CUDA-core kernel {prev:.3f} ms "
-                  f"({prev / k:.2f}x), " if prev else f"CUDA-core kernel {k:.3f} ms, ")
-               + f"plain {p:.3f} ms, bound {b7[mm][0]:.3f} ms "
-               f"({flop7 / 1e12:.3f} TFLOP, {nbytes7[mm] / 1e6:.1f} MB), "
-               f"{flop7 / k / 1e9:.2f} TFLOP/s; gpu {smi}")
+               + flat_line(mm, k, p, prev, b7[mm], b7_f32, flop7, nbytes7[mm]))
     sh7, w7, l2_7 = w_traffic(r5, tables7, n7)
     log(7, f"tensor-core kernel at {n7} rows: {16 * sh7['warps']} rows per CTA, "
            f"{sh7['nslots']} hidden slots in {sh7['slots']} memory (no DAG hidden file; the "
            f"CUDA-core kernel's f32 file would be {n7 * norb * 2 * DCUT_R5 * 4 / 1e9:.2f} GB), "
            f"{sh7['smem_bytes']} B shared memory per CTA; every CTA streams "
            f"{w7 / 1e6:.3f} MB of W, {l2_7 / 1e9:.2f} GB through L2 in all")
+    sh7x, w7x, l2_7x = w_traffic(r5, tables7, n7, f32)
+    log(7, f"f32 mode at {n7} rows: {16 * sh7x['warps']} rows per CTA, {sh7x['nslots']} hidden "
+           f"slots in {sh7x['slots']} memory ({n7 * sh7x['nslots'] * 8 * DCUT_R5 / 1e9:.2f} GB), "
+           f"{sh7x['smem_bytes']} B shared memory per CTA; every CTA streams {w7x / 1e6:.3f} MB of "
+           f"W, {l2_7x / 1e9:.2f} GB through L2 in all")
     del trows7
 
     # ---- 8. the prefix-sharing path on the dcut-48 chain ----
@@ -1531,8 +1641,13 @@ def main():
                                                             matmul_dtype=mm)
         # the flat kernel of the same design on the same rows: in bf16 the
         # tensor-core kernel, whose walk the prefix passes share, so every
-        # row must be equal bit for bit; in f32 the CUDA-core kernel
-        flat = fused_rnn.graph_mpsrnn_logpsi_fused(model, rows8, matmul_dtype=mm)
+        # row must be equal bit for bit; in f32 the CUDA-core kernel (its
+        # timing entry), and the tensor-core kernel's f32 mode besides
+        if mm == bf16:
+            flat = fused_rnn.graph_mpsrnn_logpsi_fused(model, rows8, matmul_dtype=mm)
+        else:
+            flat = fused_rnn._launch_f32_cuda_cores(model, rows8)
+            flat_mma = fused_rnn.graph_mpsrnn_logpsi_fused(model, rows8, matmul_dtype=mm)
         sync()
         check(bool(torch.isfinite(kp).all() and torch.isfinite(kc).all()),
               "non-finite prefix kernel output")
@@ -1551,6 +1666,9 @@ def main():
             ta, tp = tol[mm]
             e["parent vs flat CUDA-core kernel"] = phase_err(kp, flat[:Bp])
             e["child vs flat CUDA-core kernel"] = phase_err(kc, flat[Bp:])
+            e["parent vs flat tensor-core kernel (3xTF32)"] = phase_err(kp, flat_mma[:Bp])
+            e["child vs flat tensor-core kernel (3xTF32)"] = phase_err(kc, flat_mma[Bp:])
+            del flat_mma
             for what, (da, dp) in e.items():
                 log(8, f"prefix {what} {mmname(mm)}: max|Δlog|ψ|| {da:.3e} (tol {ta:g}), "
                        f"max phase distance {dp:.3e} (tol {tp:g})")
@@ -1563,13 +1681,22 @@ def main():
     sub = fbits8[:N_RED]
     f32fwd = lambda b: fused_rnn.graph_mpsrnn_logpsi_fused(model, b, matmul_dtype=f32)  # noqa: E731
     e_flat = reduce(f32fwd, sub, torch.Generator(device=dev).manual_seed(9))
+    counts8f = (pre.PARENT_LAUNCHES, pre.CHILD_LAUNCHES, pre.MMA_PARENT_LAUNCHES,
+                pre.MMA_CHILD_LAUNCHES)
+    for c in counts8f:
+        c.reset()
     e_pre = reduce(f32fwd, sub, torch.Generator(device=dev).manual_seed(9),
                    prefix_fwd=pre.ReducePrefixForward(model, matmul_dtype=f32))
+    sync()
+    l8f = dict(zip(("parent", "child", "mma_parent", "mma_child"), (c.n for c in counts8f)))
+    check(l8f["parent"] > 0 and l8f["child"] > 0 and l8f["mma_parent"] == l8f["mma_child"] == 0,
+          f"the f32 prefix REDUCE did not launch the CUDA-core prefix passes alone: {l8f}")
     scale = hr_scale(model, sub)
     diff = (e_flat - e_pre).abs().max(-1).values
     log(8, f"REDUCE with vs without prefix_fwd (f32) on {sub.shape[0]} sampled rows: "
            f"max|Δ| {diff.max().item():.3e}, max |Δ|/Σ|h r| "
-           f"{(diff / scale).max().item():.3e} (tol 1e-4)")
+           f"{(diff / scale).max().item():.3e} (tol 1e-4); the f32 prefix passes' launches "
+           f"(CUDA cores) {l8f}")
     check(bool(torch.isfinite(e_pre).all() and (diff <= 1e-4 * scale).all()),
           "REDUCE with prefix_fwd != REDUCE without it")
 
@@ -1719,15 +1846,17 @@ def main():
         b8[mm]["prefix forward"] = bound(
             (Bp * norb + need_child) * fl,
             (Bp + n_child) * (SORB + 8) + n_child * 4 + tb, mm)
-        b8[mm]["flat forward"] = bound(flat_steps * fl, (Bp + n_child) * (SORB + 8) + tb, mm)
+        b8[mm]["flat forward"] = bound(flat_steps * fl, (Bp + n_child) * (SORB + 8) + tb,
+                                       F32X3 if mm == f32 else mm)
         for what, (k, p, prev) in t8[mm].items():
-            kern = ("tensor-core kernel" if mm == bf16 else "CUDA-core kernel")
+            kern = ("tensor-core kernel" if mm == bf16 or what == "flat forward"
+                    else "CUDA-core kernel")
             log(8, f"{what} {mmname(mm)}: {kern} {k:.3f} ms"
                    + (f", CUDA-core kernel {prev:.3f} ms ({prev / k:.2f}x)" if prev else "")
                    + f", plain {p:.3f} ms, bound {b8[mm][what][0]:.3f} ms ({b8[mm][what][1]}); "
                    f"gpu {smi}")
-    log(8, f"prefix forward / flat forward, kernels (bf16: both on the tensor cores; f32: both "
-           f"on the CUDA cores): bf16 "
+    log(8, f"prefix forward / flat forward, kernels (bf16: both on the tensor cores; f32: the "
+           f"prefix on the CUDA cores, the flat on the tensor cores in 3xTF32): bf16 "
            f"{t8[bf16]['prefix forward'][0] / t8[bf16]['flat forward'][0]:.3f}, f32 "
            f"{t8[f32]['prefix forward'][0] / t8[f32]['flat forward'][0]:.3f}")
 
@@ -1946,7 +2075,8 @@ def main():
         entry("fused_rnn_forward_mma_dp96", "pynqs_tpu/ops/fused_rnn.py:197",
               f11["launches"], f11["err"], f11["times"], f11["bound"], "fused_rnn_mma.cu",
               prev_ms=f11["prev_ms"], registers=f11["registers"],
-              spill_bytes=f11["spill_bytes"]),
+              spill_bytes=f11["spill_bytes"], f32_max_abs_err=f11["f32_err"],
+              f32_registers=f11["f32_registers"], f32_spill_bytes=f11["f32_spill_bytes"]),
         # kernel #1's tensor branch on one GFMC trial block (2048 walkers x
         # 7876 rows, phase 12); launches: the GFMC run's
         entry("fused_rnn_forward_mma_gfmc", "pynqs_tpu/ops/fused_rnn.py:254",
@@ -1959,11 +2089,22 @@ def main():
               (m12["lane"]["bound_ms"], "bytes"), "pair_select.cu", m12["lane"]["library_ms"],
               device_ms=m12["lane"]["device_ms"], prev_ms=m12["lane"]["prev_ms"],
               prev_device_ms=m12["lane"]["prev_device_ms"]),
-        # kernel #1 in f32 (the CUDA-core kernel) on one eloc batch's H_nn
-        # rows of the NqsCi run (phase 13); launches: that run's; bf16_ms:
-        # the tensor-core kernel on the same rows
+        # kernel #1 in f32, the tensor-core kernel's 3xTF32 mode: on one eloc
+        # batch's H_nn rows of the NqsCi run (phase 13; launches: that run's;
+        # bf16_ms: the bf16 mode on the same rows), on phase 6's chain rows
+        # (launches: phase 4's f32 local energies) and on phase 7's r5g64
+        # rows (launches: phase 12's f32 polish); prev_ms: the CUDA-core
+        # kernel in f32 on the same rows in this run; bound_ms in 3xTF32
+        # on the tensor cores, bound_f32_ms on the CUDA cores
         entry("fused_rnn_forward_nqsci", "pynqs_tpu/ops/fused_rnn.py:254", f13["launches"],
-              f13["err"], f13["times"], f13["bound"], rows=f13["rows"], bf16_ms=f13["bf16_ms"]),
+              f13["err"], f13["times"], f13["bound"], "fused_rnn_mma.cu", rows=f13["rows"],
+              prev_ms=f13["prev_ms"], bound_f32_ms=f13["bound_f32"][0], bf16_ms=f13["bf16_ms"]),
+        entry("fused_rnn_forward_f32", "pynqs_tpu/ops/fused_rnn.py:247", l4_f32, t6[f32][2],
+              t6[f32], b6[f32], "fused_rnn_mma.cu", rows=n_rows, prev_ms=t6[f32][3],
+              bound_f32_ms=b6_f32[0]),
+        entry("fused_rnn_forward_f32_tensor", "pynqs_tpu/ops/fused_rnn.py:259",
+              f12["f32_launches"], t7[f32][2], t7[f32], b7[f32], "fused_rnn_mma.cu", rows=n7,
+              prev_ms=t7[f32][3], bound_f32_ms=b7_f32[0]),
     ]}
     log("end", f"chip_smoke.py in {time.perf_counter() - t_script:.1f} s; gpu {smi}")
     print(json.dumps(summary))

@@ -1,10 +1,13 @@
 // Fused teacher-forced Graph-MPS-RNN forward for Hopper (sm_90a), and
-// its two prefix-sharing variants, on the CUDA cores: their f32 mode.
-// Their bf16 mode runs on the tensor cores in csrc/fused_rnn_mma.cu
-// (fused_rnn_forward_mma, fused_rnn_prefix_parent_mma and
-// fused_rnn_prefix_child_mma); the wrappers reach this file's entry points
-// in bf16 mode only to time them beside those (fused_rnn._launch_simt,
-// fused_rnn_prefix._launch_prefix_simt).
+// its two prefix-sharing variants, on the CUDA cores: the prefix passes'
+// f32 mode.  The flat forward runs on the tensor cores in
+// csrc/fused_rnn_mma.cu in both modes (fused_rnn_forward_mma in bf16,
+// fused_rnn_forward_mma_f32 in f32 as three TF32 products), and so do the
+// prefix passes in bf16 (fused_rnn_prefix_parent_mma and
+// fused_rnn_prefix_child_mma); the wrappers reach this file's flat
+// forward (in either mode) and its prefix passes in bf16 only to time and
+// check them beside those (fused_rnn._launch_simt,
+// fused_rnn._launch_f32_cuda_cores, fused_rnn_prefix._launch_prefix_simt).
 //
 // Replaces three Pallas TPU kernels:
 //   * pynqs_tpu/ops/fused_rnn.py::_kernel (graph_mpsrnn_logpsi_fused),

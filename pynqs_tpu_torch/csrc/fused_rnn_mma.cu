@@ -1,37 +1,45 @@
 // Fused teacher-forced Graph-MPS-RNN forward on Hopper's tensor cores
-// (sm_90a), bf16 operands with f32 sums: the bf16 mode of kernels #1-#3.
+// (sm_90a): the bf16 mode of kernels #1-#3 (bf16 operands, f32 sums) and
+// the f32 mode of kernel #1 (each f32 product as three TF32 products).
 //
 // Replaces three Pallas TPU kernels, each through its own entry point:
 //   * pynqs_tpu/ops/fused_rnn.py::_kernel (graph_mpsrnn_logpsi_fused),
 //     chain and DAG, with and without the tensor coupling:
-//     fused_rnn_forward_mma;
+//     fused_rnn_forward_mma (bf16) and fused_rnn_forward_mma_f32 (f32,
+//     the TPU kernel's precision=HIGHEST mode, fused_rnn.py:247, 259, 289);
 //   * pynqs_tpu/ops/fused_rnn_prefix.py::_parent_kernel, the chain
 //     forward that also writes each site's hidden and scalar state:
 //     fused_rnn_prefix_parent_mma;
 //   * pynqs_tpu/ops/fused_rnn_prefix.py::_child_kernel, the chain forward
 //     of rows that start at a later site from their parent's state:
 //     fused_rnn_prefix_child_mma.
-// All three are one walk over the sites, fused_rnn_mma_kernel, selected
-// by a compile-time mode, so the flat kernel carries none of the prefix
-// code.  Their f32 mode stays on the CUDA cores (csrc/fused_rnn.cu: TF32
-// would not keep f32 agreement).  For N rows of site values each returns,
-// per row, (log|psi|, Re and Im of the unit phase product, linear
-// phase); the wrappers (pynqs_tpu_torch/ops/fused_rnn.py,
-// fused_rnn_prefix.py) turn them into (log|psi|, arg psi).  It rounds at
-// the points of graph_mpsrnn_logpsi_fused_plain in bf16 mode: W, h, U,
-// the tensor product and K to bf16; vcat, eta, the phase rows and all
-// sums in f32; the phase readout from the unrounded h.
+// All are one walk over the sites, fused_rnn_mma_kernel, selected by a
+// compile-time mode (flat, parent, child) and precision (bf16, f32), so
+// the flat kernel carries none of the prefix code and the bf16 kernel
+// none of the f32 code.  The prefix passes' f32 mode stays on the CUDA
+// cores (csrc/fused_rnn.cu, which also keeps the earlier flat f32 kernel,
+// reached only to time and check it beside this one).  For N rows of site
+// values each returns, per row, (log|psi|, Re and Im of the unit phase
+// product, linear phase); the wrappers (pynqs_tpu_torch/ops/fused_rnn.py,
+// fused_rnn_prefix.py) turn them into (log|psi|, arg psi).  The bf16 mode
+// rounds at the points of graph_mpsrnn_logpsi_fused_plain in bf16 mode:
+// W, h, U, the tensor product and K to bf16; vcat, eta, the phase rows
+// and all sums in f32; the phase readout from the unrounded h.  The f32
+// mode rounds to nothing narrower than f32 but inside its split products.
 //
 // What bounds it: arithmetic.  Per row and site the complex transition
 // of all 4 values is a [2*mp*d] x [8d] product (74 kFLOP at d 48, mp 1;
 // 262 kFLOP at d 64, mp 2 with the coupling), against at most 9 bytes of
 // input and output per row and site: about 1 TFLOP (chain) and 3.5 TFLOP
 // (r5g64) per 657,408-row step forward, 1.0 and 3.5 ms at the card's
-// 989 TFLOP/s bf16 peak.  The weights are read by every CTA, so the
-// second limit is L2: every CTA streams all of W once per call.  The
-// prefix passes do the same work per site-step; the parent (2048 rows at
-// the flagship step) is too small to fill the card and is bound by the
-// latency of its 20 sites in sequence, the child (655,360 rows) by
+// 989 TFLOP/s bf16 peak.  In f32 every product is three TF32 products:
+// the bound is 3x the operations over the 495 TFLOP/s TF32 peak, 6x the
+// bf16 bound and 0.41x the CUDA cores' f32 bound (the operations over 67
+// TFLOP/s).  The weights are read by every CTA, so the second limit is
+// L2: every CTA streams all of W once per call (in f32 twice the bytes).
+// The prefix passes do the same work per site-step; the parent (2048
+// rows at the flagship step) is too small to fill the card and is bound
+// by the latency of its 20 sites in sequence, the child (655,360 rows) by
 // arithmetic over the site-steps its CTAs run, plus the bytes of the
 // parent history (hh, sh) it seeds from (15.7 MB, read from L2).
 //
@@ -56,8 +64,8 @@
 //    The host (hidden_slots) gives each site a slot live from its own
 //    site to its last reader; a chain needs one slot, the r5g64 stand-in
 //    graph 7.  The slots sit in shared memory where they fit beside the
-//    weight stages (8 warps, else 4 warps per CTA), else in a bf16 file in
-//    global memory, half the CUDA-core kernel's f32 file.  A
+//    weight stages (8 warps, else 4 warps per CTA), else in a file in
+//    global memory (bf16: half the CUDA-core kernel's f32 file).  A
 //    multi-predecessor site reads each predecessor's k-block straight
 //    from its slot.
 //  * Weights packed once (pack_mma_tables) in bf16, in the order the
@@ -85,6 +93,31 @@
 //    im of the same c; the complex product over predecessors in
 //    registers, rounded to bf16, is then the A fragment of one more
 //    k-step z_x += pr_x @ KW_x (k = 2 dcp, zero-padded to 16).
+//  * The f32 mode (PREC_F32X3, flat forward only) is the same walk with
+//    mma.sync.m16n8k8 in TF32 (10-bit mantissa, f32 sums): the TF32
+//    precision Hopper's tensor cores take f32 operands in, at half the
+//    bf16 rate.  One TF32 product would not keep f32 agreement, so each
+//    operand x is split into a TF32 head and tail, hi = rna(x) and lo =
+//    rna(x - hi) (round to nearest, ties away from zero, as
+//    cvt.rna.tf32.f32: half an ulp added to the magnitude and the low 13
+//    bits cut), and each k8-step is lo_a hi_b + hi_a lo_b + hi_a hi_b (the
+//    small terms first) on the tensor cores from a zero accumulator, then
+//    added to the f32 sums by one FADD per output as in bf16.  The term
+//    left out, lo_a lo_b, is about 2^-22 of the product.  A lane splits its
+//    A fragment once per k-step for all n-tiles, and each B pair as it
+//    loads it; W streams in f32 (twice the bf16 bytes; a stream split on
+//    the host would be 4x).  The hidden file keeps f32 h: with k permuted
+//    inside each 8-block at pack time (MMA k = c and c + 4 read W rows 2c
+//    and 2c + 1, c = lane & 3), a lane's m16n8 C fragment of n-tile k
+//    (rows g and g+8, columns 2c and 2c+1) is exactly its m16n8k8 A
+//    fragment of k-step k (columns c and c+4): a0..a3 = c0, c2, c1, c3, so
+//    the slot file stays lane-private, [slot][k-step][lane] of float4, at
+//    twice the bf16 bytes (the chain's one slot fits in shared memory, the
+//    r5g64 graph's 7 go to the global file, 7 x 512 B per row at dp 64
+//    against the CUDA-core kernel's 20 x 512 B).  The tensor coupling is
+//    the same two products in 3xTF32, its complex product in f32, KW_x
+//    2 dcp rows deep (1 or 2 k8-steps).  Epilogue, scalars and phase
+//    readout are the bf16 mode's, with h unrounded.
 //  * Prefix sharing (chains).  A child differs from its parent only from
 //    its first changed site s0 on.  The parent pass is the flat walk that
 //    also writes, after each site t, each row's f32 h (unpadded, re half
@@ -117,6 +150,7 @@ constexpr int SMEM_LIMIT = 232448;
 constexpr int NSTATE = 8;  // per-row state entries of sh
 
 enum { MODE_FLAT = 0, MODE_PARENT = 1, MODE_CHILD = 2 };
+enum { PREC_BF16 = 0, PREC_F32X3 = 1 };
 
 struct Args {
   const int8_t* vals;  // [N, norb] site values by site id
@@ -126,7 +160,7 @@ struct Args {
   const int* slot_w;  // [norb] slot that keeps site t's hidden, or -1
   const int* slot_r;  // [norb, mp] slots of site t's predecessors
   int nslots;
-  const uint4* tab;   // packed bf16 weight stream
+  const uint4* tab;   // packed weight stream, bf16 (or f32 in the f32 mode)
   const int* chunks;  // [nchunks, 2] (offset, length) in 16-byte units
   int nchunks;
   const float *vcat, *E, *PW, *SC;  // [norb, 4, O] x3, [norb, 4]
@@ -165,6 +199,60 @@ __device__ __forceinline__ void mma(float (&c)[4], const uint4& a, uint32_t b0, 
         "f"(0.f));
 #pragma unroll
   for (int e = 0; e < 4; ++e) c[e] += d[e];
+}
+
+// x rounded to TF32 (10-bit mantissa) to nearest, ties away from zero,
+// as cvt.rna.tf32.f32: half an ulp added to the magnitude, the low 13
+// bits cut (a carry into the exponent is the right rounding)
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+
+// x = hi + lo + O(2^-22 x), both TF32: hi = rna(x), lo = rna(x - hi)
+__device__ __forceinline__ void split_tf32(uint32_t x, uint32_t& hi, uint32_t& lo) {
+  hi = tf32_rna(__uint_as_float(x));
+  lo = tf32_rna(__fsub_rn(__uint_as_float(x), __uint_as_float(hi)));
+}
+
+__device__ __forceinline__ void split_a(const uint4& a, uint32_t (&hi)[4], uint32_t (&lo)[4]) {
+  split_tf32(a.x, hi[0], lo[0]);
+  split_tf32(a.y, hi[1], lo[1]);
+  split_tf32(a.z, hi[2], lo[2]);
+  split_tf32(a.w, hi[3], lo[3]);
+}
+
+// d += a (16x8 TF32, row) * b (8x8 TF32, col) on the tensor cores
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// c += a * b for one k8-step in f32 (the f32 mode): a split by the
+// caller, b's f32 pair (b0, b1) here, then lo_a hi_b + hi_a lo_b + hi_a
+// hi_b on the tensor cores from a zero accumulator, added to c in
+// round-to-nearest f32 as the bf16 mode's mma
+__device__ __forceinline__ void mma3(float (&c)[4], const uint32_t (&ah)[4],
+                                     const uint32_t (&al)[4], uint32_t b0, uint32_t b1) {
+  uint32_t h0, l0, h1, l1;
+  split_tf32(b0, h0, l0);
+  split_tf32(b1, h1, l1);
+  float d[4] = {0.f, 0.f, 0.f, 0.f};
+  mma_tf32(d, al, h0, h1);
+  mma_tf32(d, ah, l0, l1);
+  mma_tf32(d, ah, h0, h1);
+#pragma unroll
+  for (int e = 0; e < 4; ++e) c[e] += d[e];
+}
+
+// the f32 mode's A fragment (a0..a3 = c0, c2, c1, c3) of one n-tile's C
+// fragment c[4] (rows g, g+8; columns 2c, 2c+1)
+__device__ __forceinline__ uint4 c_to_a(const float (&c)[4]) {
+  return make_uint4(__float_as_uint(c[0]), __float_as_uint(c[2]), __float_as_uint(c[1]),
+                    __float_as_uint(c[3]));
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -226,11 +314,15 @@ __device__ __forceinline__ int hidden_index(int col, int d) {
 
 // NP = O / 16 pairs of n-tiles; WARPS warps of 16 rows per CTA (0: as
 // many as the launch gives, a runtime value); MODE: the flat forward,
-// the prefix parent or the prefix child pass (chains only).
-template <int NP, int WARPS, int MODE>
+// the prefix parent or the prefix child pass (chains only); PREC: bf16,
+// or f32 as three TF32 products (the flat forward only).
+template <int NP, int WARPS, int MODE, int PREC>
 __global__ void __launch_bounds__(WARPS ? WARPS * 32 : 256) fused_rnn_mma_kernel(const Args a) {
+  constexpr bool F32 = PREC == PREC_F32X3;
+  static_assert(!F32 || MODE == MODE_FLAT, "the f32 mode is the flat forward's");
   constexpr int NT = 2 * NP;  // n8 tiles of one value's outputs
   constexpr int O = 16 * NP;
+  constexpr int KS = F32 ? NT : NP;  // k-steps of one hidden: k16 (bf16) or k8 (f32)
   const int nwarps = WARPS ? WARPS : (int)(blockDim.x >> 5);
   const int THREADS = nwarps * 32;
   extern __shared__ __align__(16) uint4 smem[];
@@ -238,7 +330,7 @@ __global__ void __launch_bounds__(WARPS ? WARPS * 32 : 256) fused_rnn_mma_kernel
   const int g = lane >> 2, cq = lane & 3;
   const int rg = (blockIdx.x * nwarps + warp) * 16 + g, rh = rg + 8;  // this lane's rows
   const int norb = a.norb, N = a.N, mp = a.mp;
-  const size_t slot_u4 = (size_t)NP * 32;  // one slot of one warp
+  const size_t slot_u4 = (size_t)KS * 32;  // one slot of one warp
   uint4* slots = a.gslots ? a.gslots + ((size_t)blockIdx.x * nwarps + warp) * a.nslots * slot_u4
                           : smem + STAGES * STAGE_U4 + (size_t)warp * a.nslots * slot_u4;
   const int ntu = a.dcp / 4;  // n-tiles of one (pred, value) block of UW: 1 or 2
@@ -320,9 +412,9 @@ __global__ void __launch_bounds__(WARPS ? WARPS * 32 : 256) fused_rnn_mma_kernel
     const int* sr = a.slot_r + t * mp;
 
     // ---- tensor coupling: pr_x = prod_j (h_j @ UW_j)_x, bf16 A fragments ----
-    uint4 pra[4];
+    uint4 pra[4], prk[4][2];  // bf16: one k16-step; f32: up to two k8-steps
 #pragma unroll
-    for (int x = 0; x < 4; ++x) pra[x] = make_uint4(0u, 0u, 0u, 0u);
+    for (int x = 0; x < 4; ++x) pra[x] = prk[x][0] = prk[x][1] = make_uint4(0u, 0u, 0u, 0u);
     if (tensor) {
       float pr[4][2][4], uo[4][2][4];
 #pragma unroll
@@ -331,25 +423,43 @@ __global__ void __launch_bounds__(WARPS ? WARPS * 32 : 256) fused_rnn_mma_kernel
         for (int i = 0; i < 2; ++i)
 #pragma unroll
           for (int e = 0; e < 4; ++e) uo[x][i][e] = pr[x][i][e] = 0.f;
-      walk(pipe, THREADS, np * NP, uw_ksz, [&](int ks, const uint4* tile) {
-        const int j = ks / NP, kl = ks - j * NP;
-        const uint4 A = slots[(sr[j] * NP + kl) * 32 + lane];
+      walk(pipe, THREADS, np * KS, uw_ksz, [&](int ks, const uint4* tile) {
+        const int j = ks / KS, kl = ks - j * KS;
+        const uint4 A = slots[(sr[j] * KS + kl) * 32 + lane];
         // n-pair p covers tiles 2p, 2p+1; tile x * ntu + i is value x's
         // i-th tile of (c, re|im) columns
+        if constexpr (F32) {
+          uint32_t ah[4], al[4];
+          split_a(A, ah, al);
 #pragma unroll
-        for (int p = 0; p < 4; ++p) {
-          if (p < 2 * ntu) {
-            const uint4 B = tile[p * 32 + lane];
-            if (ntu == 1) {
-              mma(uo[(2 * p) & 3][0], A, B.x, B.y);
-              mma(uo[(2 * p + 1) & 3][0], A, B.z, B.w);
-            } else {
-              mma(uo[p][0], A, B.x, B.y);
-              mma(uo[p][1], A, B.z, B.w);
+          for (int p = 0; p < 4; ++p) {
+            if (p < 2 * ntu) {
+              const uint4 B = tile[p * 32 + lane];
+              if (ntu == 1) {
+                mma3(uo[(2 * p) & 3][0], ah, al, B.x, B.y);
+                mma3(uo[(2 * p + 1) & 3][0], ah, al, B.z, B.w);
+              } else {
+                mma3(uo[p][0], ah, al, B.x, B.y);
+                mma3(uo[p][1], ah, al, B.z, B.w);
+              }
+            }
+          }
+        } else {
+#pragma unroll
+          for (int p = 0; p < 4; ++p) {
+            if (p < 2 * ntu) {
+              const uint4 B = tile[p * 32 + lane];
+              if (ntu == 1) {
+                mma(uo[(2 * p) & 3][0], A, B.x, B.y);
+                mma(uo[(2 * p + 1) & 3][0], A, B.z, B.w);
+              } else {
+                mma(uo[p][0], A, B.x, B.y);
+                mma(uo[p][1], A, B.z, B.w);
+              }
             }
           }
         }
-        if (kl == NP - 1) {  // predecessor j done: fold it into the product
+        if (kl == KS - 1) {  // predecessor j done: fold it into the product
 #pragma unroll
           for (int x = 0; x < 4; ++x)
 #pragma unroll
@@ -371,14 +481,20 @@ __global__ void __launch_bounds__(WARPS ? WARPS * 32 : 256) fused_rnn_mma_kernel
               }
         }
       });
-      // columns (c, re|im) of tile i are k = 8 i + (2c + re|im) of KW's k-step
+      // columns (c, re|im) of tile i are k = 8 i + (2c + re|im) of KW's
+      // k-step (bf16), or of KW's k8-step i as the hidden's (f32)
 #pragma unroll
       for (int x = 0; x < 4; ++x) {
-        pra[x].x = pack_bf16(pr[x][0][0], pr[x][0][1]);
-        pra[x].y = pack_bf16(pr[x][0][2], pr[x][0][3]);
-        if (ntu == 2) {
-          pra[x].z = pack_bf16(pr[x][1][0], pr[x][1][1]);
-          pra[x].w = pack_bf16(pr[x][1][2], pr[x][1][3]);
+        if constexpr (F32) {
+          prk[x][0] = c_to_a(pr[x][0]);
+          if (ntu == 2) prk[x][1] = c_to_a(pr[x][1]);
+        } else {
+          pra[x].x = pack_bf16(pr[x][0][0], pr[x][0][1]);
+          pra[x].y = pack_bf16(pr[x][0][2], pr[x][0][3]);
+          if (ntu == 2) {
+            pra[x].z = pack_bf16(pr[x][1][0], pr[x][1][1]);
+            pra[x].w = pack_bf16(pr[x][1][2], pr[x][1][3]);
+          }
         }
       }
     }
@@ -386,7 +502,8 @@ __global__ void __launch_bounds__(WARPS ? WARPS * 32 : 256) fused_rnn_mma_kernel
     // ---- the transition of each value, its epilogue in registers ----
     float zsel[NT][4];
     float ws[2][4], ssq[2] = {0.f, 0.f}, selsq[2] = {0.f, 0.f};
-    const int nks = np * NP + (tensor ? 1 : 0);
+    // the k-steps of KW_x: one k16 (bf16), dcp / 4 k8 (f32)
+    const int nks = np * KS + (tensor ? (F32 ? a.dcp / 4 : 1) : 0);
 #pragma unroll
     for (int x = 0; x < 4; ++x) {
       float acc[NT][4];
@@ -394,18 +511,34 @@ __global__ void __launch_bounds__(WARPS ? WARPS * 32 : 256) fused_rnn_mma_kernel
       for (int n = 0; n < NT; ++n)
 #pragma unroll
         for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
-      const uint4 px = pra[x];
+      const uint4 px = pra[x], k0 = prk[x][0], k1 = prk[x][1];
       walk(pipe, THREADS, nks, NP * 32, [&](int ks, const uint4* tile) {
-        uint4 A = px;  // the last k-step of a coupled site: pr_x @ KW_x
-        if (ks < np * NP) {
-          const int j = ks / NP, kl = ks - j * NP;
-          A = slots[(sr[j] * NP + kl) * 32 + lane];
-        }
+        if constexpr (F32) {
+          uint4 A = ks == np * KS ? k0 : k1;  // the last k-steps of a coupled site
+          if (ks < np * KS) {
+            const int j = ks / KS, kl = ks - j * KS;
+            A = slots[(sr[j] * KS + kl) * 32 + lane];
+          }
+          uint32_t ah[4], al[4];
+          split_a(A, ah, al);
 #pragma unroll
-        for (int p = 0; p < NP; ++p) {
-          const uint4 B = tile[p * 32 + lane];
-          mma(acc[2 * p], A, B.x, B.y);
-          mma(acc[2 * p + 1], A, B.z, B.w);
+          for (int p = 0; p < NP; ++p) {
+            const uint4 B = tile[p * 32 + lane];
+            mma3(acc[2 * p], ah, al, B.x, B.y);
+            mma3(acc[2 * p + 1], ah, al, B.z, B.w);
+          }
+        } else {
+          uint4 A = px;  // the last k-step of a coupled site: pr_x @ KW_x
+          if (ks < np * NP) {
+            const int j = ks / NP, kl = ks - j * NP;
+            A = slots[(sr[j] * NP + kl) * 32 + lane];
+          }
+#pragma unroll
+          for (int p = 0; p < NP; ++p) {
+            const uint4 B = tile[p * 32 + lane];
+            mma(acc[2 * p], A, B.x, B.y);
+            mma(acc[2 * p + 1], A, B.z, B.w);
+          }
         }
       });
       // bias, square sums, keep the row's block
@@ -496,17 +629,23 @@ __global__ void __launch_bounds__(WARPS ? WARPS * 32 : 256) fused_rnn_mma_kernel
       zsel[n][2] = h2;
       zsel[n][3] = h3;
     }
-    // the hidden, rounded to bf16, into its slot as the A fragments the
-    // same lane reads at the sites that take it as a predecessor
+    // the hidden (f32, or rounded to bf16) into its slot as the A
+    // fragments the same lane reads at the sites that take it as a
+    // predecessor
     if (sw >= 0) {
+      if constexpr (F32) {
 #pragma unroll
-      for (int k = 0; k < NP; ++k) {
-        uint4 v;
-        v.x = pack_bf16(zsel[2 * k][0], zsel[2 * k][1]);
-        v.y = pack_bf16(zsel[2 * k][2], zsel[2 * k][3]);
-        v.z = pack_bf16(zsel[2 * k + 1][0], zsel[2 * k + 1][1]);
-        v.w = pack_bf16(zsel[2 * k + 1][2], zsel[2 * k + 1][3]);
-        slots[(sw * NP + k) * 32 + lane] = v;
+        for (int n = 0; n < NT; ++n) slots[(sw * KS + n) * 32 + lane] = c_to_a(zsel[n]);
+      } else {
+#pragma unroll
+        for (int k = 0; k < NP; ++k) {
+          uint4 v;
+          v.x = pack_bf16(zsel[2 * k][0], zsel[2 * k][1]);
+          v.y = pack_bf16(zsel[2 * k][2], zsel[2 * k][3]);
+          v.z = pack_bf16(zsel[2 * k + 1][0], zsel[2 * k + 1][1]);
+          v.w = pack_bf16(zsel[2 * k + 1][2], zsel[2 * k + 1][3]);
+          slots[(sw * NP + k) * 32 + lane] = v;
+        }
       }
     }
     if constexpr (MODE == MODE_PARENT) {  // the f32 hidden, unpadded, into hh
@@ -583,17 +722,17 @@ __global__ void __launch_bounds__(WARPS ? WARPS * 32 : 256) fused_rnn_mma_kernel
 // smem bytes of dynamic shared memory that hold the stages and the slots.
 // The host (pynqs_tpu_torch/ops/fused_rnn.py::mma_launch_shape) chooses
 // the shape.
-bool shape_ok(int mode, int NP, int nslots, int warps, int slots_shared, int smem) {
+bool shape_ok(int mode, int prec, int NP, int nslots, int warps, int slots_shared, int smem) {
   const bool w_ok = mode == MODE_FLAT ? (warps == 4 || warps == 8)
                                       : (warps == 1 || warps == 2 || warps == 4 || warps == 8);
-  const long need =
-      (long)STAGES * STAGE_U4 * 16 + (slots_shared ? (long)warps * nslots * NP * 512 : 0);
+  const long slot = (long)NP * 512 * (prec == PREC_F32X3 ? 2 : 1);  // one slot of one warp
+  const long need = (long)STAGES * STAGE_U4 * 16 + (slots_shared ? (long)warps * nslots * slot : 0);
   return w_ok && nslots >= 1 && smem >= need && smem <= SMEM_LIMIT;
 }
 
-template <int NP, int WARPS, int MODE>
+template <int NP, int WARPS, int MODE, int PREC>
 cudaError_t launch(const Args& a, int warps, int smem, cudaStream_t stream) {
-  auto kern = fused_rnn_mma_kernel<NP, WARPS, MODE>;
+  auto kern = fused_rnn_mma_kernel<NP, WARPS, MODE, PREC>;
   cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   const int rows = warps * 16;
@@ -603,30 +742,30 @@ cudaError_t launch(const Args& a, int warps, int smem, cudaStream_t stream) {
 
 // the flat forward's warp count is a template argument, the prefix
 // passes' a runtime value
-template <int NP, int MODE>
+template <int NP, int MODE, int PREC>
 cudaError_t launch_np(const Args& a, int warps, int smem, cudaStream_t stream) {
   if constexpr (MODE == MODE_FLAT)
-    return warps == 8 ? launch<NP, 8, MODE>(a, warps, smem, stream)
-                      : launch<NP, 4, MODE>(a, warps, smem, stream);
+    return warps == 8 ? launch<NP, 8, MODE, PREC>(a, warps, smem, stream)
+                      : launch<NP, 4, MODE, PREC>(a, warps, smem, stream);
   else
-    return launch<NP, 0, MODE>(a, warps, smem, stream);
+    return launch<NP, 0, MODE, PREC>(a, warps, smem, stream);
 }
 
-template <int MODE>
+template <int MODE, int PREC = PREC_BF16>
 int run(const Args& a, int dp, int warps, int slots_shared, int smem, void* stream) {
   if (dp != 16 && dp != 32 && dp != 48 && dp != 64 && dp != 96 && dp != 128)
     return (int)cudaErrorInvalidValue;
-  if (!shape_ok(MODE, dp / 8, a.nslots, warps, slots_shared, smem))
+  if (!shape_ok(MODE, PREC, dp / 8, a.nslots, warps, slots_shared, smem))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t e;
   switch (dp / 8) {
-    case 2: e = launch_np<2, MODE>(a, warps, smem, s); break;
-    case 4: e = launch_np<4, MODE>(a, warps, smem, s); break;
-    case 6: e = launch_np<6, MODE>(a, warps, smem, s); break;
-    case 8: e = launch_np<8, MODE>(a, warps, smem, s); break;
-    case 12: e = launch_np<12, MODE>(a, warps, smem, s); break;
-    default: e = launch_np<16, MODE>(a, warps, smem, s); break;
+    case 2: e = launch_np<2, MODE, PREC>(a, warps, smem, s); break;
+    case 4: e = launch_np<4, MODE, PREC>(a, warps, smem, s); break;
+    case 6: e = launch_np<6, MODE, PREC>(a, warps, smem, s); break;
+    case 8: e = launch_np<8, MODE, PREC>(a, warps, smem, s); break;
+    case 12: e = launch_np<12, MODE, PREC>(a, warps, smem, s); break;
+    default: e = launch_np<16, MODE, PREC>(a, warps, smem, s); break;
   }
   return (int)e;
 }
@@ -673,7 +812,7 @@ Args make_args(const void* vals, int N, int norb, int d, const void* order, cons
 // pynqs_tpu_torch/ops/fused_rnn.py::pack_mma_tables lays them out; the
 // launch shape (warps, slots_shared, smem) as mma_launch_shape gives it;
 // gslots is the global slot file where slots_shared is 0 (grid * warps *
-// nslots * dp / 8 * 512 bytes), else ignored.  Each launches on
+// nslots * dp / 8 * 512 bytes, twice that in f32), else ignored.  Each launches on
 // ``stream`` and returns cudaGetLastError() of the launch, or
 // cudaErrorInvalidValue for a width or shape the kernel does not take.
 
@@ -692,6 +831,25 @@ extern "C" int fused_rnn_forward_mma(
   a.use_tensor = use_tensor;
   a.dcp = use_tensor ? dcp : 4;
   return run<MODE_FLAT>(a, dp, warps, slots_shared, smem, stream);
+}
+
+// The f32 flat forward on the tensor cores (kernel #1), as three TF32
+// products per product: the arguments of fused_rnn_forward_mma, with the
+// f32 weight stream of pack_mma_tables(matmul_dtype=torch.float32).
+extern "C" int fused_rnn_forward_mma_f32(
+    const void* vals, int N, int norb, int d, int dp, const void* order, const void* npred,
+    const void* slot_w, const void* slot_r, int nslots, const void* tab, const void* chunks,
+    int nchunks, const void* vcat, const void* E, const void* PW, const void* SC, int noa,
+    int nob, int phase_arg, int norm_mpsrnn, int mp, int use_tensor, int dcp, int warps,
+    int slots_shared, int smem, void* gslots, void* out, void* stream) {
+  if (use_tensor && dcp != 4 && dcp != 8) return (int)cudaErrorInvalidValue;
+  Args a = make_args(vals, N, norb, d, order, npred, slot_w, slot_r, nslots, tab, chunks,
+                     nchunks, vcat, E, PW, SC, noa, nob, phase_arg, norm_mpsrnn, slots_shared,
+                     gslots, out);
+  a.mp = mp;
+  a.use_tensor = use_tensor;
+  a.dcp = use_tensor ? dcp : 4;
+  return run<MODE_FLAT, PREC_F32X3>(a, dp, warps, slots_shared, smem, stream);
 }
 
 // The parent pass of the prefix-sharing forward (kernel #2, chains): the

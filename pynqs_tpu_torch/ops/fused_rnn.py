@@ -14,13 +14,17 @@ ratio forwards of the local energy.  Differences from ``log_psi``:
 
 ``graph_mpsrnn_logpsi_fused`` takes the plain torch version
 (``graph_mpsrnn_logpsi_fused_plain``) for rows on the CPU.  On the card
-it launches, or raises: in bf16 mode the tensor-core kernel
-(``csrc/fused_rnn_mma.cu``, operands from ``pack_mma_tables`` and
-``hidden_slots``, launch shape from ``mma_launch_shape``), in f32 mode
-the CUDA-core kernel (``csrc/fused_rnn.cu``).  ``LAUNCHES`` counts
-launches of either, ``MMA_LAUNCHES`` those of the tensor-core kernel.
-The prefix-sharing passes (``ops/fused_rnn_prefix.py``) launch the other
-entry points of the same two libraries.
+it launches the tensor-core kernel (``csrc/fused_rnn_mma.cu``, operands
+from ``pack_mma_tables`` and ``hidden_slots``, launch shape from
+``mma_launch_shape``), or raises: in bf16 mode its bf16 instantiation,
+in f32 mode its f32 one, each product as three TF32 products.
+``LAUNCHES`` counts every launch of the fused forward, ``MMA_LAUNCHES``
+those of the bf16 tensor-core kernel, ``F32_MMA_LAUNCHES`` those of the
+f32 one.  The earlier CUDA-core kernel (``csrc/fused_rnn.cu``) serves the
+prefix-sharing passes' f32 mode (``ops/fused_rnn_prefix.py``, which
+launches the other entry points of both libraries); its flat forward is
+reached only to time and check it beside the tensor-core kernel
+(``_launch_simt`` in bf16, ``_launch_f32_cuda_cores`` in f32).
 """
 
 from __future__ import annotations
@@ -47,11 +51,13 @@ __all__ = [
     "build_mma_kernel",
     "LAUNCHES",
     "MMA_LAUNCHES",
+    "F32_MMA_LAUNCHES",
 ]
 
 _NEG = -1e30
-LAUNCHES = Counter()  # every launch of the fused forward (either kernel)
-MMA_LAUNCHES = Counter()  # launches of the tensor-core kernel
+LAUNCHES = Counter()  # every launch of the fused forward (any kernel, any mode)
+MMA_LAUNCHES = Counter()  # launches of the tensor-core kernel in bf16
+F32_MMA_LAUNCHES = Counter()  # launches of the tensor-core kernel in f32 (3xTF32)
 MMA_WIDTHS = (16, 32, 48, 64, 96, 128)  # padded d (dp) the tensor-core kernel takes
 STAGE_U4 = 24576 // 16  # one weight stage of the tensor-core kernel, in 16-byte units
 STAGES = 3  # weight stages of the tensor-core kernel
@@ -172,24 +178,45 @@ def _frag(B: torch.Tensor) -> torch.Tensor:
     return b.reshape(*lead, K // 16, 16 * n)
 
 
+def _frag_tf32(B: torch.Tensor) -> torch.Tensor:
+    """B [..., K, n] (K a multiple of 8, n of 16) -> [..., K/8, 8 n] in the
+    order the f32 mode's mma.sync.m16n8k8 (TF32) reads its B fragments,
+    lane l = 4 g + c holding b0 = (k c, n g) and b1 = (k c + 4, n g), with
+    k permuted inside each 8-block: MMA k c and c + 4 read rows 2c and
+    2c + 1, so that a lane's C fragment of n-tile k is its A fragment of
+    k-step k.  Per k-step, per pair p of n8 tiles, per lane, the 4 values
+    (n-tile 2p + s, row 2c + e) for s, e in {0, 1}, s slowest: one 16-byte
+    load per lane gives the lane's b0, b1 of both tiles."""
+    K, n = B.shape[-2:]
+    lead = B.shape[:-2]
+    b = B.reshape(*lead, K // 8, 4, 2, n // 16, 2, 8)  # ks, c, e, p, s, g
+    o = len(lead)
+    b = b.permute(*range(o), o, o + 3, o + 5, o + 1, o + 4, o + 2)
+    return b.reshape(*lead, K // 8, 8 * n)
+
+
 _MMA_CACHE: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
 
 
-def pack_mma_tables(model, tables=None) -> dict:
-    """Operands of the tensor-core kernel, from ``pack_tables``' f32
-    tables (``tables``, or the model's own).  With dp = ``mma_width(d)``,
-    O = 2 dp, NP = O / 16, dcp = dcut_cmpr rounded up to 4 (4 or 8):
+def pack_mma_tables(model, tables=None, matmul_dtype=torch.bfloat16) -> dict:
+    """Operands of the tensor-core kernel in ``matmul_dtype`` (bf16, or
+    f32 for its 3xTF32 mode), from ``pack_tables``' f32 tables
+    (``tables``, or the model's own).  With dp = ``mma_width(d)``, O =
+    2 dp, NP = O / 16, dcp = dcut_cmpr rounded up to 4 (4 or 8), KS the
+    k-steps of one hidden (NP of k16 in bf16, 2 NP of k8 in f32) and
+    ``frag`` = ``_frag`` (bf16) or ``_frag_tf32`` (f32):
 
-      tab     bf16 stream, in the order the kernel consumes it; per
-              position t with np predecessors (coupled: use_tensor and
-              np >= 2):
-                coupled: UW, np * NP k-steps of ``_frag`` of B_j
+      tab     the stream in ``matmul_dtype``, in the order the kernel
+              consumes it; per position t with np predecessors (coupled:
+              use_tensor and np >= 2):
+                coupled: UW, np * KS k-steps of ``frag`` of B_j
                   [2 dp, 8 dcp], rows (re|im, e < dp) of predecessor j's
                   hidden, columns (x, c < dcp, re|im) of u_{j,x,c};
-                per value x: np * NP k-steps of ``_frag`` of W[t, x]
+                per value x: np * KS k-steps of ``frag`` of W[t, x]
                   [2 dp · mp, O] (rows (j, re|im, e), columns (re|im,
-                  dd)), then (coupled) one k-step of KW_x [16, O], rows
-                  (c, re|im) of the product, zero past 2 dcp;
+                  dd)), then (coupled) the k-steps of KW_x, rows
+                  (c, re|im) of the product: one [16, O], zero past
+                  2 dcp (bf16), or dcp / 4 of [2 dcp, O] (f32);
       chunks  int32 [n, 2] (offset, length) in 16-byte units: each run of
               k-steps above cut into chunks of at most STAGE_U4 units;
       site_chunk  int32 [norb + 1]: the index in ``chunks`` of each
@@ -197,32 +224,37 @@ def pack_mma_tables(model, tables=None) -> dict:
               stream there), len(chunks) at norb;
       vcat, E, PW  f32 [norb, 4, O], d padded to dp in each half; SC;
       slot_w, slot_r, nslots  ``hidden_slots``; order, npred int32;
-      dp, dcp, NP.
+      dp, dcp, NP, KS.
 
-    Cached per model, while ``tables`` (or the model's parameters) are
-    the same tensors at the same version: an optimizer step or a load
-    repacks."""
+    Cached per model and type, while ``tables`` (or the model's
+    parameters) are the same tensors at the same version: an optimizer
+    step or a load repacks."""
+    if matmul_dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"matmul_dtype must be bf16 or f32, not {matmul_dtype}")
     src = list(model.parameters()) if tables is None else list(tables.values())
-    hit = _MMA_CACHE.get(model)
+    hits = _MMA_CACHE.setdefault(model, {})
+    hit = hits.get(matmul_dtype)
     if hit is not None and len(hit[0]) == len(src) and all(
         a is b and v == b._version for (a, v), b in zip(hit[0], src)
     ):
         return hit[1]
-    packed = _pack_mma(model, pack_tables(model) if tables is None else tables)
-    _MMA_CACHE[model] = ([(t, t._version) for t in src], packed)
+    packed = _pack_mma(model, pack_tables(model) if tables is None else tables, matmul_dtype)
+    hits[matmul_dtype] = ([(t, t._version) for t in src], packed)
     return packed
 
 
 @torch.no_grad()
-def _pack_mma(model, T) -> dict:
+def _pack_mma(model, T, mmdt) -> dict:
     norb, d, mp = model.norb, model.dcut, model.maxp
     dp = mma_width(d)
     O, NP = 2 * dp, dp // 8
-    dev, f, bf = T["W"].device, torch.float32, torch.bfloat16
+    dev, f = T["W"].device, torch.float32
+    f32 = mmdt == torch.float32
+    frag, KS = (_frag_tf32, 2 * NP) if f32 else (_frag, NP)
     pad_d = lambda v: F.pad(v.reshape(*v.shape[:-1], 2, d), (0, dp - d)).reshape(  # noqa: E731
         *v.shape[:-1], O)
     W = F.pad(T["W"].reshape(norb, 4, mp, 2, d, 2, d), (0, dp - d, 0, 0, 0, dp - d))
-    Wf = _frag(W.reshape(norb, 4, mp * O, O).to(bf))  # [norb, 4, mp NP, 16 O]
+    Wf = frag(W.reshape(norb, 4, mp * O, O).to(mmdt))  # [norb, 4, mp KS, 16 O or 8 O]
     coupled = [model.use_tensor and len(ps) >= 2 for ps in model.preds]
     dcp = 0
     if model.use_tensor:
@@ -237,7 +269,7 @@ def _pack_mma(model, T) -> dict:
         UW[:, :, 1, :d, :, :dc, 0] = -Ui
         UW[:, :, 0, :d, :, :dc, 1] = Ui
         UW[:, :, 1, :d, :, :dc, 1] = Ur
-        UWf = _frag(UW.reshape(norb, mp, O, 8 * dcp).to(bf))  # [norb, mp, NP, 128 dcp]
+        UWf = frag(UW.reshape(norb, mp, O, 8 * dcp).to(mmdt))  # [norb, mp, KS, ...]
         Kr = T["K_re"].transpose(-1, -2)  # [norb, 4, dc, d]
         Ki = T["K_im"].transpose(-1, -2)
         KW = torch.zeros(norb, 4, 8, 2, 2, dp, dtype=f, device=dev)
@@ -245,12 +277,13 @@ def _pack_mma(model, T) -> dict:
         KW[:, :, :dc, 0, 1, :d] = Ki
         KW[:, :, :dc, 1, 0, :d] = -Ki
         KW[:, :, :dc, 1, 1, :d] = Kr
-        KWf = _frag(KW.reshape(norb, 4, 16, O).to(bf))  # [norb, 4, 1, 16 O]
+        KW = KW.reshape(norb, 4, 16, O)
+        KWf = frag((KW[:, :, : 2 * dcp] if f32 else KW).to(mmdt))  # [norb, 4, 1 or dcp/4, ...]
     pieces, chunks, off = [], [], 0
 
-    def segment(ks):  # ks [n k-steps, 8 ksz] bf16
+    def segment(ks):  # ks [n k-steps, ksz 16-byte units]
         nonlocal off
-        ksz = ks.shape[1] // 8
+        ksz = ks.shape[1] * ks.element_size() // 16
         per = STAGE_U4 // ksz
         for k0 in range(0, ks.shape[0], per):
             n = min(per, ks.shape[0] - k0) * ksz
@@ -263,15 +296,15 @@ def _pack_mma(model, T) -> dict:
         site_chunk.append(len(chunks))
         npd = len(model.preds[t])
         if coupled[t]:
-            segment(UWf[t, :npd].reshape(npd * NP, -1))
+            segment(UWf[t, :npd].reshape(npd * KS, -1))
         for x in range(4):
-            ks = Wf[t, x, : npd * NP]
+            ks = Wf[t, x, : npd * KS]
             segment(torch.cat([ks, KWf[t, x]]) if coupled[t] else ks)
     site_chunk.append(len(chunks))
     slot_w, slot_r, nslots = hidden_slots(model)
     i32 = dict(dtype=torch.int32, device=dev)
     return {
-        "tab": torch.cat(pieces) if pieces else torch.zeros(8, dtype=bf, device=dev),
+        "tab": torch.cat(pieces) if pieces else torch.zeros(8, dtype=mmdt, device=dev),
         "chunks": torch.tensor(chunks, **i32).reshape(-1, 2),
         "site_chunk": torch.tensor(site_chunk, **i32),
         "vcat": pad_d(T["vcat"]).contiguous(), "E": pad_d(T["E"]).contiguous(),
@@ -280,7 +313,7 @@ def _pack_mma(model, T) -> dict:
         "nslots": nslots,
         "order": torch.tensor(model.site_order, **i32),
         "npred": torch.tensor([len(p) for p in model.preds], **i32),
-        "dp": dp, "dcp": dcp, "NP": NP,
+        "dp": dp, "dcp": dcp, "NP": NP, "KS": KS,
     }
 
 
@@ -472,14 +505,16 @@ def operands(model, matmul_dtype, tables, dev) -> tuple:
 
 @torch.no_grad()
 def _launch_cuda_cores(model, bits, matmul_dtype, tables):
-    """The CUDA-core kernel (csrc/fused_rnn.cu ``fused_rnn_forward``)."""
+    """The CUDA-core kernel (csrc/fused_rnn.cu ``fused_rnn_forward``), for
+    timing and checks beside the tensor-core kernel only."""
     dev = bits.device
     T, W, order, pred, npred = operands(model, matmul_dtype, tables, dev)
     vals = site_values(model, bits)
     norb, d, mp = model.norb, model.dcut, model.maxp
     N = bits.shape[0]
     out = torch.empty(N, 4, dtype=torch.float32, device=dev)
-    # DAG hidden file: [N, norb, 2d] f32 (6.7 GB at the r5g64 step's 657,408 rows)
+    # DAG hidden file: [N, norb, 2d] f32 (6.7 GB at the r5g64 step's 657,408
+    # rows; the tensor-core kernel's f32 slot file is 7 of the 20 sites)
     hbuf = (
         torch.empty(0, dtype=torch.float32, device=dev)
         if model.is_chain
@@ -514,6 +549,13 @@ def _launch_simt(model, bits, tables=None):
     return _launch_cuda_cores(model, bits, torch.bfloat16, tables)
 
 
+def _launch_f32_cuda_cores(model, bits, tables=None):
+    """The CUDA-core kernel in f32 mode, the f32 forward's earlier design,
+    for timing and checking it beside the tensor-core kernel's f32 mode on
+    the same rows.  Not reachable from ``graph_mpsrnn_logpsi_fused``."""
+    return _launch_cuda_cores(model, bits, torch.float32, tables)
+
+
 # ---------------- the tensor-core kernel ----------------
 
 
@@ -534,28 +576,32 @@ def _bind_mma(so):
         I, I, I, I,              # noa, nob, phase_arg, norm_mpsrnn
     ]
     shape = [I, I, I, P]         # warps, slots_shared, smem, gslots
-    so.fused_rnn_forward_mma.argtypes = head + [I, I, I] + shape + [  # mp, use_tensor, dcp
-        P, P,                    # out, stream
-    ]
+    for fn in (so.fused_rnn_forward_mma, so.fused_rnn_forward_mma_f32):
+        fn.argtypes = head + [I, I, I] + shape + [  # mp, use_tensor, dcp
+            P, P,                # out, stream
+        ]
     so.fused_rnn_prefix_parent_mma.argtypes = head + shape + [P, P, P, P]  # hh, sh, out, stream
     so.fused_rnn_prefix_child_mma.argtypes = head + shape + [
         P, P, P, P, P, P, P,     # site_chunk, s0, parent, hh, sh, out, stream
     ]
-    for fn in (so.fused_rnn_forward_mma, so.fused_rnn_prefix_parent_mma,
-               so.fused_rnn_prefix_child_mma):
+    for fn in (so.fused_rnn_forward_mma, so.fused_rnn_forward_mma_f32,
+               so.fused_rnn_prefix_parent_mma, so.fused_rnn_prefix_child_mma):
         fn.restype = I
 
 
 def lib_mma():
     """The built library of the tensor-core kernel (fused_rnn_forward_mma,
-    fused_rnn_prefix_parent_mma, fused_rnn_prefix_child_mma)."""
+    fused_rnn_forward_mma_f32, fused_rnn_prefix_parent_mma,
+    fused_rnn_prefix_child_mma)."""
     return cuda_build.load_library("fused_rnn_mma", _bind_mma)
 
 
-def mma_launch_shape(model, n_rows=None, n_sm=None) -> dict:
-    """How the tensor-core kernel launches for ``model``: warps of 16 rows
-    per CTA, where the hidden slots live ("shared" or "global"), their
-    count, and the dynamic shared memory of one CTA in bytes.
+def mma_launch_shape(model, n_rows=None, n_sm=None, matmul_dtype=torch.bfloat16) -> dict:
+    """How the tensor-core kernel launches for ``model`` in
+    ``matmul_dtype``: warps of 16 rows per CTA, where the hidden slots
+    live ("shared" or "global"), their count, and the dynamic shared
+    memory of one CTA in bytes.  A slot of one warp holds 16 rows' hidden,
+    dp / 8 x 512 bytes in bf16, twice that in f32.
 
     The flat forward (``n_rows`` None) takes 8 warps where the slots fit
     in shared memory beside the weight stages, else 4, else 4 with the
@@ -565,11 +611,12 @@ def mma_launch_shape(model, n_rows=None, n_sm=None) -> dict:
     streams all of W whatever its rows (2048 rows: 1 warp, 128 CTAs;
     large N keeps 8).  Then "ctas" is the grid too."""
     dp = mma_width(model.dcut)
-    NP, nslots = dp // 8, hidden_slots(model)[2]
+    nslots = hidden_slots(model)[2]
+    slot = dp // 8 * 512 * (2 if matmul_dtype == torch.float32 else 1)
     stages = STAGES * STAGE_U4 * 16
     warps, shared = 4, False
     for w in (8, 4):
-        if stages + w * nslots * NP * 512 <= SMEM_LIMIT:
+        if stages + w * nslots * slot <= SMEM_LIMIT:
             warps, shared = w, True
             break
     out = {"nslots": nslots, "slots": "shared" if shared else "global"}
@@ -580,7 +627,7 @@ def mma_launch_shape(model, n_rows=None, n_sm=None) -> dict:
             warps //= 2
         out["ctas"] = -(-n_rows // (16 * warps))
     out["warps"] = warps
-    out["smem_bytes"] = stages + (warps * nslots * NP * 512 if shared else 0)
+    out["smem_bytes"] = stages + (warps * nslots * slot if shared else 0)
     return out
 
 
@@ -592,19 +639,20 @@ def check_tables(tables, dev):
             raise ValueError(f"table {k} must be contiguous f32 on {dev}")
 
 
-def mma_operands(model, tables, dev, N, shape) -> tuple:
+def mma_operands(model, tables, dev, N, shape, matmul_dtype=torch.bfloat16) -> tuple:
     """The launch arguments the tensor-core entry points share, from
-    ``pack_mma_tables`` (checked to lie on ``dev``): (packed tables, the
-    arguments from norb to norm_mpsrnn, the launch shape's arguments
-    with a global slot file for N rows where the slots do not fit on
-    chip, and that file, which must outlive the launch)."""
+    ``pack_mma_tables`` in ``matmul_dtype`` (checked to lie on ``dev``):
+    (packed tables, the arguments from norb to norm_mpsrnn, the launch
+    shape's arguments with a global slot file for N rows where the slots
+    do not fit on chip, and that file, which must outlive the launch)."""
     check_tables(tables, dev)
-    P = pack_mma_tables(model, tables)
+    P = pack_mma_tables(model, tables, matmul_dtype)
     if P["tab"].device != dev:
         raise ValueError(f"the model's tables must be on {dev}")
     rows = 16 * shape["warps"]
-    n_gslot = 0 if shape["slots"] == "shared" else -(-N // rows) * rows * P["nslots"] * 4 * P["dp"]
-    gslots = torch.empty(n_gslot, dtype=torch.uint8, device=dev)  # bf16 hidden file
+    row_bytes = P["nslots"] * 2 * P["dp"] * P["tab"].element_size()  # one row's slots
+    n_gslot = 0 if shape["slots"] == "shared" else -(-N // rows) * rows * row_bytes
+    gslots = torch.empty(n_gslot, dtype=torch.uint8, device=dev)  # the hidden file
     head = (
         model.norb, model.dcut, P["dp"],
         P["order"].data_ptr(), P["npred"].data_ptr(), P["slot_w"].data_ptr(),
@@ -619,21 +667,25 @@ def mma_operands(model, tables, dev, N, shape) -> tuple:
 
 
 @torch.no_grad()
-def _launch_mma(model, bits, tables):
-    """The tensor-core kernel (csrc/fused_rnn_mma.cu), bf16 mode."""
+def _launch_mma(model, bits, tables, matmul_dtype=torch.bfloat16):
+    """The tensor-core kernel (csrc/fused_rnn_mma.cu): its bf16 mode, or
+    its f32 mode of three TF32 products per product."""
     dev = bits.device
     vals = site_values(model, bits)
     N = bits.shape[0]
     out = torch.empty(N, 4, dtype=torch.float32, device=dev)
-    P, head, launch, _gslots = mma_operands(model, tables, dev, N, mma_launch_shape(model))
+    shape = mma_launch_shape(model, matmul_dtype=matmul_dtype)
+    P, head, launch, _gslots = mma_operands(model, tables, dev, N, shape, matmul_dtype)
+    f32 = matmul_dtype == torch.float32
     if N > 0:
-        err = lib_mma().fused_rnn_forward_mma(
+        fn = lib_mma().fused_rnn_forward_mma_f32 if f32 else lib_mma().fused_rnn_forward_mma
+        err = fn(
             vals.data_ptr(), N, *head, model.maxp, int(model.use_tensor), P["dcp"], *launch,
             out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
         )
         check_launch(err, "fused_rnn_mma")
         LAUNCHES.n += 1
-        MMA_LAUNCHES.n += 1
+        (F32_MMA_LAUNCHES if f32 else MMA_LAUNCHES).n += 1
     return _finish(model, bits, out)
 
 
@@ -642,8 +694,8 @@ def graph_mpsrnn_logpsi_fused(
 ) -> torch.Tensor:
     """Gradient-free replacement for ``model.log_psi``: bits [N, sorb]
     0/1 -> [N, 2] (log|ψ|, arg ψ), f32.  CPU rows take the plain
-    version; CUDA rows launch the tensor-core kernel (bf16) or the
-    CUDA-core kernel (f32), or raise."""
+    version; CUDA rows launch the tensor-core kernel in bf16 or in f32
+    (3xTF32), or raise."""
     if not fused_forward_available(model):
         raise ValueError("the fused forward computes GraphMPSRNN models only")
     if bits.device.type == "cpu":
@@ -652,6 +704,4 @@ def graph_mpsrnn_logpsi_fused(
         )
     if bits.device.type != "cuda":
         raise ValueError(f"unsupported device {bits.device}")
-    if matmul_dtype == torch.bfloat16:
-        return _launch_mma(model, bits, tables)
-    return _launch_cuda_cores(model, bits, matmul_dtype, tables)  # raises unless f32
+    return _launch_mma(model, bits, tables, matmul_dtype)  # raises unless bf16 or f32

@@ -6,9 +6,10 @@ captured set under exact |ψ|² weights (the REDUCE local energy with the
 dense pair matrix, exact for ``--k-det 0``), then ``ci.nqs_ci.ci_polish``
 with the ``m`` heaviest captured determinants as the CI set, for each
 ``m`` of ``--m``.  ``--fwd-dtype`` is the forward's precision on the
-card: the fused forward in bf16 (tensor cores) or f32 (CUDA cores), or
-``xla``, the exact site-loop ``model.log_psi``; TF32 stays off.  On the
-CPU the forward is ``model.log_psi``.
+card: the fused forward in bf16 or f32 (both on the tensor cores, f32 as
+three TF32 products per product), or ``xla``, the exact site-loop
+``model.log_psi``; torch's own TF32 stays off.  On the CPU the forward is
+``model.log_psi``.
 
     python -m pynqs_tpu_torch.scripts.fe2s2_ci_polish checkpoints/fe2s2_r3_dcut64_r5g64.pkl \\
         --dcut 64 --use-tensor --max-preds 2 --capacity 8192 --m 2048,4096,8192 \\

@@ -16,7 +16,8 @@ H_nn: a training signal, not a variational bound (the judged number
 comes from ``fe2s2_ci_polish --restrict capture`` on the saved state).
 ``--fwd-dtype`` is the precision of the gradient-free forwards on the
 card (``fe2s2_ci_polish.polish_forward``): the fused forward in f32 (the
-default; CUDA cores) or bf16 (tensor cores, the JAX script's choice), or
+default; tensor cores, three TF32 products per product) or bf16 (tensor
+cores, the JAX script's choice), or
 ``xla``, the exact site-loop ``model.log_psi``; the gradient's forwards
 are ``model.log_psi``.  On the CPU every forward is ``model.log_psi``.
 

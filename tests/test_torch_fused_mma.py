@@ -1,23 +1,32 @@
 """The tensor-core forward's host side on the CPU: ``pack_mma_tables``
 against the JAX package's weight packing, ``hidden_slots`` against the
-plain forward, and the kernel's walk through the packed stream.
+plain forward, and the kernel's walk through the packed stream, in both
+of its precisions (bf16, and f32 as three TF32 products).
 
 The kernel itself (csrc/fused_rnn_mma.cu) runs only on the card, where
 tests/test_torch_gpu.py holds it against the plain version.  Here:
 
   * (a) the packed stream, read back k-step by k-step in the order the
-    kernel reads it and decoded with the mma.sync.m16n8k16 B-fragment
-    map (the PTX ISA's: lane 4g + c holds k = 2c + 8h + e of column g),
-    equals entry by entry, bitwise in bf16, the JAX package's
-    ``_pack_weights`` W and ``_pack_tensor_weights`` UW/KW, with the
-    same numpy-seeded parameters; padding is zero;
+    kernel reads it and decoded with the PTX ISA's B-fragment map, in
+    bf16 of mma.sync.m16n8k16 (lane 4g + c holds k = 2c + 8h + e of
+    column g), in f32 of m16n8k8 TF32 (lane 4g + c holds MMA k = c and
+    c + 4 of column g) and the packing's k permutation (MMA k q < 4 reads
+    row 2q, q >= 4 row 2q - 7), equals entry by entry, bitwise in the
+    stream's type, the JAX package's ``_pack_weights`` W and
+    ``_pack_tensor_weights`` UW/KW, with the same numpy-seeded
+    parameters; padding is zero;
   * (b) a plain forward that keeps the hiddens in ``hidden_slots``'
     slots is bitwise equal, in f64, to the plain forward with its dict,
-    and no slot is overwritten while it is live;
+    in either precision's rounding, and no slot is overwritten while it
+    is live;
   * (c) an f64 emulation of the kernel's loops on the packed stream
-    (slots, UW product over predecessors, KW k-step, epilogue) agrees
-    with the plain version in f64 to 1e-9: the two differ only in
-    summation order.
+    (slots, UW product over predecessors, KW k-steps, epilogue) agrees
+    in bf16 with the plain version in f64 to 1e-9 (the two differ only
+    in summation order); in f32, with each product's operands split into
+    TF32 heads and tails by bit operations on the f32 words as the kernel
+    splits them and the tails' product left out, with the f32 plain
+    version to 1e-5 on log|psi| and 1e-4 on the phase: the split's error
+    predicted before any run on the card.
 """
 
 import numpy as np
@@ -39,7 +48,9 @@ from pynqs_tpu_torch.utils.flagship import flagship_model
 from pynqs_tpu_torch.utils.graph import dag_from_order
 from pynqs_tpu_torch.utils.system import System
 
-f64, bf16 = torch.float64, torch.bfloat16
+f64, f32, bf16 = torch.float64, torch.float32, torch.bfloat16
+PRECS = ("bf16", "f32")
+DT = {"bf16": bf16, "f32": f32}
 
 
 def _jax_dp(d):
@@ -83,24 +94,34 @@ CASES = {
 # ---------------- the kernel's reading of the packed stream ----------------
 
 
-def _lane_map():
-    """(k, n) inside a 16 x 16 pair of n8 tiles of the flat index 8 l + i
-    of lane l = 4g + c's 8 bf16 values: register i // 2 = 2s + h holds
-    tile s's b{2h}, b{2h+1}, i.e. k = 2c + 8h + (i % 2), n = 8s + g."""
-    lane, i = np.arange(32)[:, None], np.arange(8)[None, :]
+def _lane_map(prec):
+    """(k, n) inside a k-step's pair of n8 tiles (16 columns) of the flat
+    index of lane l = 4g + c's values.  bf16, m16n8k16: 8 values, register
+    i // 2 = 2s + h holds tile s's b{2h}, b{2h+1}, i.e. k = 2c + 8h +
+    (i % 2), n = 8s + g.  f32, m16n8k8 TF32: 4 values, i = 2s + r holds
+    tile s's b{r}, at MMA k q = c + 4r, n = 8s + g; the packing's k
+    permutation puts MMA k q < 4 at row 2q and q >= 4 at row 2(q - 4) + 1."""
+    lane = np.arange(32)[:, None]
     g, c = lane // 4, lane % 4
-    s, h, e = i // 4, (i // 2) % 2, i % 2
-    return (2 * c + 8 * h + e).ravel(), (8 * s + g).ravel()
+    if prec == "bf16":
+        i = np.arange(8)[None, :]
+        s, h, e = i // 4, (i // 2) % 2, i % 2
+        return (2 * c + 8 * h + e).ravel(), (8 * s + g).ravel()
+    i = np.arange(4)[None, :]
+    s, q = i // 2, c + 4 * (i % 2)
+    return np.where(q < 4, 2 * q, 2 * (q - 4) + 1).ravel(), (8 * s + g).ravel()
 
 
-K_IDX, N_IDX = _lane_map()
+LANE_MAPS = {p: _lane_map(p) for p in PRECS}
+K_DEPTH = {"bf16": 16, "f32": 8}  # k rows of one k-step
 
 
-def _unfrag(tile, n):
-    """One k-step's flat values, width n -> the dense [16, n] B block."""
-    B = torch.zeros(16, n, dtype=f64)
-    for p, part in enumerate(tile.reshape(n // 16, 256)):
-        B[K_IDX, 16 * p + N_IDX] = part
+def _unfrag(tile, n, prec="bf16"):
+    """One k-step's flat values, width n -> the dense [k depth, n] B block."""
+    kd, (k_idx, n_idx) = K_DEPTH[prec], LANE_MAPS[prec]
+    B = torch.zeros(kd, n, dtype=f64)
+    for p, part in enumerate(tile.reshape(n // 16, 16 * kd)):
+        B[k_idx, 16 * p + n_idx] = part
     return B
 
 
@@ -110,37 +131,40 @@ class _Stream:
 
     def __init__(self, P):
         self.tab = P["tab"].to(f64)
+        self.per_u4 = 16 // P["tab"].element_size()  # values per 16-byte unit
         self.chunks = P["chunks"].tolist()
         self.c = 0
 
     def run(self, nks, ksz):
-        per, out = fused_rnn.STAGE_U4 // ksz, []
+        per, out, v = fused_rnn.STAGE_U4 // ksz, [], self.per_u4
         for k0 in range(0, nks, per):
             off, n = self.chunks[self.c]
             self.c += 1
             m = min(per, nks - k0)
             assert n == m * ksz and n <= fused_rnn.STAGE_U4
-            out += [self.tab[8 * (off + i * ksz): 8 * (off + (i + 1) * ksz)] for i in range(m)]
+            out += [self.tab[v * (off + i * ksz): v * (off + (i + 1) * ksz)] for i in range(m)]
         return out
 
 
-def _unpack(model, P):
+def _unpack(model, P, prec="bf16"):
     """Per position t: {"W": [4, np·O, O], "UW": [np, O, 8 dcp], "KW":
-    [4, 16, O]} (the last two where coupled), as the kernel reads them."""
-    dcp, NP = P["dcp"], P["NP"]
+    [4, 16 (bf16) or 2 dcp (f32), O]} (the last two where coupled), as the
+    kernel reads them."""
+    dcp, NP, KS = P["dcp"], P["NP"], P["KS"]
     O = 16 * NP
     st, sites = _Stream(P), []
     for ps in model.preds:
         npd = len(ps)
         site = {}
         if model.use_tensor and npd >= 2:
-            B = [_unfrag(k, 8 * dcp) for k in st.run(npd * NP, 16 * dcp)]
+            B = [_unfrag(k, 8 * dcp, prec) for k in st.run(npd * KS, 16 * dcp)]
             site["UW"] = torch.cat(B).reshape(npd, O, 8 * dcp)
+        nkw = (1 if prec == "bf16" else dcp // 4) if "UW" in site else 0
         W, KW = [], []
         for _ in range(4):
-            B = [_unfrag(k, O) for k in st.run(npd * NP + ("UW" in site), 32 * NP)]
-            W.append(torch.cat(B[: npd * NP]) if npd else torch.zeros(0, O, dtype=f64))
-            KW.append(B[-1] if "UW" in site else None)
+            B = [_unfrag(k, O, prec) for k in st.run(npd * KS + nkw, 32 * NP)]
+            W.append(torch.cat(B[: npd * KS]) if npd else torch.zeros(0, O, dtype=f64))
+            KW.append(torch.cat(B[npd * KS:]) if nkw else None)
         site["W"] = torch.stack(W)
         if "UW" in site:
             site["KW"] = torch.stack(KW)
@@ -156,17 +180,24 @@ def _bf16(a):
     return np.asarray(jnp.asarray(a, jnp.float32).astype(jnp.bfloat16).astype(jnp.float32))
 
 
+def _f32(a):
+    return np.asarray(a, np.float32)
+
+
+@pytest.mark.parametrize("prec", PRECS)
 @pytest.mark.parametrize("case", list(CASES))
-def test_packed_tables_equal_the_jax_packing(case):
+def test_packed_tables_equal_the_jax_packing(case, prec):
     jm, params, tm = CASES[case]()
     d, dc = tm.dcut, tm.dcut_cmpr
     jdp = _jax_dp(d)
-    P = fused_rnn.pack_mma_tables(tm)
+    P = fused_rnn.pack_mma_tables(tm, matmul_dtype=DT[prec])
     dp, dcp = P["dp"], P["dcp"]
-    assert P["tab"].dtype == bf16 and dp == fused_rnn.mma_width(d)
-    sites = _unpack(tm, P)
+    assert P["tab"].dtype == DT[prec] and dp == fused_rnn.mma_width(d)
+    assert P["KS"] == {"bf16": 1, "f32": 2}[prec] * P["NP"]
+    sites = _unpack(tm, P, prec)
+    rnd = {"bf16": _bf16, "f32": _f32}[prec]  # the JAX packing in the stream's type
     jp = {k: jnp.asarray(v) for k, v in params.items()}
-    Wj = _bf16(jax.jit(lambda q: _pack_weights(jm, q, jdp)[0])(jp))  # [norb, 8 jdp, 2 mp jdp]
+    Wj = rnd(jax.jit(lambda q: _pack_weights(jm, q, jdp)[0])(jp))  # [norb, 8 jdp, 2 mp jdp]
     Wj = Wj.reshape(tm.norb, 4, 2, jdp, tm.maxp, 2, jdp)  # x, ri_o, dd, p, ri_i, e
     for t, site in enumerate(sites):
         npd = len(tm.preds[t])
@@ -180,7 +211,7 @@ def test_packed_tables_equal_the_jax_packing(case):
         assert P["dcp"] == 0 and not any("UW" in s for s in sites)
         return
     jdcp = -(-dc // 8) * 8
-    UWj, KWj = (_bf16(a) for a in jax.jit(
+    UWj, KWj = (rnd(a) for a in jax.jit(
         lambda q: _pack_tensor_weights(jm, q, jdp, jdcp))(jp))
     UWj = UWj.reshape(tm.norb, tm.maxp, 4, 2, jdcp, tm.maxp, 2, jdp)  # j,x,ri_o,c,p,ri_i,e
     KWj = KWj.reshape(tm.norb, 4, 2, jdp, 4, 2, jdcp)  # x, ri_o, dd, x', ri_i, c
@@ -196,7 +227,8 @@ def test_packed_tables_equal_the_jax_packing(case):
         for j in range(npd):
             want = UWj[t, j, :, :, :dc, j, :, :d].transpose(3, 4, 0, 2, 1)  # ri_i,e,x,c,ri_o
             np.testing.assert_array_equal(UW[j, :, :d, :, :dc].astype(np.float32), want)
-        KW = site["KW"].reshape(4, 8, 2, 2, dp).numpy()  # x, c, ri_i, ri_o, dd
+        assert site["KW"].shape[1] == {"bf16": 16, "f32": 2 * dcp}[prec]
+        KW = site["KW"].reshape(4, -1, 2, 2, dp).numpy()  # x, c, ri_i, ri_o, dd
         assert not KW[:, dc:].any() and not KW[..., d:].any()
         for x in range(4):
             want = KWj[t, x, :, :d, x, :, :dc].transpose(3, 2, 0, 1)  # c, ri_i, ri_o, dd
@@ -252,26 +284,27 @@ def _rows(model, n, seed):
     return torch.as_tensor(out)
 
 
-def _slot_plain(model, bits, T):
+def _slot_plain(model, bits, T, mmdt):
     """graph_mpsrnn_logpsi_fused_plain with the slot file for the dict."""
     slot_w, slot_r, nslots = fused_rnn.hidden_slots(model)
     N, d, mp = bits.shape[0], model.dcut, model.maxp
     vals = bits[:, 0::2].long() + 2 * bits[:, 1::2].long()
-    W = fused_rnn._round(T["W"], bf16)
+    W = fused_rnn._round(T["W"], mmdt)
     slots = torch.zeros(nslots, N, 2 * d, dtype=f64)
     state = fused_rnn.init_state(N, "cpu", f64)
     for t, s in enumerate(model.site_order):
         npd = len(model.preds[t])
         u = torch.cat([slots[slot_r[t][j]] for j in range(npd)]
                       + [torch.zeros(N, 2 * d, dtype=f64)] * (mp - npd), dim=-1)
-        h, state = fused_rnn.plain_site(model, T, W, t, vals[:, s], u, state, bf16)
+        h, state = fused_rnn.plain_site(model, T, W, t, vals[:, s], u, state, mmdt)
         if slot_w[t] >= 0:
             slots[slot_w[t]] = h
     return fused_rnn._finish(model, bits, torch.stack(state[:4], dim=-1))
 
 
+@pytest.mark.parametrize("prec", PRECS)
 @pytest.mark.parametrize("name", list(GRAPHS))
-def test_hidden_slots_forward_equals_the_plain_forward(name):
+def test_hidden_slots_forward_equals_the_plain_forward(name, prec):
     model = _model_on(name)
     slot_w, slot_r, nslots = fused_rnn.hidden_slots(model)
     # no slot is overwritten while live: each read finds its predecessor
@@ -297,21 +330,41 @@ def test_hidden_slots_forward_equals_the_plain_forward(name):
         assert nslots <= 7
     bits = _rows(model, 48, 1)
     T = {k: v.double() for k, v in fused_rnn.pack_tables(model).items()}
-    want = fused_rnn.graph_mpsrnn_logpsi_fused_plain(model, bits, tables=T)
-    assert torch.equal(_slot_plain(model, bits, T), want)
+    want = fused_rnn.graph_mpsrnn_logpsi_fused_plain(model, bits, matmul_dtype=DT[prec],
+                                                     tables=T)
+    assert torch.equal(_slot_plain(model, bits, T, DT[prec]), want)
 
 
 # ---------------- (c) the kernel's loops, emulated in f64 ----------------
 
 
-def _emulate(model, bits):
+def _tf32(x):
+    """f32 values x (held in f64) rounded to TF32 by bit operations on the
+    f32 words, as the kernel rounds them: half an ulp of the 10-bit
+    mantissa added to the magnitude, the low 13 bits cut."""
+    w = x.to(f32).view(torch.int32)
+    return ((w + 0x1000) & -0x2000).view(f32).to(f64)
+
+
+def _split_mm(eq, a, b):
+    """The f32 mode's product: a and b split into TF32 heads and tails
+    (the tail of the difference, exact in f32), a_lo b_hi + a_hi b_lo +
+    a_hi b_hi in f64."""
+    ah, bh = _tf32(a), _tf32(b)
+    al, bl = _tf32(a - ah), _tf32(b - bh)
+    return (torch.einsum(eq, al, bh) + torch.einsum(eq, ah, bl)) + torch.einsum(eq, ah, bh)
+
+
+def _emulate(model, bits, prec="bf16"):
     """The tensor-core kernel's arithmetic in f64 on the packed operands:
-    A from the slots, B as the walk above reads it."""
-    P = fused_rnn.pack_mma_tables(model)
-    sites = _unpack(model, P)
+    A from the slots, B as the walk above reads it; in f32 each product
+    split as the kernel's."""
+    P = fused_rnn.pack_mma_tables(model, matmul_dtype=DT[prec])
+    sites = _unpack(model, P, prec)
     dp, dcp, NP = P["dp"], P["dcp"], P["NP"]
     O, d, N = 2 * dp, model.dcut, bits.shape[0]
-    r = lambda x: x.to(bf16).to(f64)  # noqa: E731
+    r = lambda x: x.to(DT[prec]).to(f64)  # noqa: E731
+    mm = torch.einsum if prec == "bf16" else _split_mm
     vcat, E, PW, SC = (P[k].double() for k in ("vcat", "E", "PW", "SC"))
     slot_w, slot_r = P["slot_w"].tolist(), P["slot_r"].tolist()
     slots = torch.zeros(P["nslots"], N, O, dtype=f64)
@@ -324,18 +377,18 @@ def _emulate(model, bits):
     for t, s in enumerate(model.site_order):
         npd, site, x = len(model.preds[t]), sites[t], vals[:, s]
         A = [slots[slot_r[t][j]] for j in range(npd)]
-        z = torch.stack([(torch.cat(A, -1) @ site["W"][v] if npd else torch.zeros(N, O, dtype=f64))
-                         for v in range(4)], 1)  # [N, 4, O]
+        z = torch.stack([(mm("nk,ko->no", torch.cat(A, -1), site["W"][v]) if npd
+                          else torch.zeros(N, O, dtype=f64)) for v in range(4)], 1)  # [N, 4, O]
         if "UW" in site:
             pr = None
             for j in range(npd):
-                uo = (A[j] @ site["UW"][j]).reshape(N, 4, dcp, 2)
+                uo = mm("nk,ko->no", A[j], site["UW"][j]).reshape(N, 4, dcp, 2)
                 pr = uo if pr is None else torch.stack(
                     [pr[..., 0] * uo[..., 0] - pr[..., 1] * uo[..., 1],
                      pr[..., 0] * uo[..., 1] + pr[..., 1] * uo[..., 0]], -1)
-            a = torch.zeros(N, 4, 16, dtype=f64)
+            a = torch.zeros(N, 4, site["KW"].shape[1], dtype=f64)  # zero past 2 dcp in bf16
             a[:, :, : 2 * dcp] = r(pr).reshape(N, 4, 2 * dcp)
-            z = z + torch.einsum("nxk,xko->nxo", a, site["KW"])
+            z = z + mm("nxk,xko->nxo", a, site["KW"])
         z = z + vcat[t]
         sums = (z * z * E[t]).sum(-1)
         rem = model.norb - t - 1
@@ -374,18 +427,26 @@ EMULATED = {
 }
 
 
+@pytest.mark.parametrize("prec", PRECS)
 @pytest.mark.parametrize("case", list(EMULATED))
-def test_emulated_kernel_walk_matches_the_plain_version(case):
+def test_emulated_kernel_walk_matches_the_plain_version(case, prec):
+    """bf16: against the plain version with f64 sums, to 1e-9.  f32:
+    against the f32 plain version, to 1e-5 on log|psi| and 1e-4 on the
+    phase (the TF32 split drops about 2^-22 of each product)."""
     model = EMULATED[case]()
     bits = (torch.as_tensor(fci.fci_bits(model.sorb, model.noa, model.nob)[:64])
             if model.sorb <= 12 else _rows(model, 64, 2))
-    T = {k: v.double() for k, v in fused_rnn.pack_tables(model).items()}
-    want = fused_rnn.graph_mpsrnn_logpsi_fused_plain(model, bits, tables=T)
-    got = _emulate(model, bits)
-    assert (got[:, 0] - want[:, 0]).abs().max().item() < 1e-9
+    T = fused_rnn.pack_tables(model)
+    if prec == "bf16":
+        T = {k: v.double() for k, v in T.items()}
+    want = fused_rnn.graph_mpsrnn_logpsi_fused_plain(model, bits, matmul_dtype=DT[prec],
+                                                     tables=T).double()
+    got = _emulate(model, bits, prec)
+    ta, tp = {"bf16": (1e-9, 1e-9), "f32": (1e-5, 1e-4)}[prec]
+    assert (got[:, 0] - want[:, 0]).abs().max().item() < ta
     dphi = (torch.polar(torch.ones_like(got[:, 1]), got[:, 1])
             - torch.polar(torch.ones_like(want[:, 1]), want[:, 1])).abs().max().item()
-    assert dphi < 1e-9
+    assert dphi < tp
 
 
 # ---------------- the cache and the widths ----------------
@@ -409,6 +470,27 @@ def test_packed_tables_follow_the_parameters():
     T = {k: v.double() for k, v in fused_rnn.pack_tables(model).items()}
     want = fused_rnn.graph_mpsrnn_logpsi_fused_plain(model, bits, tables=T)
     assert (_emulate(model, bits)[:, 0] - want[:, 0]).abs().max().item() < 1e-9
+
+
+def test_f32_launch_shape():
+    """The f32 mode's slots are twice the bf16 bytes: the dcut-48 chain's
+    one slot stays in shared memory at 8 warps, the r5g64 stand-in's 7
+    go to the global file at 4 warps; every shape within the card's
+    shared memory per CTA."""
+    chain = GraphMPSRNN(40, 15, 15, dcut=48, device="cpu")
+    r5 = _model_on("r5g64-stand-in", dcut=64)
+    stages = fused_rnn.STAGES * fused_rnn.STAGE_U4 * 16
+    assert fused_rnn.mma_launch_shape(chain, matmul_dtype=f32) == {
+        "nslots": 1, "slots": "shared", "warps": 8, "smem_bytes": stages + 8 * 6 * 1024}
+    assert fused_rnn.mma_launch_shape(r5, matmul_dtype=f32) == {
+        "nslots": 7, "slots": "global", "warps": 4, "smem_bytes": stages}
+    for name, dcut in (("chain", 128), ("grid-4x5", 16), ("grid-4x5", 96), ("r5g64-stand-in", 24)):
+        m = _model_on(name, dcut=dcut, use_tensor=False)
+        sh = fused_rnn.mma_launch_shape(m, matmul_dtype=f32)
+        slot = fused_rnn.mma_width(dcut) // 8 * 1024
+        assert sh["smem_bytes"] <= fused_rnn.SMEM_LIMIT
+        assert sh["smem_bytes"] == stages + (sh["warps"] * sh["nslots"] * slot
+                                             if sh["slots"] == "shared" else 0)
 
 
 def test_mma_widths():

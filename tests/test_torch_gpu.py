@@ -1,6 +1,6 @@
-"""Card-only tests of the port: the fused forward's CUDA kernels (the
-tensor-core kernel in bf16, the CUDA-core kernel in f32; tensor coupling
-included), the prefix-sharing kernels (on the tensor cores in bf16,
+"""Card-only tests of the port: the fused forward's CUDA kernel (the
+tensor-core kernel in bf16 and in f32 as three TF32 products; tensor
+coupling included), the prefix-sharing kernels (on the tensor cores in bf16,
 bit for bit the flat tensor-core kernel's rows; on the CUDA cores in
 f32) and the doubles pair
 selection against their plain versions, and VMC steps (with the REDUCE
@@ -99,82 +99,122 @@ def _agree(k, p, mm):
     assert d < tp
 
 
+def _mode_counts():
+    return fused_rnn.LAUNCHES.n, fused_rnn.MMA_LAUNCHES.n, fused_rnn.F32_MMA_LAUNCHES.n
+
+
 @pytest.mark.parametrize("mm", ["f32", "bf16"])
 @pytest.mark.parametrize("case", ["chain-arg-mpsrnn-d10", "dag-arg-mpsrnn-d10",
                                   "chain-linear-unit-d24", "dag-linear-unit-d100",
                                   "fe2s2-dcut48", "dag-tensor-arg-mpsrnn-d10",
                                   "dag-tensor-linear-unit-d64"])
 def test_cuda_kernel_matches_plain(case, mm, dev):
-    """One launch per call, of the tensor-core kernel in bf16 and of the
-    CUDA-core kernel in f32, and the plain version's values: 1e-4 on
-    log|ψ| and 1e-3 on the unit-circle phase in f32 (the sums differ in
-    order only); 1e-1 in bf16, where an f32 difference of one ulp can
-    move h across a bf16 rounding boundary and the steps compound."""
+    """One launch per call, of the tensor-core kernel in its mode (bf16,
+    or f32 as three TF32 products: ``F32_MMA_LAUNCHES`` up, ``MMA_LAUNCHES``
+    unmoved), and the plain version's values: 1e-4 on log|ψ| and 1e-3 on
+    the unit-circle phase in f32 (the sums differ in order, and the TF32
+    split leaves out about 2^-22 of each product); 1e-1 in bf16, where an
+    f32 difference of one ulp can move h across a bf16 rounding boundary
+    and the steps compound."""
     model, dets = _model(case, dev)
     bits = torch.as_tensor(dets, device=dev)
     dt = {"f32": torch.float32, "bf16": torch.bfloat16}[mm]
-    before = (fused_rnn.LAUNCHES.n, fused_rnn.MMA_LAUNCHES.n)
+    before = _mode_counts()
     k = fused_rnn.graph_mpsrnn_logpsi_fused(model, bits, matmul_dtype=dt)
     torch.cuda.synchronize()
-    assert fused_rnn.LAUNCHES.n == before[0] + 1
-    assert fused_rnn.MMA_LAUNCHES.n == before[1] + (mm == "bf16")
+    assert _mode_counts() == (before[0] + 1, before[1] + (mm == "bf16"),
+                              before[2] + (mm == "f32"))
     p = fused_rnn.graph_mpsrnn_logpsi_fused_plain(model, bits, matmul_dtype=dt)
     assert k.shape == (bits.shape[0], 2)
     _agree(k, p, mm)
 
 
+@pytest.mark.parametrize("mm", ["f32", "bf16"])
 @pytest.mark.parametrize("rows", ["0", "5", "tile+1"])
 @pytest.mark.parametrize("case", ["fe2s2-dcut48", "dag-tensor-linear-unit-d64"])
-def test_mma_kernel_ragged_rows(case, rows, dev):
+def test_mma_kernel_ragged_rows(case, rows, mm, dev):
     """N = 0 (no launch), 5 rows (less than a warp's 16) and one CTA's
-    rows + 1: rows past N are neither written nor felt by the others."""
+    rows + 1, in either mode: rows past N are neither written nor felt
+    by the others."""
     model, dets = _model(case, dev)
-    tile = 16 * fused_rnn.mma_launch_shape(model)["warps"]
+    dt = {"f32": torch.float32, "bf16": torch.bfloat16}[mm]
+    tile = 16 * fused_rnn.mma_launch_shape(model, matmul_dtype=dt)["warps"]
     n = {"0": 0, "5": 5, "tile+1": tile + 1}[rows]
     bits = torch.as_tensor(np.resize(dets, (max(n, 1), dets.shape[1]))[:n], device=dev)
-    before = fused_rnn.MMA_LAUNCHES.n
-    k = fused_rnn.graph_mpsrnn_logpsi_fused(model, bits, matmul_dtype=torch.bfloat16)
+    counter = fused_rnn.MMA_LAUNCHES if mm == "bf16" else fused_rnn.F32_MMA_LAUNCHES
+    before = counter.n
+    k = fused_rnn.graph_mpsrnn_logpsi_fused(model, bits, matmul_dtype=dt)
     torch.cuda.synchronize()
-    assert fused_rnn.MMA_LAUNCHES.n == before + (n > 0)
-    p = fused_rnn.graph_mpsrnn_logpsi_fused_plain(model, bits, matmul_dtype=torch.bfloat16)
+    assert counter.n == before + (n > 0)
+    p = fused_rnn.graph_mpsrnn_logpsi_fused_plain(model, bits, matmul_dtype=dt)
     assert k.shape == (n, 2)
     if n:
-        _agree(k, p, "bf16")
+        _agree(k, p, mm)
         # the same rows inside a full batch give the same values
         full = fused_rnn.graph_mpsrnn_logpsi_fused(
-            model, torch.cat([bits, bits.flip(0)]), matmul_dtype=torch.bfloat16)
+            model, torch.cat([bits, bits.flip(0)]), matmul_dtype=dt)
         assert torch.equal(full[:n], k)
 
 
-def test_mma_kernel_global_hidden_slots(dev):
-    """dcut 128 on the r5g64 stand-in graph (7 live hiddens): the slots do
-    not fit in shared memory, so they go to the bf16 file in global
-    memory; the plain version's values all the same."""
+@pytest.mark.parametrize("mm", ["f32", "bf16"])
+def test_mma_kernel_global_hidden_slots(mm, dev):
+    """The r5g64 stand-in graph (7 live hiddens) where the slots do not fit
+    in shared memory, at dcut 128 in bf16 and at its own dcut 64 in f32
+    (twice the bytes per slot): they go to the file in global memory; the
+    plain version's values all the same."""
     rng = np.random.default_rng(0)
     h1e = rng.standard_normal((40, 40)) * 0.1
     system = System.from_integrals((h1e + h1e.T) / 2,
                                    rng.standard_normal(triangle_size(40)) * 0.01, 40, 15, 15)
-    model = flagship_model(system, 128, use_tensor=True, max_preds=2, device=dev,
-                           generator=torch.Generator().manual_seed(0))
-    shape = fused_rnn.mma_launch_shape(model)
+    dt = {"f32": torch.float32, "bf16": torch.bfloat16}[mm]
+    model = flagship_model(system, {"f32": 64, "bf16": 128}[mm], use_tensor=True, max_preds=2,
+                           device=dev, generator=torch.Generator().manual_seed(0))
+    shape = fused_rnn.mma_launch_shape(model, matmul_dtype=dt)
     assert shape["slots"] == "global" and shape["nslots"] == 7, shape
     bits = torch.as_tensor(_rand_dets(1000, 40, 15, 15, 5), device=dev)
-    k = fused_rnn.graph_mpsrnn_logpsi_fused(model, bits, matmul_dtype=torch.bfloat16)
-    p = fused_rnn.graph_mpsrnn_logpsi_fused_plain(model, bits, matmul_dtype=torch.bfloat16)
-    _agree(k, p, "bf16")
+    k = fused_rnn.graph_mpsrnn_logpsi_fused(model, bits, matmul_dtype=dt)
+    p = fused_rnn.graph_mpsrnn_logpsi_fused_plain(model, bits, matmul_dtype=dt)
+    _agree(k, p, mm)
 
 
-def test_bf16_rows_on_card_never_take_the_plain_version_or_the_cuda_cores(dev, monkeypatch):
+def _never_plain_or_cuda_cores(dev, monkeypatch, dt):
     def boom(*a, **k):
-        raise AssertionError("the plain version or the CUDA-core kernel ran on bf16 CUDA rows")
+        raise AssertionError("the plain version or the CUDA-core kernel ran on CUDA rows")
 
     monkeypatch.setattr(fused_rnn, "graph_mpsrnn_logpsi_fused_plain", boom)
     monkeypatch.setattr(fused_rnn, "_launch_simt", boom)
+    monkeypatch.setattr(fused_rnn, "_launch_f32_cuda_cores", boom)
     monkeypatch.setattr(fused_rnn, "_launch_cuda_cores", boom)
     for case in ("fe2s2-dcut48", "dag-tensor-arg-mpsrnn-d10"):
         model, dets = _model(case, dev)
-        fused_rnn.graph_mpsrnn_logpsi_fused(model, torch.as_tensor(dets, device=dev))
+        fused_rnn.graph_mpsrnn_logpsi_fused(model, torch.as_tensor(dets, device=dev),
+                                            matmul_dtype=dt)
     torch.cuda.synchronize()
+
+
+def test_bf16_rows_on_card_never_take_the_plain_version_or_the_cuda_cores(dev, monkeypatch):
+    _never_plain_or_cuda_cores(dev, monkeypatch, torch.bfloat16)
+
+
+def test_f32_rows_on_card_never_take_the_plain_version_or_the_cuda_cores(dev, monkeypatch):
+    _never_plain_or_cuda_cores(dev, monkeypatch, torch.float32)
+
+
+@pytest.mark.parametrize("mm", ["f32", "bf16"])
+def test_tables_off_the_card_or_not_contiguous_raise(mm, dev):
+    """The wrapper takes contiguous f32 tables on the rows' device only."""
+    model, dets = _model("dag-tensor-arg-mpsrnn-d10", dev)
+    bits = torch.as_tensor(dets, device=dev)
+    dt = {"f32": torch.float32, "bf16": torch.bfloat16}[mm]
+    T = fused_rnn.pack_tables(model)
+    before = _mode_counts()
+    with pytest.raises(ValueError, match="contiguous f32"):
+        fused_rnn.graph_mpsrnn_logpsi_fused(
+            model, bits, matmul_dtype=dt, tables={k: v.cpu() for k, v in T.items()})
+    with pytest.raises(ValueError, match="contiguous f32"):
+        fused_rnn.graph_mpsrnn_logpsi_fused(
+            model, bits, matmul_dtype=dt, tables={**T, "W": T["W"].transpose(-1, -2)})
+    assert _mode_counts() == before
 
 
 def _close(a, b, tol):
@@ -624,18 +664,18 @@ def _nqsci_setup(dev, mm, ci_chunk=64):
 @pytest.mark.parametrize("mm", ["f32", "bf16"])
 def test_nqsci_iteration_on_card_launches_kernel_1(mm, dev):
     """One NqsCi iteration on the card: the gradient-free forwards launch
-    kernel #1 (f32: the CUDA-core kernel only; bf16: the tensor-core
-    kernel only), the iteration is finite and moves the parameters, and
-    h_nn and H_cn agree with model.log_psi's on the same draw (f32 1e-4,
-    bf16 5e-2 relative to the largest |H_cn|)."""
+    kernel #1 on the tensor cores in their mode only (f32: its 3xTF32
+    mode; bf16: its bf16 mode), the iteration is finite and moves the
+    parameters, and h_nn and H_cn agree with model.log_psi's on the same
+    draw (f32 1e-4, bf16 5e-2 relative to the largest |H_cn|)."""
     model, nq = _nqsci_setup(dev, mm)
-    before = (fused_rnn.LAUNCHES.n, fused_rnn.MMA_LAUNCHES.n)
+    before = _mode_counts()
     bits, w = nq.draw(torch.Generator(device=dev).manual_seed(1))
     eloc, h_nn = nq.eloc_eval(bits, w)
     h_cn, ci_mass = nq.hcn_eval()
     torch.cuda.synchronize()
-    n, n_mma = fused_rnn.LAUNCHES.n - before[0], fused_rnn.MMA_LAUNCHES.n - before[1]
-    assert n > 0 and n_mma == (n if mm == "bf16" else 0), (n, n_mma)
+    n, n_mma, n_f32 = (a - b for a, b in zip(_mode_counts(), before))
+    assert n > 0 and (n_mma, n_f32) == ((n, 0) if mm == "bf16" else (0, n)), (n, n_mma, n_f32)
     nq.eval_fwd = model.log_psi
     eloc_x, h_nn_x = nq.eloc_eval(bits, w)
     h_cn_x, mass_x = nq.hcn_eval()
