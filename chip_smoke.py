@@ -6,15 +6,16 @@
 Phases, one line each (and a few detail lines):
   1. environment probe (torch, CUDA, nvcc, triton, nvidia-smi);
   2. build of the CUDA kernels, one nvcc per source, started together
-     (pynqs_tpu_torch/csrc/fused_rnn_mma.cu: the fused forward's bf16 and
-     f32 modes and the prefix-sharing parent and child passes' bf16 mode
-     on the tensor cores; csrc/fused_rnn.cu: the prefix passes' f32 mode
-     and the earlier fused forward on the CUDA cores;
+     (pynqs_tpu_torch/csrc/fused_rnn_mma.cu: the fused forward and the
+     prefix-sharing parent and child passes on the tensor cores, each in
+     bf16 and in f32 as three TF32 products; csrc/fused_rnn.cu: the
+     earlier design of all three on the CUDA cores;
      csrc/pair_select.cu: the doubles pair selection), with the
      compiler's register report of every instantiation and the shared
      memory of each fused launch, the tensor-core kernel's at the chain,
-     r5g64 and dp-96 shapes in both modes and the prefix passes' at the
-     step's row counts;
+     r5g64, r5g64-at-dcut_cmpr-12 and dp-96 shapes in both modes (hidden
+     slots and coupling slot) and the prefix passes' at the step's row
+     counts in both modes;
   3. the fused forward against its plain torch version on the card (bf16
      and f32 through the tensor-core kernel, f32 as three TF32 products,
      each launch counted in its mode; in f32 the CUDA-core kernel's error
@@ -42,16 +43,16 @@ Phases, one line each (and a few detail lines):
      through the tensor-core kernel's tensor coupling; the kernel on one
      step's rows, held and timed as in phase 6, with W's L2 traffic;
   8. the prefix-sharing path (VMCConfig.eloc_prefix) on the dcut-48
-     chain, on one step's rows: in bf16 the tensor-core parent and child
-     passes held to their plain versions (``hold_rows``) and bit for bit
-     equal to the flat tensor-core kernel on the same rows; in f32 the
-     CUDA-core passes against their plain versions, the flat CUDA-core
-     kernel and the flat tensor-core kernel's f32 mode; REDUCE with and
-     without it, three VMC steps
+     chain, on one step's rows: in bf16 and in f32 (3xTF32) the
+     tensor-core parent and child passes held to their plain versions
+     (``hold_rows``) and bit for bit equal to the flat tensor-core kernel
+     in the same precision on the same rows; REDUCE with and without it
+     in f32 (the tensor-core passes' launches alone), three VMC steps
      through it (the tensor-core passes' launches counted), the site-steps
-     the child's CTAs run, and CUDA-event times of each pass (in bf16 the
-     tensor-core kernel, the CUDA-core kernel in bf16 and the plain
-     version) and of both whole forwards;
+     the child's CTAs run, and CUDA-event and profiler device times of
+     each pass in both precisions (the tensor-core kernel, the CUDA-core
+     kernel in the same precision and the plain version) beside both
+     bounds in f32 (3xTF32, CUDA cores), and of both whole forwards;
   9. the doubles pair selection W[b,u,v] = hpair[po[b,u], pv[b,v]] at
      the flagship's [2048, 435, 45]: both variants of the band kernel
      bitwise equal to the plain version (pair indices of phase 5's
@@ -123,7 +124,13 @@ Phases, one line each (and a few detail lines):
      bf16 against the f32 e_tot; the
      chunked H_cn gradient against one chunk on a sub-block, and one
      gradient chunk of the run's size timed and profiled (device busy
-     share, top kernels).
+     share, top kernels);
+ 14. kernel #1 at dcut_cmpr 12 (padded to 16, the coupling in two blocks
+     of 8 c's through the coupling slot) on the r5g64 shape (dcut 64, 2
+     predecessors, the stand-in graph, seeded weights) on 65,536 random
+     rows in bf16 and f32, one launch each counted, held by ``hold_rows``
+     to the plain version and to the CUDA-core kernel, and timed beside
+     the same shape at dcut_cmpr 4 on the same rows.
 
 The last two lines are the kernels' JSON summary and the result JSON.
 Any failed check raises, so the script exits non-zero with no result.
@@ -145,6 +152,7 @@ import torch
 
 SORB, NOA, NOB, DCUT = 40, 15, 15, 48
 DCUT_R5, MAXP_R5, DCMP_R5 = 64, 2, 4  # the r5g64 structured flagship
+DCMP_C3 = 12  # phase 14: a dcut_cmpr past 8 (padded to 16: two blocks of 8 c's)
 B, K_DET, N_STOCH = 2048, 256, 64
 N_CMP, N_REF = 65536, 4096  # rows of the phase-3 comparisons
 N_ID = 64  # sampled rows of the phase-4 identity
@@ -306,6 +314,18 @@ def ptxas_report(text):
             out.append(f"{name}: {m.group(1)} registers{m.group(2)}; {spill}")
             name = None
     return out
+
+
+def r5_graph_model(system, dcut_cmpr, dev, seed=14):
+    """The r5g64 flagship's shape (dcut 64, 2 predecessors, the tensor
+    coupling on the stand-in graph) at another dcut_cmpr, seeded weights."""
+    from pynqs_tpu_torch.models.graph_mps_rnn import GraphMPSRNN
+    from pynqs_tpu_torch.utils.flagship import flagship_graph
+
+    return GraphMPSRNN(SORB, NOA, NOB, dcut=DCUT_R5, graph=flagship_graph(system, MAXP_R5),
+                       phase_mode="arg", norm_mode="mpsrnn", use_tensor=True,
+                       dcut_cmpr=dcut_cmpr, dtype=torch.float32, device=dev,
+                       generator=torch.Generator().manual_seed(seed))
 
 
 def build(fused_rnn, pair_select):
@@ -1194,9 +1214,9 @@ def main():
     # ---- 2. build ----
     t0 = time.perf_counter()
     smem = build(fused_rnn, ps)
-    log(2, f"built csrc/fused_rnn_mma.cu (the fused forward in bf16 and f32, prefix parent "
-           f"and child in bf16, on the tensor cores), csrc/fused_rnn.cu (the same on the CUDA "
-           f"cores) and csrc/pair_select.cu (pair selection) for sm_90a in "
+    log(2, f"built csrc/fused_rnn_mma.cu (the fused forward, prefix parent and child, each in "
+           f"bf16 and in f32 as 3xTF32, on the tensor cores), csrc/fused_rnn.cu (the same on "
+           f"the CUDA cores) and csrc/pair_select.cu (pair selection) for sm_90a in "
            f"{time.perf_counter() - t0:.2f} s")
     for name in ("fused_rnn_mma", "fused_rnn", "pair_select"):
         for ln in ptxas_report(cuda_build.BUILD_INFO.get(name, "")):
@@ -1209,19 +1229,23 @@ def main():
             ("chain dcut 48", GraphMPSRNN(SORB, NOA, NOB, dcut=DCUT, device=dev)),
             ("r5g64 (dcut 64, tensor coupling, stand-in graph)",
              flagship_model(system, DCUT_R5, use_tensor=True, max_preds=MAXP_R5, device=dev)),
+            (f"r5g64 graph at dcut_cmpr {DCMP_C3}", r5_graph_model(system, DCMP_C3, dev)),
             ("chain dcut 96", GraphMPSRNN(SORB, NOA, NOB, dcut=96, device=dev))), (bf16, f32)):
         sh = fused_rnn.mma_launch_shape(m, matmul_dtype=mm)
+        cs = 4 * fused_rnn.coupling_ksteps(m, mm) * 512
         log(2, f"  tensor-core kernel {mmname(mm)} at {what}: dp {fused_rnn.mma_width(m.dcut)}, "
                f"{sh['warps']} warps = {16 * sh['warps']} rows per CTA, {sh['nslots']} hidden "
-               f"slot(s) in {sh['slots']} memory, dynamic shared memory {sh['smem_bytes']} B "
-               f"per CTA (3 weight stages of 24,576 B + the slots)")
+               f"slot(s) and a coupling slot of {cs} B per warp in {sh['slots']} memory, dynamic "
+               f"shared memory {sh['smem_bytes']} B per CTA (3 weight stages of 24,576 B + the "
+               f"slots)")
     n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
     chain_m = GraphMPSRNN(SORB, NOA, NOB, dcut=DCUT, device=dev)
-    for what, n in (("parent", B), ("child", B * (K_DET + N_STOCH))):
-        sh = fused_rnn.mma_launch_shape(chain_m, n, n_sm)
-        log(2, f"  tensor-core prefix {what} pass at the chain step's {n} rows on {n_sm} SMs: "
-               f"{sh['warps']} warp(s) = {16 * sh['warps']} rows per CTA, {sh['ctas']} CTAs, "
-               f"dynamic shared memory {sh['smem_bytes']} B per CTA")
+    for (what, n), mm in itertools.product((("parent", B), ("child", B * (K_DET + N_STOCH))),
+                                           (bf16, f32)):
+        sh = fused_rnn.mma_launch_shape(chain_m, n, n_sm, mm)
+        log(2, f"  tensor-core prefix {what} pass {mmname(mm)} at the chain step's {n} rows on "
+               f"{n_sm} SMs: {sh['warps']} warp(s) = {16 * sh['warps']} rows per CTA, "
+               f"{sh['ctas']} CTAs, dynamic shared memory {sh['smem_bytes']} B per CTA")
     del chain_m
     for v, what in (("lane", "occupied"), ("rowrow", "virtual")):
         sh = ps.pair_select_launch_shape(B, 435, 45, 4, v)
@@ -1639,41 +1663,24 @@ def main():
                                                       matmul_dtype=mm)
         pp, pc = pre.graph_mpsrnn_logpsi_fused_prefix_plain(model, par_bits, kids, t_min,
                                                             matmul_dtype=mm)
-        # the flat kernel of the same design on the same rows: in bf16 the
-        # tensor-core kernel, whose walk the prefix passes share, so every
-        # row must be equal bit for bit; in f32 the CUDA-core kernel (its
-        # timing entry), and the tensor-core kernel's f32 mode besides
-        if mm == bf16:
-            flat = fused_rnn.graph_mpsrnn_logpsi_fused(model, rows8, matmul_dtype=mm)
-        else:
-            flat = fused_rnn._launch_f32_cuda_cores(model, rows8)
-            flat_mma = fused_rnn.graph_mpsrnn_logpsi_fused(model, rows8, matmul_dtype=mm)
+        # the flat tensor-core kernel in the same precision on the same
+        # rows: the prefix passes share its walk (in f32 the slot seeded
+        # unrounded), so every row must be equal bit for bit
+        flat = fused_rnn.graph_mpsrnn_logpsi_fused(model, rows8, matmul_dtype=mm)
         sync()
         check(bool(torch.isfinite(kp).all() and torch.isfinite(kc).all()),
               "non-finite prefix kernel output")
         kc = kc.reshape(-1, 2)
-        e = {"parent vs plain": phase_err(kp, pp), "child vs plain": phase_err(kc, pc)}
-        if mm == bf16:
-            agree(8, "prefix parent (tensor cores)", model, par_bits, mm, kp, pp)
-            agree(8, "prefix child (tensor cores)", model, kids_flat, mm, kc, pc.reshape(-1, 2))
-            n_p = int((kp != flat[:Bp]).any(-1).sum())
-            n_c = int((kc != flat[Bp:]).any(-1).sum())
-            log(8, f"prefix bf16 vs the flat tensor-core kernel on the same rows: rows that "
-                   f"differ at all: parent {n_p} of {Bp}, child {n_c} of {kc.shape[0]}")
-            check(n_p == 0 and n_c == 0,
-                  "the tensor-core prefix rows differ from the flat tensor-core kernel's")
-        else:
-            ta, tp = tol[mm]
-            e["parent vs flat CUDA-core kernel"] = phase_err(kp, flat[:Bp])
-            e["child vs flat CUDA-core kernel"] = phase_err(kc, flat[Bp:])
-            e["parent vs flat tensor-core kernel (3xTF32)"] = phase_err(kp, flat_mma[:Bp])
-            e["child vs flat tensor-core kernel (3xTF32)"] = phase_err(kc, flat_mma[Bp:])
-            del flat_mma
-            for what, (da, dp) in e.items():
-                log(8, f"prefix {what} {mmname(mm)}: max|Δlog|ψ|| {da:.3e} (tol {ta:g}), "
-                       f"max phase distance {dp:.3e} (tol {tp:g})")
-                check(da <= ta and dp <= tp, f"prefix {what} disagrees")
-        err8[mm] = e
+        err8[mm] = {"parent vs plain": phase_err(kp, pp), "child vs plain": phase_err(kc, pc)}
+        agree(8, "prefix parent (tensor cores)", model, par_bits, mm, kp, pp)
+        agree(8, "prefix child (tensor cores)", model, kids_flat, mm, kc, pc.reshape(-1, 2))
+        n_p = int((kp != flat[:Bp]).any(-1).sum())
+        n_c = int((kc != flat[Bp:]).any(-1).sum())
+        log(8, f"prefix {mmname(mm)} vs the flat tensor-core kernel in {mmname(mm)} on the same "
+               f"rows: rows that differ at all: parent {n_p} of {Bp}, child {n_c} of "
+               f"{kc.shape[0]}")
+        check(n_p == 0 and n_c == 0,
+              f"the {mmname(mm)} prefix rows differ from the flat tensor-core kernel's")
         del kp, kc, pp, pc, flat
 
     # REDUCE with and without prefix_fwd: the same generator seed draws
@@ -1689,14 +1696,14 @@ def main():
                    prefix_fwd=pre.ReducePrefixForward(model, matmul_dtype=f32))
     sync()
     l8f = dict(zip(("parent", "child", "mma_parent", "mma_child"), (c.n for c in counts8f)))
-    check(l8f["parent"] > 0 and l8f["child"] > 0 and l8f["mma_parent"] == l8f["mma_child"] == 0,
-          f"the f32 prefix REDUCE did not launch the CUDA-core prefix passes alone: {l8f}")
+    check(l8f["mma_parent"] == l8f["parent"] > 0 and l8f["mma_child"] == l8f["child"] > 0,
+          f"the f32 prefix REDUCE did not launch the tensor-core prefix passes alone: {l8f}")
     scale = hr_scale(model, sub)
     diff = (e_flat - e_pre).abs().max(-1).values
     log(8, f"REDUCE with vs without prefix_fwd (f32) on {sub.shape[0]} sampled rows: "
            f"max|Δ| {diff.max().item():.3e}, max |Δ|/Σ|h r| "
            f"{(diff / scale).max().item():.3e} (tol 1e-4); the f32 prefix passes' launches "
-           f"(CUDA cores) {l8f}")
+           f"(tensor cores, 3xTF32) {l8f}")
     check(bool(torch.isfinite(e_pre).all() and (diff <= 1e-4 * scale).all()),
           "REDUCE with prefix_fwd != REDUCE without it")
 
@@ -1718,9 +1725,10 @@ def main():
     stage_times(8, chain48(), lambda m: {
         "fwd": None, "prefix_fwd": pre.ReducePrefixForward(m, matmul_dtype=bf16)})
 
-    # times on the same rows: parent and child passes (in bf16 also the
-    # CUDA-core kernels, timed before and after the tensor-core one), the
-    # whole prefix forward, the flat kernel; plain versions beside them
+    # times on the same rows: parent and child passes (the CUDA-core
+    # kernels in the same precision, the earlier design, timed before and
+    # after the tensor-core one), the whole prefix forward, the flat
+    # kernel; plain versions beside them
     tables8 = fused_rnn.pack_tables(model)
     par_idx = torch.arange(Bp, device=dev).repeat_interleave(C)
     t_flat = t_min.reshape(-1)
@@ -1742,16 +1750,14 @@ def main():
         passes = {
             "parent": (lambda: pre.prefix_parent_plain(model, par_bits, **kw),
                        lambda: pre.prefix_parent(model, par_bits, **kw),
-                       lambda: pre._launch_prefix_simt("parent", model, par_bits,
-                                                       tables=tables8)),
+                       lambda: pre._launch_prefix_simt("parent", model, par_bits, **kw)),
             "child": (lambda: pre.prefix_child_plain(model, kids_flat, par_idx, t_flat, hh, sh,
                                                      **kw),
                       lambda: pre.prefix_child(model, kids_flat, par_idx, t_flat, hh, sh, **kw),
                       lambda: pre._launch_prefix_simt("child", model, kids_flat, par_idx,
-                                                      t_flat, hh, sh, tables=tables8)),
+                                                      t_flat, hh, sh, **kw)),
         }
-        t8[mm] = {what: (with_prev(plain, kern, simt, 5) if mm == bf16
-                         else (*alternate(plain, kern, 5), None))
+        t8[mm] = {what: with_prev(plain, kern, simt, 5)
                   for what, (plain, kern, simt) in passes.items()}
         t8[mm]["prefix forward"] = (*alternate(
             lambda: pre.graph_mpsrnn_logpsi_fused_prefix_plain(model, par_bits, kids, t_min,
@@ -1786,7 +1792,7 @@ def main():
     # what filling the SMs is worth at 2048 rows
     shape_fn = fused_rnn.mma_launch_shape
     w_flat = shape_fn(model)["warps"]
-    fused_rnn.mma_launch_shape = lambda m, n=None, n_sm=None: shape_fn(m)
+    fused_rnn.mma_launch_shape = lambda m, n=None, n_sm=None, mm=bf16: shape_fn(m, matmul_dtype=mm)
     try:
         t_par_flat = cuda_ms(lambda: pre.prefix_parent(model, par_bits, matmul_dtype=bf16,
                                                        tables=tables8), 5)
@@ -1808,25 +1814,26 @@ def main():
         return sum(e.self_device_time_total for e in prof8.key_averages()
                    if e.device_type == DeviceType.CUDA and re.search(pattern, e.key)) / reps / 1e3
 
-    _, hh, sh = pre.prefix_parent(model, par_bits, matmul_dtype=bf16, tables=tables8)
-    dev8 = {
-        "parent": (device_ms(lambda: pre.prefix_parent(model, par_bits, matmul_dtype=bf16,
-                                                       tables=tables8), "fused_rnn_mma_kernel"),
-                   device_ms(lambda: pre._launch_prefix_simt("parent", model, par_bits,
-                                                             tables=tables8),
-                             "fused_rnn_kernel")),
-        "child": (device_ms(lambda: pre.prefix_child(model, kids_flat, par_idx, t_flat, hh, sh,
-                                                     matmul_dtype=bf16, tables=tables8),
-                            "fused_rnn_mma_kernel"),
-                  device_ms(lambda: pre._launch_prefix_simt("child", model, kids_flat, par_idx,
-                                                            t_flat, hh, sh, tables=tables8),
-                            "fused_rnn_kernel")),
-    }
-    del hh, sh
-    for what, (dk, ds) in dev8.items():
-        log(8, f"{what} bf16, device time per launch (profiler): tensor-core kernel {dk:.3f} ms "
-               f"(the wrapper call {t8[bf16][what][0]:.3f} ms), CUDA-core kernel {ds:.3f} ms "
-               f"(the wrapper call {t8[bf16][what][2]:.3f} ms); gpu {smi}")
+    dev8 = {}
+    for mm in (bf16, f32):
+        kw = dict(matmul_dtype=mm, tables=tables8)
+        _, hh, sh = pre.prefix_parent(model, par_bits, **kw)
+        dev8[mm] = {
+            "parent": (device_ms(lambda: pre.prefix_parent(model, par_bits, **kw),
+                                 "fused_rnn_mma_kernel"),
+                       device_ms(lambda: pre._launch_prefix_simt("parent", model, par_bits, **kw),
+                                 "fused_rnn_kernel")),
+            "child": (device_ms(lambda: pre.prefix_child(model, kids_flat, par_idx, t_flat, hh,
+                                                         sh, **kw), "fused_rnn_mma_kernel"),
+                      device_ms(lambda: pre._launch_prefix_simt("child", model, kids_flat,
+                                                                par_idx, t_flat, hh, sh, **kw),
+                                "fused_rnn_kernel")),
+        }
+        del hh, sh
+        for what, (dk, ds) in dev8[mm].items():
+            log(8, f"{what} {mmname(mm)}, device time per launch (profiler): tensor-core kernel "
+                   f"{dk:.3f} ms (the wrapper call {t8[mm][what][0]:.3f} ms), CUDA-core kernel "
+                   f"{ds:.3f} ms (the wrapper call {t8[mm][what][2]:.3f} ms); gpu {smi}")
     run_c = run_child(TR)
     log(8, f"site-steps: flat {flat_steps}; prefix needs {Bp * norb + need_child} "
            f"(skips {1 - (Bp * norb + need_child) / flat_steps:.2%}), the tensor-core child's "
@@ -1835,30 +1842,29 @@ def main():
            f"64 would run {Bp * norb + run_child(64)}")
     hist_bytes = Bp * norb * (2 * DCUT + pre.NSTATE) * 4
     fl = flop_per_site(DCUT, 1)
-    b8 = {}
-    for mm in t8:
+    # bounds: b8 on the tensor cores (f32: 3xTF32), b8_f32 of f32 on the
+    # CUDA cores (the earlier design's)
+    b8, b8_f32 = {}, {}
+    for mm, peak_mm, out in ((bf16, bf16, b8), (f32, F32X3, b8), (f32, f32, b8_f32)):
         tb = table_bytes(tables8, mm)
-        b8[mm] = {
-            "parent": bound(Bp * norb * fl, Bp * SORB + Bp * 16 + hist_bytes + tb, mm),
+        out[mm] = {
+            "parent": bound(Bp * norb * fl, Bp * SORB + Bp * 16 + hist_bytes + tb, peak_mm),
             "child": bound(need_child * fl, n_child * (SORB + 4 + 4 + 16) + hist_bytes + tb,
-                           mm),
+                           peak_mm),
+            "prefix forward": bound((Bp * norb + need_child) * fl,
+                                    (Bp + n_child) * (SORB + 8) + n_child * 4 + tb, peak_mm),
+            "flat forward": bound(flat_steps * fl, (Bp + n_child) * (SORB + 8) + tb, peak_mm),
         }
-        b8[mm]["prefix forward"] = bound(
-            (Bp * norb + need_child) * fl,
-            (Bp + n_child) * (SORB + 8) + n_child * 4 + tb, mm)
-        b8[mm]["flat forward"] = bound(flat_steps * fl, (Bp + n_child) * (SORB + 8) + tb,
-                                       F32X3 if mm == f32 else mm)
+    for mm in t8:
         for what, (k, p, prev) in t8[mm].items():
-            kern = ("tensor-core kernel" if mm == bf16 or what == "flat forward"
-                    else "CUDA-core kernel")
-            log(8, f"{what} {mmname(mm)}: {kern} {k:.3f} ms"
+            log(8, f"{what} {mmname(mm)}: tensor-core kernel {k:.3f} ms"
                    + (f", CUDA-core kernel {prev:.3f} ms ({prev / k:.2f}x)" if prev else "")
-                   + f", plain {p:.3f} ms, bound {b8[mm][what][0]:.3f} ms ({b8[mm][what][1]}); "
-                   f"gpu {smi}")
-    log(8, f"prefix forward / flat forward, kernels (bf16: both on the tensor cores; f32: the "
-           f"prefix on the CUDA cores, the flat on the tensor cores in 3xTF32): bf16 "
-           f"{t8[bf16]['prefix forward'][0] / t8[bf16]['flat forward'][0]:.3f}, f32 "
-           f"{t8[f32]['prefix forward'][0] / t8[f32]['flat forward'][0]:.3f}")
+                   + f", plain {p:.3f} ms, bound {b8[mm][what][0]:.3f} ms ({b8[mm][what][1]})"
+                   + (f" in 3xTF32, {b8_f32[mm][what][0]:.3f} ms on the CUDA cores"
+                      if mm == f32 else "") + f"; gpu {smi}")
+    log(8, f"prefix forward / flat forward, kernels (both on the tensor cores in each "
+           f"precision): bf16 {t8[bf16]['prefix forward'][0] / t8[bf16]['flat forward'][0]:.3f}, "
+           f"f32 {t8[f32]['prefix forward'][0] / t8[f32]['flat forward'][0]:.3f}")
 
     # ---- 9. the doubles pair selection at the flagship's shapes ----
     po_s, pv_s = pair_indices(fbits, table)  # phase 5's 2048 samples, int64
@@ -2028,6 +2034,63 @@ def main():
     f13 = nqsci_run(dev, smi, here, bound, flop_per_site, table_bytes, tol, timed)
     log(13, f"phase 13 in {time.perf_counter() - t13:.1f} s")
 
+    # ---- 14. kernel #1 at dcut_cmpr 12 (the coupling in blocks of 8 c's) ----
+    t14 = time.perf_counter()
+    m14, m14_dc4 = r5_graph_model(system, DCMP_C3, dev), r5_graph_model(system, DCMP_R5, dev)
+    x14 = torch.as_tensor(rand_dets(np.random.default_rng(14), N_CMP, SORB, NOA, NOB), device=dev)
+    T14 = fused_rnn.pack_tables(m14)
+    counts14 = (fused_rnn.LAUNCHES, fused_rnn.MMA_LAUNCHES, fused_rnn.F32_MMA_LAUNCHES)
+    for c in counts14:
+        c.reset()
+    k14 = {mm: fused_rnn.graph_mpsrnn_logpsi_fused(m14, x14, matmul_dtype=mm, tables=T14)
+           for mm in (bf16, f32)}
+    sync()
+    l14 = tuple(c.n for c in counts14)
+    check(l14 == (2, 1, 1), f"the dcut_cmpr {DCMP_C3} forwards did not launch the tensor-core "
+                            f"kernel once in each mode (all, bf16, f32: {l14})")
+    flop14 = N_CMP * sum(flop_per_site(DCUT_R5, len(p), DCMP_C3) for p in m14.preds)
+    r14 = {}
+    for mm in (bf16, f32):
+        simt = ((lambda: fused_rnn._launch_simt(m14, x14, T14)) if mm == bf16 else  # noqa: E731
+                (lambda: fused_rnn._launch_f32_cuda_cores(m14, x14, T14)))
+        plain = lambda mm=mm: fused_rnn.graph_mpsrnn_logpsi_fused_plain(  # noqa: E731
+            m14, x14, matmul_dtype=mm, tables=T14)
+        s_out, p_out = simt(), plain()
+        sync()
+        # held to the plain version, and to the CUDA-core kernel, which
+        # takes any dcut_cmpr in its own layout, by the same rule
+        err = agree(14, f"r5g64 graph dcut {DCUT_R5} dcut_cmpr {DCMP_C3}", m14, x14, mm, k14[mm],
+                    p_out, T14, prev=s_out)
+        q = fused_rnn.graph_mpsrnn_logpsi_fused_plain(
+            m14, x14, matmul_dtype=mm, tables={key: v.double() for key, v in T14.items()})
+        ok, held, st = hold_rows(k14[mm], s_out, q, tol[mm])
+        log(14, f"{mmname(mm)} tensor-core vs CUDA-core kernel on the same rows: max|Δlog|ψ|| "
+                f"{st['max_a']:.3e}, max phase distance {st['max_p']:.3e}, median row "
+                f"{st['med_a']:.3e} / {st['med_p']:.3e}, kernel rows over {tol[mm][1]:g} "
+                f"{st['over']} ({held})")
+        check(ok, f"dcut_cmpr {DCMP_C3} {mmname(mm)}: the tensor-core kernel disagrees with the "
+                  f"CUDA-core kernel")
+        del s_out, p_out, q
+        kern = lambda mm=mm: fused_rnn.graph_mpsrnn_logpsi_fused(  # noqa: E731
+            m14, x14, matmul_dtype=mm, tables=T14)
+        dc4 = lambda mm=mm: fused_rnn.graph_mpsrnn_logpsi_fused(  # noqa: E731
+            m14_dc4, x14, matmul_dtype=mm)
+        dc4()
+        k, k4 = alternate(dc4, kern, 5, 5)
+        p_ms, prev = cuda_ms(plain, 2), cuda_ms(simt, 3)
+        nbytes = N_CMP * SORB + N_CMP * 2 * 4 + table_bytes(T14, mm)
+        b, b_f32 = bound(flop14, nbytes, F32X3 if mm == f32 else mm), bound(flop14, nbytes, f32)
+        r14[mm] = {"err": err, "times": (k, p_ms), "bound": b, "bound_f32": b_f32,
+                   "prev_ms": prev, "dc4_ms": k4}
+        log(14, f"forward {mmname(mm)} at dcut_cmpr {DCMP_C3} (dcp 16) on {N_CMP} rows: "
+                f"tensor-core kernel {k:.3f} ms, at dcut_cmpr {DCMP_R5} on the same rows "
+                f"{k4:.3f} ms ({k / k4:.3f}x), CUDA-core kernel {prev:.3f} ms, plain {p_ms:.3f} "
+                f"ms, bound {b[0]:.3f} ms ({b[1]})"
+                + (f" in 3xTF32, {b_f32[0]:.3f} ms on the CUDA cores" if mm == f32 else "")
+                + f"; gpu {smi}")
+    del m14, m14_dc4, x14, k14
+    log(14, f"phase 14 in {time.perf_counter() - t14:.1f} s")
+
     def entry(name, replaces, launches_n, err, times, bnd, source="fused_rnn.cu", lib=None,
               **extra):
         return {
@@ -2050,11 +2113,21 @@ def main():
         entry("fused_rnn_prefix_parent", "pynqs_tpu/ops/fused_rnn_prefix.py:226",
               l8["mma_parent"], err8[bf16]["parent vs plain"][0], t8[bf16]["parent"],
               b8[bf16]["parent"], "fused_rnn_mma.cu", prev_ms=t8[bf16]["parent"][2],
-              device_ms=dev8["parent"][0], prev_device_ms=dev8["parent"][1]),
+              device_ms=dev8[bf16]["parent"][0], prev_device_ms=dev8[bf16]["parent"][1]),
         entry("fused_rnn_prefix_child", "pynqs_tpu/ops/fused_rnn_prefix.py:264",
               l8["mma_child"], err8[bf16]["child vs plain"][0], t8[bf16]["child"],
               b8[bf16]["child"], "fused_rnn_mma.cu", prev_ms=t8[bf16]["child"][2],
-              device_ms=dev8["child"][0], prev_device_ms=dev8["child"][1]),
+              device_ms=dev8[bf16]["child"][0], prev_device_ms=dev8[bf16]["child"][1]),
+        # kernels #2 and #3 in f32 (precision=HIGHEST, fused_rnn_prefix.py:163):
+        # the tensor-core passes in 3xTF32; launches: phase 8's f32 REDUCE
+        # with prefix_fwd; bound_ms in 3xTF32, bound_f32_ms on the CUDA
+        # cores; prev_ms the CUDA-core pass in f32 on the same rows
+        *(entry(f"fused_rnn_prefix_{what}_f32", f"pynqs_tpu/ops/fused_rnn_prefix.py:{line}",
+                l8f[f"mma_{what}"], err8[f32][f"{what} vs plain"][0], t8[f32][what],
+                b8[f32][what], "fused_rnn_mma.cu", prev_ms=t8[f32][what][2],
+                bound_f32_ms=b8_f32[f32][what][0], device_ms=dev8[f32][what][0],
+                prev_device_ms=dev8[f32][what][1])
+          for what, line in (("parent", 226), ("child", 264))),
         # lane: the evaluation's launches and chunk shape (phase 10);
         # rowrow: pair_select_w(variant="rowrow") at [2048, 435, 45] (phase
         # 9); prev_*: the earlier gather kernel on the same operands in
@@ -2105,6 +2178,16 @@ def main():
         entry("fused_rnn_forward_f32_tensor", "pynqs_tpu/ops/fused_rnn.py:259",
               f12["f32_launches"], t7[f32][2], t7[f32], b7[f32], "fused_rnn_mma.cu", rows=n7,
               prev_ms=t7[f32][3], bound_f32_ms=b7_f32[0]),
+        # kernel #1's tensor branch at dcut_cmpr 12 (phase 14), bf16; f32_*:
+        # the f32 mode on the same rows; dc4_ms: the same shape at
+        # dcut_cmpr 4; prev_ms: the CUDA-core kernel in the same mode
+        entry("fused_rnn_forward_mma_dc12", "pynqs_tpu/ops/fused_rnn.py:254", l14[1],
+              r14[bf16]["err"], r14[bf16]["times"], r14[bf16]["bound"], "fused_rnn_mma.cu",
+              rows=N_CMP, prev_ms=r14[bf16]["prev_ms"], dc4_ms=r14[bf16]["dc4_ms"],
+              f32_launches=l14[2], f32_max_abs_err=r14[f32]["err"],
+              f32_ms=r14[f32]["times"][0], f32_plain_ms=r14[f32]["times"][1],
+              f32_bound_ms=r14[f32]["bound"][0], f32_bound_f32_ms=r14[f32]["bound_f32"][0],
+              f32_prev_ms=r14[f32]["prev_ms"], f32_dc4_ms=r14[f32]["dc4_ms"]),
     ]}
     log("end", f"chip_smoke.py in {time.perf_counter() - t_script:.1f} s; gpu {smi}")
     print(json.dumps(summary))

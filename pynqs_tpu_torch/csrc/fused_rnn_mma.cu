@@ -1,27 +1,28 @@
 // Fused teacher-forced Graph-MPS-RNN forward on Hopper's tensor cores
-// (sm_90a): the bf16 mode of kernels #1-#3 (bf16 operands, f32 sums) and
-// the f32 mode of kernel #1 (each f32 product as three TF32 products).
+// (sm_90a): kernels #1-#3 in bf16 (bf16 operands, f32 sums) and in f32
+// (each f32 product as three TF32 products).
 //
-// Replaces three Pallas TPU kernels, each through its own entry point:
+// Replaces three Pallas TPU kernels, each through its own entry points:
 //   * pynqs_tpu/ops/fused_rnn.py::_kernel (graph_mpsrnn_logpsi_fused),
 //     chain and DAG, with and without the tensor coupling:
 //     fused_rnn_forward_mma (bf16) and fused_rnn_forward_mma_f32 (f32,
 //     the TPU kernel's precision=HIGHEST mode, fused_rnn.py:247, 259, 289);
 //   * pynqs_tpu/ops/fused_rnn_prefix.py::_parent_kernel, the chain
 //     forward that also writes each site's hidden and scalar state:
-//     fused_rnn_prefix_parent_mma;
+//     fused_rnn_prefix_parent_mma and fused_rnn_prefix_parent_mma_f32
+//     (precision=HIGHEST, fused_rnn_prefix.py:160-164);
 //   * pynqs_tpu/ops/fused_rnn_prefix.py::_child_kernel, the chain forward
 //     of rows that start at a later site from their parent's state:
-//     fused_rnn_prefix_child_mma.
+//     fused_rnn_prefix_child_mma and fused_rnn_prefix_child_mma_f32.
 // All are one walk over the sites, fused_rnn_mma_kernel, selected by a
 // compile-time mode (flat, parent, child) and precision (bf16, f32), so
 // the flat kernel carries none of the prefix code and the bf16 kernel
-// none of the f32 code.  The prefix passes' f32 mode stays on the CUDA
-// cores (csrc/fused_rnn.cu, which also keeps the earlier flat f32 kernel,
-// reached only to time and check it beside this one).  For N rows of site
-// values each returns, per row, (log|psi|, Re and Im of the unit phase
-// product, linear phase); the wrappers (pynqs_tpu_torch/ops/fused_rnn.py,
-// fused_rnn_prefix.py) turn them into (log|psi|, arg psi).  The bf16 mode
+// none of the f32 code.  (csrc/fused_rnn.cu keeps the earlier CUDA-core
+// kernels, reached only to time and check them beside these.)  For N
+// rows of site values each returns, per row, (log|psi|, Re and Im of the
+// unit phase product, linear phase); the wrappers
+// (pynqs_tpu_torch/ops/fused_rnn.py, fused_rnn_prefix.py) turn them into
+// (log|psi|, arg psi).  The bf16 mode
 // rounds at the points of graph_mpsrnn_logpsi_fused_plain in bf16 mode:
 // W, h, U, the tensor product and K to bf16; vcat, eta, the phase rows
 // and all sums in f32; the phase readout from the unrounded h.  The f32
@@ -88,12 +89,20 @@
 //    zero and the CUDA cores add it to the f32 sums (24 rows), at the
 //    cost of those adds.
 //  * Tensor coupling as two more products, as the JAX kernel: uo_j = h_j
-//    @ UW_j on the tensor cores, each predecessor's k-block against its
-//    own 8*dcp columns, laid out (x, c, re|im) so that a lane holds re and
-//    im of the same c; the complex product over predecessors in
-//    registers, rounded to bf16, is then the A fragment of one more
-//    k-step z_x += pr_x @ KW_x (k = 2 dcp, zero-padded to 16).
-//  * The f32 mode (PREC_F32X3, flat forward only) is the same walk with
+//    @ UW_j on the tensor cores, then z_x += pr_x @ KW_x with pr_x the
+//    complex product of the uo_j over the predecessors.  The dcp = dcut_cmpr
+//    (rounded up to 4, or above 4 to a multiple of 8) c's run in blocks of
+//    cb = min(dcp, 8): per block, each predecessor's k-block against the
+//    block's 8 cb columns, laid out (x, c, re|im) so that a lane holds re
+//    and im of the same c; the complex product over predecessors in
+//    registers; then the lane writes the block's product (rounded to bf16
+//    in bf16) as its A fragments of KW_x's k-steps into a lane-private
+//    coupling slot [x][k-step][lane] beside its hidden slots.  The
+//    registers are those of one block at any dcp; the transition reads
+//    the coupling slot as its last k-steps (one k16 per block, zero past
+//    2 cb, in bf16; 2 cb / 8 k8 per block in f32) as it reads a
+//    predecessor's hidden from its slot.
+//  * The f32 mode (PREC_F32X3) is the same walk with
 //    mma.sync.m16n8k8 in TF32 (10-bit mantissa, f32 sums): the TF32
 //    precision Hopper's tensor cores take f32 operands in, at half the
 //    bf16 rate.  One TF32 product would not keep f32 agreement, so each
@@ -115,11 +124,12 @@
 //    twice the bf16 bytes (the chain's one slot fits in shared memory, the
 //    r5g64 graph's 7 go to the global file, 7 x 512 B per row at dp 64
 //    against the CUDA-core kernel's 20 x 512 B).  The tensor coupling is
-//    the same two products in 3xTF32, its complex product in f32, KW_x
-//    2 dcp rows deep (1 or 2 k8-steps).  Epilogue, scalars and phase
-//    readout are the bf16 mode's, with h unrounded.
-//  * Prefix sharing (chains).  A child differs from its parent only from
-//    its first changed site s0 on.  The parent pass is the flat walk that
+//    the same two products in 3xTF32, its complex product in f32.
+//    Epilogue, scalars and phase readout are the bf16 mode's, with h
+//    unrounded.
+//  * Prefix sharing (chains), in both precisions.  A child differs from
+//    its parent only from its first changed site s0 on.  The parent pass
+//    is the flat walk that
 //    also writes, after each site t, each row's f32 h (unpadded, re half
 //    then im half) to hh[r, t] and its state (log|psi|, Re and Im of the
 //    phase product, linear phase, alpha and beta counts, 0, 0) to
@@ -127,9 +137,12 @@
 //    children by s0.  A child CTA starts at the smallest s0 of its rows;
 //    the whole CTA starts there because the weight pipe is shared, and
 //    the pipe starts at that site's first chunk (site_chunk, from the
-//    host).  Each lane seeds its own A fragments of the slot from
-//    hh[parent, t_begin - 1], rounded to bf16 (the value the flat walk's
-//    slot holds for that row), and its rows' state from sh; rows whose own
+//    host, of the stream in the pass's precision).  Each lane seeds its
+//    own A fragments of the slot from hh[parent, t_begin - 1], rounded to
+//    bf16 in bf16 and unrounded in f32 (in either, the value the flat
+//    walk's slot holds for that row: the parent wrote hh from the same
+//    registers the flat walk stores into its slot), and its rows' state
+//    from sh; rows whose own
 //    s0 is later replay their parent's sites on inputs that are theirs
 //    too.  Row i of an MMA's D depends only on row i of A, and the quad
 //    sums and scalar work only on the row's own lanes, so each parent and
@@ -304,6 +317,32 @@ __device__ __forceinline__ void walk(Pipe& p, int nthreads, int nks, int ksz, F&
   }
 }
 
+// A hidden, this lane's C fragments h[n-tile][4] (rows g, g+8; columns
+// 2c, 2c+1), into its slot as the A fragments the same lane reads at the
+// sites that take it as a predecessor: f32 unrounded (k-step n is n-tile
+// n), or rounded to bf16 (k16-step k is n-tiles 2k, 2k+1).
+template <int NP, bool F32>
+__device__ __forceinline__ void store_hidden(uint4* slot, int lane, const float (&h)[2 * NP][4]) {
+  if constexpr (F32) {
+#pragma unroll
+    for (int n = 0; n < 2 * NP; ++n) slot[n * 32 + lane] = c_to_a(h[n]);
+  } else {
+#pragma unroll
+    for (int k = 0; k < NP; ++k)
+      slot[k * 32 + lane] =
+          make_uint4(pack_bf16(h[2 * k][0], h[2 * k][1]), pack_bf16(h[2 * k][2], h[2 * k][3]),
+                     pack_bf16(h[2 * k + 1][0], h[2 * k + 1][1]),
+                     pack_bf16(h[2 * k + 1][2], h[2 * k + 1][3]));
+  }
+}
+
+// The k-steps of one value's KW_x, which the coupling slot holds per
+// value: one k16 per block of 8 c's (bf16), dcp / 4 k8 (f32); none
+// without the tensor coupling.
+__host__ __device__ inline int coupling_ksteps(int use_tensor, int dcp, int prec) {
+  return !use_tensor ? 0 : prec == PREC_F32X3 ? dcp / 4 : (dcp + 7) / 8;
+}
+
 // A lane's column col of a value's O outputs in an unpadded hidden row
 // [re (d) | im (d)]: its index there, or -1 for the padding past d.
 template <int NP>
@@ -315,11 +354,10 @@ __device__ __forceinline__ int hidden_index(int col, int d) {
 // NP = O / 16 pairs of n-tiles; WARPS warps of 16 rows per CTA (0: as
 // many as the launch gives, a runtime value); MODE: the flat forward,
 // the prefix parent or the prefix child pass (chains only); PREC: bf16,
-// or f32 as three TF32 products (the flat forward only).
+// or f32 as three TF32 products.
 template <int NP, int WARPS, int MODE, int PREC>
 __global__ void __launch_bounds__(WARPS ? WARPS * 32 : 256) fused_rnn_mma_kernel(const Args a) {
   constexpr bool F32 = PREC == PREC_F32X3;
-  static_assert(!F32 || MODE == MODE_FLAT, "the f32 mode is the flat forward's");
   constexpr int NT = 2 * NP;  // n8 tiles of one value's outputs
   constexpr int O = 16 * NP;
   constexpr int KS = F32 ? NT : NP;  // k-steps of one hidden: k16 (bf16) or k8 (f32)
@@ -331,10 +369,15 @@ __global__ void __launch_bounds__(WARPS ? WARPS * 32 : 256) fused_rnn_mma_kernel
   const int rg = (blockIdx.x * nwarps + warp) * 16 + g, rh = rg + 8;  // this lane's rows
   const int norb = a.norb, N = a.N, mp = a.mp;
   const size_t slot_u4 = (size_t)KS * 32;  // one slot of one warp
-  uint4* slots = a.gslots ? a.gslots + ((size_t)blockIdx.x * nwarps + warp) * a.nslots * slot_u4
-                          : smem + STAGES * STAGE_U4 + (size_t)warp * a.nslots * slot_u4;
-  const int ntu = a.dcp / 4;  // n-tiles of one (pred, value) block of UW: 1 or 2
-  const int uw_ksz = a.dcp * 16;
+  // the coupling: blocks of cb c's; ntu n-tiles of one (pred, value, block)
+  // of UW (1 or 2); nkw k-steps of KW_x
+  const int cb = min(a.dcp, 8), ntu = cb / 4, uw_ksz = cb * 16;
+  const int nkw = coupling_ksteps(a.use_tensor, a.dcp, PREC);
+  // one warp's file: its hidden slots, then its coupling slot [x][k-step][lane]
+  const size_t warp_u4 = a.nslots * slot_u4 + (size_t)4 * nkw * 32;
+  uint4* slots = a.gslots ? a.gslots + ((size_t)blockIdx.x * nwarps + warp) * warp_u4
+                          : smem + STAGES * STAGE_U4 + (size_t)warp * warp_u4;
+  uint4* cslot = slots + a.nslots * slot_u4;
 
   // the CTA's first position: 0, or (child) the smallest s0 of its rows;
   // the whole CTA starts there, and the weight stream at its first chunk
@@ -360,8 +403,9 @@ __global__ void __launch_bounds__(WARPS ? WARPS * 32 : 256) fused_rnn_mma_kernel
     if (t_begin > 0) {
       // seed each row from its parent after position t_begin - 1: the
       // state from sh, and the slot that site's hidden went to (the next
-      // site reads it) from hh, rounded to bf16 into this lane's own A
-      // fragments.  Rows past N start from zero and are not written.
+      // site reads it) from hh, rounded to bf16 (f32: unrounded) into
+      // this lane's own A fragments.  Rows past N start from zero and are
+      // not written.
       const int rows[2] = {rg, rh};
       size_t src[2] = {0, 0};
 #pragma unroll
@@ -380,25 +424,17 @@ __global__ void __launch_bounds__(WARPS ? WARPS * 32 : 256) fused_rnn_mma_kernel
       const int sw = a.slot_w[t_begin - 1];
       if (sw >= 0) {
         const int d2 = 2 * a.d;
+        float h[NT][4];  // this lane's C fragments: [n-tile][row][column pair]
 #pragma unroll
-        for (int k = 0; k < NP; ++k) {
-          float v[2][2][2];  // [n-tile 2k + i][row][column pair]
+        for (int n = 0; n < NT; ++n)
 #pragma unroll
-          for (int i = 0; i < 2; ++i)
+          for (int j = 0; j < 2; ++j) {
+            const int hi = hidden_index<NP>(n * 8 + 2 * cq + j, a.d);
 #pragma unroll
-            for (int j = 0; j < 2; ++j) {
-              const int hi = hidden_index<NP>((2 * k + i) * 8 + 2 * cq + j, a.d);
-#pragma unroll
-              for (int r = 0; r < 2; ++r)
-                v[i][r][j] = (hi >= 0 && rows[r] < N) ? a.hh[src[r] * d2 + hi] : 0.f;
-            }
-          uint4 u;
-          u.x = pack_bf16(v[0][0][0], v[0][0][1]);
-          u.y = pack_bf16(v[0][1][0], v[0][1][1]);
-          u.z = pack_bf16(v[1][0][0], v[1][0][1]);
-          u.w = pack_bf16(v[1][1][0], v[1][1][1]);
-          slots[(sw * NP + k) * 32 + lane] = u;
-        }
+            for (int r = 0; r < 2; ++r)
+              h[n][2 * r + j] = (hi >= 0 && rows[r] < N) ? a.hh[src[r] * d2 + hi] : 0.f;
+          }
+        store_hidden<NP, F32>(slots + sw * slot_u4, lane, h);
       }
     }
   }
@@ -411,10 +447,7 @@ __global__ void __launch_bounds__(WARPS ? WARPS * 32 : 256) fused_rnn_mma_kernel
     const bool tensor = MODE == MODE_FLAT && a.use_tensor && np >= 2;
     const int* sr = a.slot_r + t * mp;
 
-    // ---- tensor coupling: pr_x = prod_j (h_j @ UW_j)_x, bf16 A fragments ----
-    uint4 pra[4], prk[4][2];  // bf16: one k16-step; f32: up to two k8-steps
-#pragma unroll
-    for (int x = 0; x < 4; ++x) pra[x] = prk[x][0] = prk[x][1] = make_uint4(0u, 0u, 0u, 0u);
+    // ---- tensor coupling: pr_x = prod_j (h_j @ UW_j)_x into the coupling slot ----
     if (tensor) {
       float pr[4][2][4], uo[4][2][4];
 #pragma unroll
@@ -423,77 +456,84 @@ __global__ void __launch_bounds__(WARPS ? WARPS * 32 : 256) fused_rnn_mma_kernel
         for (int i = 0; i < 2; ++i)
 #pragma unroll
           for (int e = 0; e < 4; ++e) uo[x][i][e] = pr[x][i][e] = 0.f;
-      walk(pipe, THREADS, np * KS, uw_ksz, [&](int ks, const uint4* tile) {
-        const int j = ks / KS, kl = ks - j * KS;
-        const uint4 A = slots[(sr[j] * KS + kl) * 32 + lane];
-        // n-pair p covers tiles 2p, 2p+1; tile x * ntu + i is value x's
-        // i-th tile of (c, re|im) columns
-        if constexpr (F32) {
-          uint32_t ah[4], al[4];
-          split_a(A, ah, al);
+      // per block of cb c's, each predecessor's k-steps
+      for (int b = 0; b < a.dcp / cb; ++b) {
+        walk(pipe, THREADS, np * KS, uw_ksz, [&](int ks, const uint4* tile) {
+          const int j = ks / KS, kl = ks - j * KS;
+          const uint4 A = slots[(sr[j] * KS + kl) * 32 + lane];
+          // n-pair p covers tiles 2p, 2p+1; tile x * ntu + i is value x's
+          // i-th tile of the block's (c, re|im) columns
+          if constexpr (F32) {
+            uint32_t ah[4], al[4];
+            split_a(A, ah, al);
 #pragma unroll
-          for (int p = 0; p < 4; ++p) {
-            if (p < 2 * ntu) {
-              const uint4 B = tile[p * 32 + lane];
-              if (ntu == 1) {
-                mma3(uo[(2 * p) & 3][0], ah, al, B.x, B.y);
-                mma3(uo[(2 * p + 1) & 3][0], ah, al, B.z, B.w);
-              } else {
-                mma3(uo[p][0], ah, al, B.x, B.y);
-                mma3(uo[p][1], ah, al, B.z, B.w);
-              }
-            }
-          }
-        } else {
-#pragma unroll
-          for (int p = 0; p < 4; ++p) {
-            if (p < 2 * ntu) {
-              const uint4 B = tile[p * 32 + lane];
-              if (ntu == 1) {
-                mma(uo[(2 * p) & 3][0], A, B.x, B.y);
-                mma(uo[(2 * p + 1) & 3][0], A, B.z, B.w);
-              } else {
-                mma(uo[p][0], A, B.x, B.y);
-                mma(uo[p][1], A, B.z, B.w);
-              }
-            }
-          }
-        }
-        if (kl == KS - 1) {  // predecessor j done: fold it into the product
-#pragma unroll
-          for (int x = 0; x < 4; ++x)
-#pragma unroll
-            for (int i = 0; i < 2; ++i)
-#pragma unroll
-              for (int e = 0; e < 4; e += 2) {
-                const float ur = uo[x][i][e], ui = uo[x][i][e + 1];
-                if (j == 0) {
-                  pr[x][i][e] = ur;
-                  pr[x][i][e + 1] = ui;
-                } else {  // as the plain version: products, then the sum
-                  const float qr = __fsub_rn(__fmul_rn(pr[x][i][e], ur), __fmul_rn(pr[x][i][e + 1], ui));
-                  const float qi = __fadd_rn(__fmul_rn(pr[x][i][e], ui), __fmul_rn(pr[x][i][e + 1], ur));
-                  pr[x][i][e] = qr;
-                  pr[x][i][e + 1] = qi;
+            for (int p = 0; p < 4; ++p) {
+              if (p < 2 * ntu) {
+                const uint4 B = tile[p * 32 + lane];
+                if (ntu == 1) {
+                  mma3(uo[(2 * p) & 3][0], ah, al, B.x, B.y);
+                  mma3(uo[(2 * p + 1) & 3][0], ah, al, B.z, B.w);
+                } else {
+                  mma3(uo[p][0], ah, al, B.x, B.y);
+                  mma3(uo[p][1], ah, al, B.z, B.w);
                 }
-                uo[x][i][e] = 0.f;
-                uo[x][i][e + 1] = 0.f;
               }
-        }
-      });
-      // columns (c, re|im) of tile i are k = 8 i + (2c + re|im) of KW's
-      // k-step (bf16), or of KW's k8-step i as the hidden's (f32)
+            }
+          } else {
 #pragma unroll
-      for (int x = 0; x < 4; ++x) {
-        if constexpr (F32) {
-          prk[x][0] = c_to_a(pr[x][0]);
-          if (ntu == 2) prk[x][1] = c_to_a(pr[x][1]);
-        } else {
-          pra[x].x = pack_bf16(pr[x][0][0], pr[x][0][1]);
-          pra[x].y = pack_bf16(pr[x][0][2], pr[x][0][3]);
-          if (ntu == 2) {
-            pra[x].z = pack_bf16(pr[x][1][0], pr[x][1][1]);
-            pra[x].w = pack_bf16(pr[x][1][2], pr[x][1][3]);
+            for (int p = 0; p < 4; ++p) {
+              if (p < 2 * ntu) {
+                const uint4 B = tile[p * 32 + lane];
+                if (ntu == 1) {
+                  mma(uo[(2 * p) & 3][0], A, B.x, B.y);
+                  mma(uo[(2 * p + 1) & 3][0], A, B.z, B.w);
+                } else {
+                  mma(uo[p][0], A, B.x, B.y);
+                  mma(uo[p][1], A, B.z, B.w);
+                }
+              }
+            }
+          }
+          if (kl == KS - 1) {  // predecessor j done: fold it into the product
+#pragma unroll
+            for (int x = 0; x < 4; ++x)
+#pragma unroll
+              for (int i = 0; i < 2; ++i)
+#pragma unroll
+                for (int e = 0; e < 4; e += 2) {
+                  const float ur = uo[x][i][e], ui = uo[x][i][e + 1];
+                  if (j == 0) {
+                    pr[x][i][e] = ur;
+                    pr[x][i][e + 1] = ui;
+                  } else {  // as the plain version: products, then the sum
+                    const float qr = __fsub_rn(__fmul_rn(pr[x][i][e], ur),
+                                               __fmul_rn(pr[x][i][e + 1], ui));
+                    const float qi = __fadd_rn(__fmul_rn(pr[x][i][e], ui),
+                                               __fmul_rn(pr[x][i][e + 1], ur));
+                    pr[x][i][e] = qr;
+                    pr[x][i][e + 1] = qi;
+                  }
+                  uo[x][i][e] = 0.f;
+                  uo[x][i][e + 1] = 0.f;
+                }
+          }
+        });
+        // block b done: columns (c, re|im) of tile i are k = 8 i + (2c +
+        // re|im) of KW_x's k-step b (bf16), or of its k8-step b ntu + i as
+        // the hidden's (f32)
+#pragma unroll
+        for (int x = 0; x < 4; ++x) {
+          if constexpr (F32) {
+            cslot[(x * nkw + b * ntu) * 32 + lane] = c_to_a(pr[x][0]);
+            if (ntu == 2) cslot[(x * nkw + b * ntu + 1) * 32 + lane] = c_to_a(pr[x][1]);
+          } else {
+            uint4 v = make_uint4(pack_bf16(pr[x][0][0], pr[x][0][1]),
+                                 pack_bf16(pr[x][0][2], pr[x][0][3]), 0u, 0u);
+            if (ntu == 2) {
+              v.z = pack_bf16(pr[x][1][0], pr[x][1][1]);
+              v.w = pack_bf16(pr[x][1][2], pr[x][1][3]);
+            }
+            cslot[(x * nkw + b) * 32 + lane] = v;
           }
         }
       }
@@ -502,8 +542,8 @@ __global__ void __launch_bounds__(WARPS ? WARPS * 32 : 256) fused_rnn_mma_kernel
     // ---- the transition of each value, its epilogue in registers ----
     float zsel[NT][4];
     float ws[2][4], ssq[2] = {0.f, 0.f}, selsq[2] = {0.f, 0.f};
-    // the k-steps of KW_x: one k16 (bf16), dcp / 4 k8 (f32)
-    const int nks = np * KS + (tensor ? (F32 ? a.dcp / 4 : 1) : 0);
+    // the predecessors' k-steps, then (coupled) the nkw of KW_x
+    const int nks = np * KS + (tensor ? nkw : 0);
 #pragma unroll
     for (int x = 0; x < 4; ++x) {
       float acc[NT][4];
@@ -511,14 +551,18 @@ __global__ void __launch_bounds__(WARPS ? WARPS * 32 : 256) fused_rnn_mma_kernel
       for (int n = 0; n < NT; ++n)
 #pragma unroll
         for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
-      const uint4 px = pra[x], k0 = prk[x][0], k1 = prk[x][1];
       walk(pipe, THREADS, nks, NP * 32, [&](int ks, const uint4* tile) {
+        uint4 A;
+        // (the bf16 prefix passes drop the coupling's test at compile time;
+        // in f32 that made ptxas schedule the prefix walk a third slower
+        // on an H100, so the f32 passes keep it: a measured choice)
+        if ((MODE != MODE_FLAT && !F32) || ks < np * KS) {
+          const int j = ks / KS, kl = ks - j * KS;
+          A = slots[(sr[j] * KS + kl) * 32 + lane];
+        } else {  // the last k-steps of a coupled site: pr_x @ KW_x
+          A = cslot[(x * nkw + ks - np * KS) * 32 + lane];
+        }
         if constexpr (F32) {
-          uint4 A = ks == np * KS ? k0 : k1;  // the last k-steps of a coupled site
-          if (ks < np * KS) {
-            const int j = ks / KS, kl = ks - j * KS;
-            A = slots[(sr[j] * KS + kl) * 32 + lane];
-          }
           uint32_t ah[4], al[4];
           split_a(A, ah, al);
 #pragma unroll
@@ -528,11 +572,6 @@ __global__ void __launch_bounds__(WARPS ? WARPS * 32 : 256) fused_rnn_mma_kernel
             mma3(acc[2 * p + 1], ah, al, B.z, B.w);
           }
         } else {
-          uint4 A = px;  // the last k-step of a coupled site: pr_x @ KW_x
-          if (ks < np * NP) {
-            const int j = ks / NP, kl = ks - j * NP;
-            A = slots[(sr[j] * NP + kl) * 32 + lane];
-          }
 #pragma unroll
           for (int p = 0; p < NP; ++p) {
             const uint4 B = tile[p * 32 + lane];
@@ -629,25 +668,9 @@ __global__ void __launch_bounds__(WARPS ? WARPS * 32 : 256) fused_rnn_mma_kernel
       zsel[n][2] = h2;
       zsel[n][3] = h3;
     }
-    // the hidden (f32, or rounded to bf16) into its slot as the A
-    // fragments the same lane reads at the sites that take it as a
+    // the hidden into its slot, for the sites that take it as a
     // predecessor
-    if (sw >= 0) {
-      if constexpr (F32) {
-#pragma unroll
-        for (int n = 0; n < NT; ++n) slots[(sw * KS + n) * 32 + lane] = c_to_a(zsel[n]);
-      } else {
-#pragma unroll
-        for (int k = 0; k < NP; ++k) {
-          uint4 v;
-          v.x = pack_bf16(zsel[2 * k][0], zsel[2 * k][1]);
-          v.y = pack_bf16(zsel[2 * k][2], zsel[2 * k][3]);
-          v.z = pack_bf16(zsel[2 * k + 1][0], zsel[2 * k + 1][1]);
-          v.w = pack_bf16(zsel[2 * k + 1][2], zsel[2 * k + 1][3]);
-          slots[(sw * NP + k) * 32 + lane] = v;
-        }
-      }
-    }
+    if (sw >= 0) store_hidden<NP, F32>(slots + sw * slot_u4, lane, zsel);
     if constexpr (MODE == MODE_PARENT) {  // the f32 hidden, unpadded, into hh
       const int rows[2] = {rg, rh};
 #pragma unroll
@@ -719,14 +742,17 @@ __global__ void __launch_bounds__(WARPS ? WARPS * 32 : 256) fused_rnn_mma_kernel
 // Whether a launch shape is one the kernel takes: warps of 16 rows per
 // CTA (4 or 8 for the flat forward, 1, 2, 4 or 8 for the prefix passes),
 // the slots in shared memory (slots_shared) or in global memory, and
-// smem bytes of dynamic shared memory that hold the stages and the slots.
+// smem bytes of dynamic shared memory that hold the stages and the slots
+// (each warp's nslots hidden slots and its coupling slot of ncs k-steps).
 // The host (pynqs_tpu_torch/ops/fused_rnn.py::mma_launch_shape) chooses
 // the shape.
-bool shape_ok(int mode, int prec, int NP, int nslots, int warps, int slots_shared, int smem) {
+bool shape_ok(int mode, int prec, int NP, int nslots, int ncs, int warps, int slots_shared,
+              int smem) {
   const bool w_ok = mode == MODE_FLAT ? (warps == 4 || warps == 8)
                                       : (warps == 1 || warps == 2 || warps == 4 || warps == 8);
   const long slot = (long)NP * 512 * (prec == PREC_F32X3 ? 2 : 1);  // one slot of one warp
-  const long need = (long)STAGES * STAGE_U4 * 16 + (slots_shared ? (long)warps * nslots * slot : 0);
+  const long file = (long)nslots * slot + (long)ncs * 512;          // one warp's slots
+  const long need = (long)STAGES * STAGE_U4 * 16 + (slots_shared ? warps * file : 0);
   return w_ok && nslots >= 1 && smem >= need && smem <= SMEM_LIMIT;
 }
 
@@ -751,11 +777,14 @@ cudaError_t launch_np(const Args& a, int warps, int smem, cudaStream_t stream) {
     return launch<NP, 0, MODE, PREC>(a, warps, smem, stream);
 }
 
-template <int MODE, int PREC = PREC_BF16>
+template <int MODE, int PREC>
 int run(const Args& a, int dp, int warps, int slots_shared, int smem, void* stream) {
   if (dp != 16 && dp != 32 && dp != 48 && dp != 64 && dp != 96 && dp != 128)
     return (int)cudaErrorInvalidValue;
-  if (!shape_ok(MODE, PREC, dp / 8, a.nslots, warps, slots_shared, smem))
+  if (a.use_tensor && a.dcp != 4 && (a.dcp <= 0 || a.dcp % 8 != 0))
+    return (int)cudaErrorInvalidValue;
+  const int ncs = 4 * coupling_ksteps(a.use_tensor, a.dcp, PREC);
+  if (!shape_ok(MODE, PREC, dp / 8, a.nslots, ncs, warps, slots_shared, smem))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t e;
@@ -806,80 +835,43 @@ Args make_args(const void* vals, int N, int norb, int d, const void* order, cons
   return a;
 }
 
-}  // namespace
+// The launch arguments every entry point shares, and their names.
+#define FORWARD_PARAMS                                                                      \
+  const void *vals, int N, int norb, int d, int dp, const void *order, const void *npred,   \
+      const void *slot_w, const void *slot_r, int nslots, const void *tab,                  \
+      const void *chunks, int nchunks, const void *vcat, const void *E, const void *PW,     \
+      const void *SC, int noa, int nob, int phase_arg, int norm_mpsrnn
+#define FORWARD_ARGS                                                                        \
+  vals, N, norb, d, dp, order, npred, slot_w, slot_r, nslots, tab, chunks, nchunks, vcat, \
+      E, PW, SC, noa, nob, phase_arg, norm_mpsrnn
 
-// Plain C entry points (loaded with ctypes).  Operands as
-// pynqs_tpu_torch/ops/fused_rnn.py::pack_mma_tables lays them out; the
-// launch shape (warps, slots_shared, smem) as mma_launch_shape gives it;
-// gslots is the global slot file where slots_shared is 0 (grid * warps *
-// nslots * dp / 8 * 512 bytes, twice that in f32), else ignored.  Each launches on
-// ``stream`` and returns cudaGetLastError() of the launch, or
-// cudaErrorInvalidValue for a width or shape the kernel does not take.
-
-// The bf16 flat forward on the tensor cores (kernel #1).
-extern "C" int fused_rnn_forward_mma(
-    const void* vals, int N, int norb, int d, int dp, const void* order, const void* npred,
-    const void* slot_w, const void* slot_r, int nslots, const void* tab, const void* chunks,
-    int nchunks, const void* vcat, const void* E, const void* PW, const void* SC, int noa,
-    int nob, int phase_arg, int norm_mpsrnn, int mp, int use_tensor, int dcp, int warps,
-    int slots_shared, int smem, void* gslots, void* out, void* stream) {
-  if (use_tensor && dcp != 4 && dcp != 8) return (int)cudaErrorInvalidValue;
+template <int PREC>
+int forward(FORWARD_PARAMS, int mp, int use_tensor, int dcp, int warps, int slots_shared, int smem,
+            void* gslots, void* out, void* stream) {
   Args a = make_args(vals, N, norb, d, order, npred, slot_w, slot_r, nslots, tab, chunks,
                      nchunks, vcat, E, PW, SC, noa, nob, phase_arg, norm_mpsrnn, slots_shared,
                      gslots, out);
   a.mp = mp;
   a.use_tensor = use_tensor;
   a.dcp = use_tensor ? dcp : 4;
-  return run<MODE_FLAT>(a, dp, warps, slots_shared, smem, stream);
+  return run<MODE_FLAT, PREC>(a, dp, warps, slots_shared, smem, stream);
 }
 
-// The f32 flat forward on the tensor cores (kernel #1), as three TF32
-// products per product: the arguments of fused_rnn_forward_mma, with the
-// f32 weight stream of pack_mma_tables(matmul_dtype=torch.float32).
-extern "C" int fused_rnn_forward_mma_f32(
-    const void* vals, int N, int norb, int d, int dp, const void* order, const void* npred,
-    const void* slot_w, const void* slot_r, int nslots, const void* tab, const void* chunks,
-    int nchunks, const void* vcat, const void* E, const void* PW, const void* SC, int noa,
-    int nob, int phase_arg, int norm_mpsrnn, int mp, int use_tensor, int dcp, int warps,
-    int slots_shared, int smem, void* gslots, void* out, void* stream) {
-  if (use_tensor && dcp != 4 && dcp != 8) return (int)cudaErrorInvalidValue;
-  Args a = make_args(vals, N, norb, d, order, npred, slot_w, slot_r, nslots, tab, chunks,
-                     nchunks, vcat, E, PW, SC, noa, nob, phase_arg, norm_mpsrnn, slots_shared,
-                     gslots, out);
-  a.mp = mp;
-  a.use_tensor = use_tensor;
-  a.dcp = use_tensor ? dcp : 4;
-  return run<MODE_FLAT, PREC_F32X3>(a, dp, warps, slots_shared, smem, stream);
-}
-
-// The parent pass of the prefix-sharing forward (kernel #2, chains): the
-// flat walk that also writes hh [N, norb, 2d] and sh [N, norb, 8] f32
-// after every position.
-extern "C" int fused_rnn_prefix_parent_mma(
-    const void* vals, int N, int norb, int d, int dp, const void* order, const void* npred,
-    const void* slot_w, const void* slot_r, int nslots, const void* tab, const void* chunks,
-    int nchunks, const void* vcat, const void* E, const void* PW, const void* SC, int noa,
-    int nob, int phase_arg, int norm_mpsrnn, int warps, int slots_shared, int smem,
-    void* gslots, void* hh, void* sh, void* out, void* stream) {
+template <int PREC>
+int prefix_parent(FORWARD_PARAMS, int warps, int slots_shared, int smem, void* gslots, void* hh,
+                  void* sh, void* out, void* stream) {
   Args a = make_args(vals, N, norb, d, order, npred, slot_w, slot_r, nslots, tab, chunks,
                      nchunks, vcat, E, PW, SC, noa, nob, phase_arg, norm_mpsrnn, slots_shared,
                      gslots, out);
   a.hh = static_cast<float*>(hh);
   a.sh = static_cast<float*>(sh);
-  return run<MODE_PARENT>(a, dp, warps, slots_shared, smem, stream);
+  return run<MODE_PARENT, PREC>(a, dp, warps, slots_shared, smem, stream);
 }
 
-// The child pass (kernel #3, chains): row r starts at position s0[r]
-// (rows sorted by s0 for the savings; any order is correct) from the
-// state of parent row parent[r] in hh/sh; site_chunk [norb + 1] is each
-// position's first chunk of the weight stream.
-extern "C" int fused_rnn_prefix_child_mma(
-    const void* vals, int N, int norb, int d, int dp, const void* order, const void* npred,
-    const void* slot_w, const void* slot_r, int nslots, const void* tab, const void* chunks,
-    int nchunks, const void* vcat, const void* E, const void* PW, const void* SC, int noa,
-    int nob, int phase_arg, int norm_mpsrnn, int warps, int slots_shared, int smem,
-    void* gslots, const void* site_chunk, const void* s0, const void* parent, const void* hh,
-    const void* sh, void* out, void* stream) {
+template <int PREC>
+int prefix_child(FORWARD_PARAMS, int warps, int slots_shared, int smem, void* gslots,
+                 const void* site_chunk, const void* s0, const void* parent, const void* hh,
+                 const void* sh, void* out, void* stream) {
   Args a = make_args(vals, N, norb, d, order, npred, slot_w, slot_r, nslots, tab, chunks,
                      nchunks, vcat, E, PW, SC, noa, nob, phase_arg, norm_mpsrnn, slots_shared,
                      gslots, out);
@@ -888,5 +880,67 @@ extern "C" int fused_rnn_prefix_child_mma(
   a.parent = static_cast<const int*>(parent);
   a.hh = const_cast<float*>(static_cast<const float*>(hh));
   a.sh = const_cast<float*>(static_cast<const float*>(sh));
-  return run<MODE_CHILD>(a, dp, warps, slots_shared, smem, stream);
+  return run<MODE_CHILD, PREC>(a, dp, warps, slots_shared, smem, stream);
+}
+
+}  // namespace
+
+// Plain C entry points (loaded with ctypes), each in bf16 and, as three
+// TF32 products per product, in f32 (``_f32``).  Operands as
+// pynqs_tpu_torch/ops/fused_rnn.py::pack_mma_tables lays them out in the
+// entry point's precision; the launch shape (warps, slots_shared, smem)
+// as mma_launch_shape gives it; gslots is the global slot file where
+// slots_shared is 0 (grid * warps * (nslots * dp / 8 * 512 bytes, twice
+// that in f32, + the coupling slot's 4 * nkw * 512)), else ignored.  Each
+// launches on ``stream`` and returns cudaGetLastError() of the launch, or
+// cudaErrorInvalidValue for a width or shape the kernel does not take
+// (dcp, the padded dcut_cmpr, must be 4 or a multiple of 8).
+// The flat forward (kernel #1): a DAG of up to mp predecessors per site,
+// with the tensor coupling where use_tensor.
+extern "C" int fused_rnn_forward_mma(FORWARD_PARAMS, int mp, int use_tensor, int dcp, int warps,
+                                     int slots_shared, int smem, void* gslots, void* out,
+                                     void* stream) {
+  return forward<PREC_BF16>(FORWARD_ARGS, mp, use_tensor, dcp, warps, slots_shared, smem,
+                            gslots, out, stream);
+}
+extern "C" int fused_rnn_forward_mma_f32(FORWARD_PARAMS, int mp, int use_tensor, int dcp,
+                                         int warps, int slots_shared, int smem, void* gslots,
+                                         void* out, void* stream) {
+  return forward<PREC_F32X3>(FORWARD_ARGS, mp, use_tensor, dcp, warps, slots_shared, smem,
+                             gslots, out, stream);
+}
+
+// The parent pass of the prefix-sharing forward (kernel #2, chains): the
+// flat walk that also writes hh [N, norb, 2d] and sh [N, norb, 8] f32
+// after every position.
+extern "C" int fused_rnn_prefix_parent_mma(FORWARD_PARAMS, int warps, int slots_shared, int smem,
+                                           void* gslots, void* hh, void* sh, void* out,
+                                           void* stream) {
+  return prefix_parent<PREC_BF16>(FORWARD_ARGS, warps, slots_shared, smem, gslots, hh, sh, out,
+                                  stream);
+}
+extern "C" int fused_rnn_prefix_parent_mma_f32(FORWARD_PARAMS, int warps, int slots_shared,
+                                               int smem, void* gslots, void* hh, void* sh,
+                                               void* out, void* stream) {
+  return prefix_parent<PREC_F32X3>(FORWARD_ARGS, warps, slots_shared, smem, gslots, hh, sh, out,
+                                   stream);
+}
+
+// The child pass (kernel #3, chains): row r starts at position s0[r]
+// (rows sorted by s0 for the savings; any order is correct) from the
+// state of parent row parent[r] in hh/sh; site_chunk [norb + 1] is each
+// position's first chunk of the weight stream.
+extern "C" int fused_rnn_prefix_child_mma(FORWARD_PARAMS, int warps, int slots_shared, int smem,
+                                          void* gslots, const void* site_chunk, const void* s0,
+                                          const void* parent, const void* hh, const void* sh,
+                                          void* out, void* stream) {
+  return prefix_child<PREC_BF16>(FORWARD_ARGS, warps, slots_shared, smem, gslots, site_chunk, s0,
+                                 parent, hh, sh, out, stream);
+}
+extern "C" int fused_rnn_prefix_child_mma_f32(FORWARD_PARAMS, int warps, int slots_shared,
+                                              int smem, void* gslots, const void* site_chunk,
+                                              const void* s0, const void* parent, const void* hh,
+                                              const void* sh, void* out, void* stream) {
+  return prefix_child<PREC_F32X3>(FORWARD_ARGS, warps, slots_shared, smem, gslots, site_chunk,
+                                  s0, parent, hh, sh, out, stream);
 }

@@ -20,11 +20,12 @@ from ``pack_mma_tables`` and ``hidden_slots``, launch shape from
 in f32 mode its f32 one, each product as three TF32 products.
 ``LAUNCHES`` counts every launch of the fused forward, ``MMA_LAUNCHES``
 those of the bf16 tensor-core kernel, ``F32_MMA_LAUNCHES`` those of the
-f32 one.  The earlier CUDA-core kernel (``csrc/fused_rnn.cu``) serves the
-prefix-sharing passes' f32 mode (``ops/fused_rnn_prefix.py``, which
-launches the other entry points of both libraries); its flat forward is
-reached only to time and check it beside the tensor-core kernel
-(``_launch_simt`` in bf16, ``_launch_f32_cuda_cores`` in f32).
+f32 one.  (``ops/fused_rnn_prefix.py`` launches the same library's
+prefix-sharing entry points.)  The earlier CUDA-core kernel
+(``csrc/fused_rnn.cu``) is reached only to time and check it beside the
+tensor-core kernel (``_launch_simt`` in bf16, ``_launch_f32_cuda_cores``
+in f32; the prefix passes' ``_launch_prefix_simt``).  The tensor-core
+kernel takes dcut <= 128 (``MMA_WIDTHS``) and any dcut_cmpr.
 """
 
 from __future__ import annotations
@@ -161,7 +162,26 @@ def mma_width(d: int) -> int:
     for dp in MMA_WIDTHS:
         if d <= dp:
             return dp
-    raise ValueError(f"the tensor-core kernel takes dcut <= {MMA_WIDTHS[-1]}, not {d}")
+    raise ValueError(f"the tensor-core kernel takes dcut <= {MMA_WIDTHS[-1]}, not {d} (wider "
+                     f"sites need their outputs in passes: ROADMAP.md Queue C, C4)")
+
+
+def coupling_width(model) -> int:
+    """The padded dcut_cmpr (dcp) of the tensor-core kernel's coupling: 4
+    up to 4, else a multiple of 8 (as the JAX kernel pads it); 0 without
+    the coupling."""
+    if not model.use_tensor:
+        return 0
+    dc = model.dcut_cmpr
+    return 4 if dc <= 4 else -(-dc // 8) * 8
+
+
+def coupling_ksteps(model, matmul_dtype=torch.bfloat16) -> int:
+    """The k-steps of one value's KW_x (nkw): one k16 per block of 8 c's
+    in bf16, dcp / 4 k8 in f32; the kernel's coupling slot holds 4 nkw
+    A fragments per lane."""
+    dcp = coupling_width(model)
+    return dcp // 4 if matmul_dtype == torch.float32 else -(-dcp // 8)
 
 
 def _frag(B: torch.Tensor) -> torch.Tensor:
@@ -202,21 +222,23 @@ def pack_mma_tables(model, tables=None, matmul_dtype=torch.bfloat16) -> dict:
     """Operands of the tensor-core kernel in ``matmul_dtype`` (bf16, or
     f32 for its 3xTF32 mode), from ``pack_tables``' f32 tables
     (``tables``, or the model's own).  With dp = ``mma_width(d)``, O =
-    2 dp, NP = O / 16, dcp = dcut_cmpr rounded up to 4 (4 or 8), KS the
+    2 dp, NP = O / 16, dcp = ``coupling_width`` (4 or a multiple of 8),
+    its blocks of cb = min(dcp, 8) c's, nkw = ``coupling_ksteps``, KS the
     k-steps of one hidden (NP of k16 in bf16, 2 NP of k8 in f32) and
     ``frag`` = ``_frag`` (bf16) or ``_frag_tf32`` (f32):
 
       tab     the stream in ``matmul_dtype``, in the order the kernel
               consumes it; per position t with np predecessors (coupled:
               use_tensor and np >= 2):
-                coupled: UW, np * KS k-steps of ``frag`` of B_j
-                  [2 dp, 8 dcp], rows (re|im, e < dp) of predecessor j's
-                  hidden, columns (x, c < dcp, re|im) of u_{j,x,c};
+                coupled: UW, per block b of c's a segment of, per
+                  predecessor j, KS k-steps of ``frag`` of B_jb [2 dp,
+                  8 cb], rows (re|im, e < dp) of predecessor j's hidden,
+                  columns (x, c in block b, re|im) of u_{j,x,c};
                 per value x: np * KS k-steps of ``frag`` of W[t, x]
                   [2 dp · mp, O] (rows (j, re|im, e), columns (re|im,
-                  dd)), then (coupled) the k-steps of KW_x, rows
-                  (c, re|im) of the product: one [16, O], zero past
-                  2 dcp (bf16), or dcp / 4 of [2 dcp, O] (f32);
+                  dd)), then (coupled) the nkw k-steps of KW_x, rows
+                  (c, re|im) of the product, zero past 2 dcp: [16, O]
+                  per block of 8 c's (bf16), [8, O] per 4 c's (f32);
       chunks  int32 [n, 2] (offset, length) in 16-byte units: each run of
               k-steps above cut into chunks of at most STAGE_U4 units;
       site_chunk  int32 [norb + 1]: the index in ``chunks`` of each
@@ -224,7 +246,7 @@ def pack_mma_tables(model, tables=None, matmul_dtype=torch.bfloat16) -> dict:
               stream there), len(chunks) at norb;
       vcat, E, PW  f32 [norb, 4, O], d padded to dp in each half; SC;
       slot_w, slot_r, nslots  ``hidden_slots``; order, npred int32;
-      dp, dcp, NP, KS.
+      dp, dcp, nkw, NP, KS.
 
     Cached per model and type, while ``tables`` (or the model's
     parameters) are the same tensors at the same version: an optimizer
@@ -256,12 +278,10 @@ def _pack_mma(model, T, mmdt) -> dict:
     W = F.pad(T["W"].reshape(norb, 4, mp, 2, d, 2, d), (0, dp - d, 0, 0, 0, dp - d))
     Wf = frag(W.reshape(norb, 4, mp * O, O).to(mmdt))  # [norb, 4, mp KS, 16 O or 8 O]
     coupled = [model.use_tensor and len(ps) >= 2 for ps in model.preds]
-    dcp = 0
+    dcp, nkw = coupling_width(model), coupling_ksteps(model, mmdt)
     if model.use_tensor:
-        dc = model.dcut_cmpr
-        if dc > 8:
-            raise ValueError(f"the tensor-core kernel takes dcut_cmpr <= 8, not {dc}")
-        dcp = 4 if dc <= 4 else 8
+        dc, cb = model.dcut_cmpr, min(dcp, 8)
+        nb = dcp // cb
         Ur = T["U_re"].permute(0, 1, 4, 2, 3)  # [norb, mp, d(e), 4, dc]
         Ui = T["U_im"].permute(0, 1, 4, 2, 3)
         UW = torch.zeros(norb, mp, 2, dp, 4, dcp, 2, dtype=f, device=dev)
@@ -269,16 +289,17 @@ def _pack_mma(model, T, mmdt) -> dict:
         UW[:, :, 1, :d, :, :dc, 0] = -Ui
         UW[:, :, 0, :d, :, :dc, 1] = Ui
         UW[:, :, 1, :d, :, :dc, 1] = Ur
-        UWf = frag(UW.reshape(norb, mp, O, 8 * dcp).to(mmdt))  # [norb, mp, KS, ...]
+        # columns (x, c, re|im) -> per block b of cb c's: [O, 8 cb]
+        UW = UW.reshape(norb, mp, O, 4, nb, 2 * cb).permute(0, 1, 4, 2, 3, 5)
+        UWf = frag(UW.reshape(norb, mp, nb, O, 8 * cb).to(mmdt))  # [norb, mp, nb, KS, ...]
         Kr = T["K_re"].transpose(-1, -2)  # [norb, 4, dc, d]
         Ki = T["K_im"].transpose(-1, -2)
-        KW = torch.zeros(norb, 4, 8, 2, 2, dp, dtype=f, device=dev)
+        KW = torch.zeros(norb, 4, nkw * (4 if f32 else 8), 2, 2, dp, dtype=f, device=dev)
         KW[:, :, :dc, 0, 0, :d] = Kr
         KW[:, :, :dc, 0, 1, :d] = Ki
         KW[:, :, :dc, 1, 0, :d] = -Ki
         KW[:, :, :dc, 1, 1, :d] = Kr
-        KW = KW.reshape(norb, 4, 16, O)
-        KWf = frag((KW[:, :, : 2 * dcp] if f32 else KW).to(mmdt))  # [norb, 4, 1 or dcp/4, ...]
+        KWf = frag(KW.reshape(norb, 4, -1, O).to(mmdt))  # [norb, 4, nkw, ...]
     pieces, chunks, off = [], [], 0
 
     def segment(ks):  # ks [n k-steps, ksz 16-byte units]
@@ -296,7 +317,8 @@ def _pack_mma(model, T, mmdt) -> dict:
         site_chunk.append(len(chunks))
         npd = len(model.preds[t])
         if coupled[t]:
-            segment(UWf[t, :npd].reshape(npd * KS, -1))
+            for b in range(UWf.shape[2]):  # a segment per block of c's
+                segment(UWf[t, :npd, b].reshape(npd * KS, -1))
         for x in range(4):
             ks = Wf[t, x, : npd * KS]
             segment(torch.cat([ks, KWf[t, x]]) if coupled[t] else ks)
@@ -313,7 +335,7 @@ def _pack_mma(model, T, mmdt) -> dict:
         "nslots": nslots,
         "order": torch.tensor(model.site_order, **i32),
         "npred": torch.tensor([len(p) for p in model.preds], **i32),
-        "dp": dp, "dcp": dcp, "NP": NP, "KS": KS,
+        "dp": dp, "dcp": dcp, "nkw": nkw, "NP": NP, "KS": KS,
     }
 
 
@@ -576,23 +598,23 @@ def _bind_mma(so):
         I, I, I, I,              # noa, nob, phase_arg, norm_mpsrnn
     ]
     shape = [I, I, I, P]         # warps, slots_shared, smem, gslots
-    for fn in (so.fused_rnn_forward_mma, so.fused_rnn_forward_mma_f32):
-        fn.argtypes = head + [I, I, I] + shape + [  # mp, use_tensor, dcp
-            P, P,                # out, stream
+    for sfx in ("", "_f32"):  # bf16, and f32 as three TF32 products
+        fwd = getattr(so, f"fused_rnn_forward_mma{sfx}")
+        par = getattr(so, f"fused_rnn_prefix_parent_mma{sfx}")
+        child = getattr(so, f"fused_rnn_prefix_child_mma{sfx}")
+        fwd.argtypes = head + [I, I, I] + shape + [P, P]  # mp, use_tensor, dcp; out, stream
+        par.argtypes = head + shape + [P, P, P, P]  # hh, sh, out, stream
+        child.argtypes = head + shape + [
+            P, P, P, P, P, P, P,  # site_chunk, s0, parent, hh, sh, out, stream
         ]
-    so.fused_rnn_prefix_parent_mma.argtypes = head + shape + [P, P, P, P]  # hh, sh, out, stream
-    so.fused_rnn_prefix_child_mma.argtypes = head + shape + [
-        P, P, P, P, P, P, P,     # site_chunk, s0, parent, hh, sh, out, stream
-    ]
-    for fn in (so.fused_rnn_forward_mma, so.fused_rnn_forward_mma_f32,
-               so.fused_rnn_prefix_parent_mma, so.fused_rnn_prefix_child_mma):
-        fn.restype = I
+        for fn in (fwd, par, child):
+            fn.restype = I
 
 
 def lib_mma():
-    """The built library of the tensor-core kernel (fused_rnn_forward_mma,
-    fused_rnn_forward_mma_f32, fused_rnn_prefix_parent_mma,
-    fused_rnn_prefix_child_mma)."""
+    """The built library of the tensor-core kernel: fused_rnn_forward_mma,
+    fused_rnn_prefix_parent_mma and fused_rnn_prefix_child_mma in bf16,
+    and each with the suffix ``_f32`` in f32."""
     return cuda_build.load_library("fused_rnn_mma", _bind_mma)
 
 
@@ -601,7 +623,9 @@ def mma_launch_shape(model, n_rows=None, n_sm=None, matmul_dtype=torch.bfloat16)
     ``matmul_dtype``: warps of 16 rows per CTA, where the hidden slots
     live ("shared" or "global"), their count, and the dynamic shared
     memory of one CTA in bytes.  A slot of one warp holds 16 rows' hidden,
-    dp / 8 x 512 bytes in bf16, twice that in f32.
+    dp / 8 x 512 bytes in bf16, twice that in f32; with the tensor
+    coupling each warp also has a coupling slot of 4 nkw x 512 bytes
+    (``coupling_ksteps``), which lives with the hidden slots.
 
     The flat forward (``n_rows`` None) takes 8 warps where the slots fit
     in shared memory beside the weight stages, else 4, else 4 with the
@@ -613,10 +637,11 @@ def mma_launch_shape(model, n_rows=None, n_sm=None, matmul_dtype=torch.bfloat16)
     dp = mma_width(model.dcut)
     nslots = hidden_slots(model)[2]
     slot = dp // 8 * 512 * (2 if matmul_dtype == torch.float32 else 1)
+    file = nslots * slot + 4 * coupling_ksteps(model, matmul_dtype) * 512  # one warp's slots
     stages = STAGES * STAGE_U4 * 16
     warps, shared = 4, False
     for w in (8, 4):
-        if stages + w * nslots * slot <= SMEM_LIMIT:
+        if stages + w * file <= SMEM_LIMIT:
             warps, shared = w, True
             break
     out = {"nslots": nslots, "slots": "shared" if shared else "global"}
@@ -627,7 +652,7 @@ def mma_launch_shape(model, n_rows=None, n_sm=None, matmul_dtype=torch.bfloat16)
             warps //= 2
         out["ctas"] = -(-n_rows // (16 * warps))
     out["warps"] = warps
-    out["smem_bytes"] = stages + (warps * nslots * slot if shared else 0)
+    out["smem_bytes"] = stages + (warps * file if shared else 0)
     return out
 
 
@@ -650,7 +675,8 @@ def mma_operands(model, tables, dev, N, shape, matmul_dtype=torch.bfloat16) -> t
     if P["tab"].device != dev:
         raise ValueError(f"the model's tables must be on {dev}")
     rows = 16 * shape["warps"]
-    row_bytes = P["nslots"] * 2 * P["dp"] * P["tab"].element_size()  # one row's slots
+    # one row's hidden slots and its share of its warp's coupling slot
+    row_bytes = P["nslots"] * 2 * P["dp"] * P["tab"].element_size() + 4 * P["nkw"] * 512 // 16
     n_gslot = 0 if shape["slots"] == "shared" else -(-N // rows) * rows * row_bytes
     gslots = torch.empty(n_gslot, dtype=torch.uint8, device=dev)  # the hidden file
     head = (

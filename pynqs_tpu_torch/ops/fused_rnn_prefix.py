@@ -22,17 +22,18 @@ summation order, with the rounding points of
 ``graph_mpsrnn_logpsi_fused_prefix`` takes the plain torch version
 (``graph_mpsrnn_logpsi_fused_prefix_plain``) for rows on the CPU and two
 CUDA kernels for rows on the card; on the card it launches them or
-raises.  In bf16 mode they run on the tensor cores
-(``csrc/fused_rnn_mma.cu``: ``fused_rnn_prefix_parent_mma`` and
-``fused_rnn_prefix_child_mma``, the walk of the flat tensor-core kernel,
-so each row equals the flat kernel's bit for bit); in f32 mode on the
-CUDA cores (``csrc/fused_rnn.cu``: ``fused_rnn_prefix_parent`` and
-``fused_rnn_prefix_child``).  The CUDA wrapper sorts all B·C children by
-t_min, so that the rows of one thread block start close together; the
-TPU's one-parent, 128-lane child blocks are not carried over.
-``PARENT_LAUNCHES`` and ``CHILD_LAUNCHES`` count launches of either
-design, ``MMA_PARENT_LAUNCHES`` and ``MMA_CHILD_LAUNCHES`` those on the
-tensor cores.
+raises.  They run on the tensor cores (``csrc/fused_rnn_mma.cu``:
+``fused_rnn_prefix_parent_mma`` and ``fused_rnn_prefix_child_mma`` in
+bf16 mode, the same with the suffix ``_f32`` in f32 mode, each product
+as three TF32 products), the walk of the flat tensor-core kernel in the
+same precision, so each row equals the flat kernel's bit for bit.  The
+CUDA wrapper sorts all B·C children by t_min, so that the rows of one
+thread block start close together; the TPU's one-parent, 128-lane child
+blocks are not carried over.  ``PARENT_LAUNCHES`` and ``CHILD_LAUNCHES``
+count launches of either design, ``MMA_PARENT_LAUNCHES`` and
+``MMA_CHILD_LAUNCHES`` those on the tensor cores (either precision).  The
+earlier CUDA-core passes (``csrc/fused_rnn.cu``) are reached only from
+``_launch_prefix_simt``, to time them beside the tensor-core passes.
 """
 
 from __future__ import annotations
@@ -67,8 +68,8 @@ __all__ = [
 NSTATE = 8  # scalar state slots per site in sh (the kernel's layout)
 PARENT_LAUNCHES = Counter()  # every launch of the parent pass (either kernel)
 CHILD_LAUNCHES = Counter()  # every launch of the child pass (either kernel)
-MMA_PARENT_LAUNCHES = Counter()  # launches of the tensor-core parent pass
-MMA_CHILD_LAUNCHES = Counter()  # launches of the tensor-core child pass
+MMA_PARENT_LAUNCHES = Counter()  # launches of the tensor-core parent pass (bf16 or f32)
+MMA_CHILD_LAUNCHES = Counter()  # launches of the tensor-core child pass (bf16 or f32)
 
 
 def prefix_available(model) -> bool:
@@ -239,13 +240,19 @@ def _parent_simt(model, vals, hh, sh, out, matmul_dtype, tables):
     PARENT_LAUNCHES.n += 1
 
 
-def _parent_mma(model, vals, hh, sh, out, tables):
-    """The tensor-core parent pass (csrc/fused_rnn_mma.cu), bf16 mode."""
+def _entry(name, matmul_dtype):
+    """The tensor-core library's entry point ``name`` in ``matmul_dtype``."""
+    return getattr(fused_rnn.lib_mma(), name + ("_f32" if matmul_dtype == torch.float32 else ""))
+
+
+def _parent_mma(model, vals, hh, sh, out, matmul_dtype, tables):
+    """The tensor-core parent pass (csrc/fused_rnn_mma.cu), bf16 or f32
+    (3xTF32) mode."""
     dev = vals.device
     B = vals.shape[0]
-    shape = fused_rnn.mma_launch_shape(model, B, _n_sm(dev))
-    _, head, launch, _gslots = fused_rnn.mma_operands(model, tables, dev, B, shape)
-    err = fused_rnn.lib_mma().fused_rnn_prefix_parent_mma(
+    shape = fused_rnn.mma_launch_shape(model, B, _n_sm(dev), matmul_dtype)
+    _, head, launch, _gslots = fused_rnn.mma_operands(model, tables, dev, B, shape, matmul_dtype)
+    err = _entry("fused_rnn_prefix_parent_mma", matmul_dtype)(
         vals.data_ptr(), B, *head, *launch, hh.data_ptr(), sh.data_ptr(), out.data_ptr(),
         _stream(dev),
     )
@@ -273,8 +280,7 @@ def _parent_pass(model, parent_bits, launch):
 def prefix_parent(model, parent_bits, *, matmul_dtype=torch.bfloat16, tables=None):
     """Parent pass: ``prefix_parent_plain`` for CPU rows; for rows on the
     card the tensor-core kernel ``fused_rnn_prefix_parent_mma`` in bf16
-    mode, the CUDA-core kernel ``fused_rnn_prefix_parent`` in f32 mode
-    (or raise)."""
+    or f32 (3xTF32) mode (or raise)."""
     _require_prefix(model)
     dev = parent_bits.device
     if dev.type == "cpu":
@@ -283,10 +289,8 @@ def prefix_parent(model, parent_bits, *, matmul_dtype=torch.bfloat16, tables=Non
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
     _check_dtype(matmul_dtype)
-    if matmul_dtype == torch.bfloat16:
-        return _parent_pass(model, parent_bits, lambda *a: _parent_mma(model, *a, tables))
     return _parent_pass(model, parent_bits,
-                        lambda *a: _parent_simt(model, *a, matmul_dtype, tables))
+                        lambda *a: _parent_mma(model, *a, matmul_dtype, tables))
 
 
 def _child_simt(model, vals, s0, parent, hh, sh, out, matmul_dtype, tables):
@@ -303,14 +307,15 @@ def _child_simt(model, vals, s0, parent, hh, sh, out, matmul_dtype, tables):
     CHILD_LAUNCHES.n += 1
 
 
-def _child_mma(model, vals, s0, parent, hh, sh, out, tables):
+def _child_mma(model, vals, s0, parent, hh, sh, out, matmul_dtype, tables):
     """The tensor-core child pass (csrc/fused_rnn_mma.cu) on sorted rows,
-    bf16 mode."""
+    bf16 or f32 (3xTF32) mode; the weight stream, and each position's
+    first chunk in it (``site_chunk``), in that mode's packing."""
     dev = vals.device
     N = vals.shape[0]
-    shape = fused_rnn.mma_launch_shape(model, N, _n_sm(dev))
-    P, head, launch, _gslots = fused_rnn.mma_operands(model, tables, dev, N, shape)
-    err = fused_rnn.lib_mma().fused_rnn_prefix_child_mma(
+    shape = fused_rnn.mma_launch_shape(model, N, _n_sm(dev), matmul_dtype)
+    P, head, launch, _gslots = fused_rnn.mma_operands(model, tables, dev, N, shape, matmul_dtype)
+    err = _entry("fused_rnn_prefix_child_mma", matmul_dtype)(
         vals.data_ptr(), N, *head, *launch, P["site_chunk"].data_ptr(), s0.data_ptr(),
         parent.data_ptr(), hh.data_ptr(), sh.data_ptr(), out.data_ptr(), _stream(dev),
     )
@@ -354,11 +359,10 @@ def _child_sorted(model, child_rows, parent, s0, hh, sh, launch):
 def prefix_child(model, child_rows, parent, s0, hh, sh, *,
                  matmul_dtype=torch.bfloat16, tables=None):
     """Child pass: ``prefix_child_plain`` for CPU rows; for rows on the
-    card the tensor-core kernel ``fused_rnn_prefix_child_mma`` in bf16
-    mode, the CUDA-core kernel ``fused_rnn_prefix_child`` in f32 mode (or
-    raise).  On the card all rows are sorted by s0 first, so that the
-    rows of one thread block start close together, and the output is put
-    back in order."""
+    card the tensor-core kernel ``fused_rnn_prefix_child_mma`` in bf16 or
+    f32 (3xTF32) mode (or raise).  On the card all rows are sorted by s0
+    first, so that the rows of one thread block start close together, and
+    the output is put back in order."""
     _require_prefix(model)
     dev = child_rows.device
     if dev.type == "cpu":
@@ -367,26 +371,25 @@ def prefix_child(model, child_rows, parent, s0, hh, sh, *,
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
     _check_dtype(matmul_dtype)
-    if matmul_dtype == torch.bfloat16:
-        return _child_sorted(model, child_rows, parent, s0, hh, sh,
-                             lambda *a: _child_mma(model, *a, tables))
     return _child_sorted(model, child_rows, parent, s0, hh, sh,
-                         lambda *a: _child_simt(model, *a, matmul_dtype, tables))
+                         lambda *a: _child_mma(model, *a, matmul_dtype, tables))
 
 
 @torch.no_grad()
-def _launch_prefix_simt(kind, model, *args, tables=None):
+def _launch_prefix_simt(kind, model, *args, tables=None, matmul_dtype=torch.bfloat16):
     """The CUDA-core parent (``kind`` "parent", args as
     ``prefix_parent``) or child pass ("child", args as ``prefix_child``)
-    in bf16 mode, for timing it beside the tensor-core pass on the same
-    rows.  No public function reaches it: ``prefix_parent`` and
-    ``prefix_child`` take the tensor-core kernels in bf16 mode."""
-    bf16 = torch.bfloat16
+    in bf16 or f32 mode, the earlier design, for timing it beside the
+    tensor-core pass on the same rows.  No public function reaches it:
+    ``prefix_parent`` and ``prefix_child`` take the tensor-core kernels in
+    either mode."""
+    _check_dtype(matmul_dtype)
     if kind == "parent":
-        return _parent_pass(model, *args, lambda *a: _parent_simt(model, *a, bf16, tables))
+        return _parent_pass(model, *args,
+                            lambda *a: _parent_simt(model, *a, matmul_dtype, tables))
     if kind == "child":
         return _child_sorted(model, *args,
-                             lambda *a: _child_simt(model, *a, bf16, tables))
+                             lambda *a: _child_simt(model, *a, matmul_dtype, tables))
     raise ValueError(f"kind must be 'parent' or 'child', not {kind!r}")
 
 

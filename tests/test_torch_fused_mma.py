@@ -27,6 +27,10 @@ tests/test_torch_gpu.py holds it against the plain version.  Here:
     splits them and the tails' product left out, with the f32 plain
     version to 1e-5 on log|psi| and 1e-4 on the phase: the split's error
     predicted before any run on the card.
+
+A dcut_cmpr above 8 (the "tensor-3pred-d20-dc12" case: dcp 16, two
+blocks of 8 c's) goes through (a) and (c) like the others, and its plain
+version is held to the JAX kernel in interpret mode.
 """
 
 import numpy as np
@@ -38,6 +42,7 @@ import torch
 from pynqs_tpu.models.graph_mps_rnn import GraphMPSRNN as JModel
 from pynqs_tpu.models.graph_mps_rnn import grid_snake_graph as jgrid
 from pynqs_tpu.ops.fused_rnn import _pack_tensor_weights, _pack_weights
+from pynqs_tpu.ops.fused_rnn import graph_mpsrnn_logpsi_fused as jfused
 from pynqs_tpu.utils import fci
 from pynqs_tpu.utils.graph import dag_from_order as jdag
 
@@ -88,6 +93,9 @@ CASES = {
     "tensor-3pred-d20-dc6": lambda: _pair(12, 3, 20, 5, *_extra_pred_graphs(6, 0),
                                           use_tensor=True, dcut_cmpr=6,
                                           phase_mode="linear", norm_mode="unit"),
+    "tensor-3pred-d20-dc12": lambda: _pair(12, 3, 20, 7, *_extra_pred_graphs(6, 1),
+                                           use_tensor=True, dcut_cmpr=12,
+                                           phase_mode="arg", norm_mode="mpsrnn"),
 }
 
 
@@ -146,20 +154,26 @@ class _Stream:
         return out
 
 
-def _unpack(model, P, prec="bf16"):
-    """Per position t: {"W": [4, np·O, O], "UW": [np, O, 8 dcp], "KW":
-    [4, 16 (bf16) or 2 dcp (f32), O]} (the last two where coupled), as the
-    kernel reads them."""
+def _unpack(model, P, prec="bf16", t0=0):
+    """Per position t >= t0: {"W": [4, np·O, O], "UW": [np, O, 8 dcp]
+    (columns (x, c, re|im)), "KW": [4, 16 per 8 c's (bf16) or 2 dcp (f32),
+    O]} (the last two where coupled), as the kernel reads them from chunk
+    ``site_chunk[t0]`` on: UW a run per block of cb = min(dcp, 8) c's,
+    then per value W and KW; the read ends at the last chunk."""
     dcp, NP, KS = P["dcp"], P["NP"], P["KS"]
     O = 16 * NP
+    cb = min(dcp, 8)
     st, sites = _Stream(P), []
-    for ps in model.preds:
+    st.c = int(P["site_chunk"][t0])
+    for ps in model.preds[t0:]:
         npd = len(ps)
         site = {}
         if model.use_tensor and npd >= 2:
-            B = [_unfrag(k, 8 * dcp, prec) for k in st.run(npd * KS, 16 * dcp)]
-            site["UW"] = torch.cat(B).reshape(npd, O, 8 * dcp)
-        nkw = (1 if prec == "bf16" else dcp // 4) if "UW" in site else 0
+            nb = dcp // cb
+            B = [_unfrag(k, 8 * cb, prec) for _ in range(nb) for k in st.run(npd * KS, 16 * cb)]
+            UW = torch.cat(B).reshape(nb, npd, O, 4, 2 * cb).permute(1, 2, 3, 0, 4)
+            site["UW"] = UW.reshape(npd, O, 8 * dcp)
+        nkw = (-(-dcp // 8) if prec == "bf16" else dcp // 4) if "UW" in site else 0
         W, KW = [], []
         for _ in range(4):
             B = [_unfrag(k, O, prec) for k in st.run(npd * KS + nkw, 32 * NP)]
@@ -227,7 +241,7 @@ def test_packed_tables_equal_the_jax_packing(case, prec):
         for j in range(npd):
             want = UWj[t, j, :, :, :dc, j, :, :d].transpose(3, 4, 0, 2, 1)  # ri_i,e,x,c,ri_o
             np.testing.assert_array_equal(UW[j, :, :d, :, :dc].astype(np.float32), want)
-        assert site["KW"].shape[1] == {"bf16": 16, "f32": 2 * dcp}[prec]
+        assert site["KW"].shape[1] == {"bf16": 16 * -(-dcp // 8), "f32": 2 * dcp}[prec]
         KW = site["KW"].reshape(4, -1, 2, 2, dp).numpy()  # x, c, ri_i, ri_o, dd
         assert not KW[:, dc:].any() and not KW[..., d:].any()
         for x in range(4):
@@ -422,6 +436,7 @@ EMULATED = {
     "dag-d8-linear-unit": lambda: CASES["dag-d8"]()[2],
     "tensor-d8-dc4": lambda: CASES["tensor-d8-dc4"]()[2],
     "tensor-3pred-d20-dc6": lambda: CASES["tensor-3pred-d20-dc6"]()[2],
+    "tensor-3pred-d20-dc12": lambda: CASES["tensor-3pred-d20-dc12"]()[2],
     "r5g64-stand-in-d24": lambda: _model_on("r5g64-stand-in", dcut=24),
     "grid-4x5-d50": lambda: _model_on("grid-4x5", dcut=50, use_tensor=False),
 }
@@ -494,11 +509,38 @@ def test_f32_launch_shape():
 
 
 def test_mma_widths():
+    """dp tiers up to 128 (wider raises and names the ROADMAP item); any
+    dcut_cmpr, padded to 4 or to a multiple of 8 as the JAX kernel pads
+    it, with its KW k-steps and the coupling slot's bytes per warp."""
     assert [fused_rnn.mma_width(d) for d in (1, 10, 16, 17, 48, 50, 64, 100, 128)] == [
         16, 16, 16, 32, 48, 64, 64, 128, 128]
-    with pytest.raises(ValueError, match="dcut <= 128"):
+    with pytest.raises(ValueError, match="dcut <= 128.*C4"):
         fused_rnn.mma_width(129)
-    model = GraphMPSRNN(12, 3, 3, dcut=4, graph=grid_snake_graph(3, 2), use_tensor=True,
-                        dcut_cmpr=9, device="cpu")
-    with pytest.raises(ValueError, match="dcut_cmpr <= 8"):
-        fused_rnn.pack_mma_tables(model)
+    stages = fused_rnn.STAGES * fused_rnn.STAGE_U4 * 16
+    for dc, dcp, nkw in ((1, 4, (1, 1)), (4, 4, (1, 1)), (5, 8, (1, 2)), (9, 16, (2, 4)),
+                         (12, 16, (2, 4)), (17, 24, (3, 6))):
+        model = GraphMPSRNN(12, 3, 3, dcut=4, graph=grid_snake_graph(3, 2), use_tensor=True,
+                            dcut_cmpr=dc, device="cpu")
+        for mm, k in zip((bf16, f32), nkw):
+            P = fused_rnn.pack_mma_tables(model, matmul_dtype=mm)
+            assert (P["dcp"], P["nkw"]) == (dcp, k)
+            sh = fused_rnn.mma_launch_shape(model, matmul_dtype=mm)
+            slot = 2 * 512 * (2 if mm == f32 else 1)  # dp 16
+            assert sh["smem_bytes"] == stages + sh["warps"] * (sh["nslots"] * slot + 4 * k * 512)
+    chain = GraphMPSRNN(12, 3, 3, dcut=4, device="cpu")
+    assert fused_rnn.pack_mma_tables(chain)["nkw"] == 0
+
+
+def test_plain_matches_pallas_tensor_coupling_dcut_cmpr_12():
+    """The plain version at dcut_cmpr 12 (the JAX kernel pads it to 16)
+    against the Pallas kernel in interpret mode, f32 matmuls: 1e-5 on
+    log|psi| and 1e-4 on the phase (tests/test_torch_fused_rnn.py's: the
+    same rounding points, sums in another order)."""
+    jm, params, tm = CASES["tensor-3pred-d20-dc12"]()
+    bits = fci.fci_bits(12, 3, 3)[:64]
+    want = np.asarray(jfused(jm, {k: jnp.asarray(v) for k, v in params.items()},
+                             jnp.asarray(bits), interpret=True, matmul_dtype=jnp.float32))
+    got = fused_rnn.graph_mpsrnn_logpsi_fused(tm, torch.as_tensor(bits),
+                                              matmul_dtype=f32).numpy()
+    np.testing.assert_allclose(got[:, 0], want[:, 0], atol=1e-5, rtol=0)
+    assert np.abs(np.exp(1j * got[:, 1]) - np.exp(1j * want[:, 1])).max() < 1e-4

@@ -1,10 +1,10 @@
 """Card-only tests of the port: the fused forward's CUDA kernel (the
 tensor-core kernel in bf16 and in f32 as three TF32 products; tensor
-coupling included), the prefix-sharing kernels (on the tensor cores in bf16,
-bit for bit the flat tensor-core kernel's rows; on the CUDA cores in
-f32) and the doubles pair
-selection against their plain versions, and VMC steps (with the REDUCE
-forward dedup too) and the dense ``comb_hij`` that go through the kernels.
+coupling included, at dcut_cmpr 4 and 12), the prefix-sharing kernels (on
+the tensor cores in both precisions, bit for bit the flat tensor-core
+kernel's rows in the same precision) and the doubles pair selection
+against their plain versions, and VMC steps (with the REDUCE forward
+dedup too) and the dense ``comb_hij`` that go through the kernels.
 
 They import neither JAX nor the JAX package, so they also run where only
 PyTorch for CUDA is installed.  On a machine with a card:
@@ -15,9 +15,11 @@ PyTorch for CUDA is installed.  On a machine with a card:
 other test files.)  Without a card every test here skips.
 """
 
+import importlib.util
 import itertools
 import math
 import os
+import pathlib
 import shutil
 
 import numpy as np
@@ -33,12 +35,16 @@ from pynqs_tpu_torch.ops.integrals import triangle_size
 from pynqs_tpu_torch.optim.vmc import VMC, VMCConfig
 from pynqs_tpu_torch.sampler.ar_sampler import ARSampler
 from pynqs_tpu_torch.utils.checkpoint import load_params
-from pynqs_tpu_torch.utils.flagship import flagship_model
+from pynqs_tpu_torch.utils.flagship import flagship_graph, flagship_model
 from pynqs_tpu_torch.utils.system import System
 
 pytestmark = pytest.mark.gpu
 
 CKPT = os.path.join(os.path.dirname(__file__), "..", "checkpoints", "fe2s2_dcut48_final.pkl")
+_spec = importlib.util.spec_from_file_location(
+    "chip_smoke", pathlib.Path(__file__).resolve().parents[1] / "chip_smoke.py")
+smoke = importlib.util.module_from_spec(_spec)
+_spec.loader.exec_module(smoke)
 
 
 @pytest.fixture
@@ -157,6 +163,37 @@ def test_mma_kernel_ragged_rows(case, rows, mm, dev):
 
 
 @pytest.mark.parametrize("mm", ["f32", "bf16"])
+def test_mma_kernel_dcut_cmpr_12_r5g64_graph(mm, dev):
+    """A tensor-coupled model past dcut_cmpr 8 (12, padded to 16: two
+    blocks of 8 c's, the coupling slot 2 or 4 k-steps per value) on the
+    r5g64 stand-in graph at dcut 64: one launch of the tensor-core kernel
+    in its mode, held to the plain version by ``chip_smoke.hold_rows``
+    (the f64-sum plain version beside it for ill-conditioned phases)."""
+    rng = np.random.default_rng(0)
+    h1e = rng.standard_normal((40, 40)) * 0.1
+    system = System.from_integrals((h1e + h1e.T) / 2,
+                                   rng.standard_normal(triangle_size(40)) * 0.01, 40, 15, 15)
+    dt = {"f32": torch.float32, "bf16": torch.bfloat16}[mm]
+    model = GraphMPSRNN(40, 15, 15, dcut=64, graph=flagship_graph(system, 2), phase_mode="arg",
+                        norm_mode="mpsrnn", use_tensor=True, dcut_cmpr=12, device=dev,
+                        generator=torch.Generator().manual_seed(0))
+    assert fused_rnn.pack_mma_tables(model, matmul_dtype=dt)["dcp"] == 16
+    bits = torch.as_tensor(_rand_dets(4096, 40, 15, 15, 6), device=dev)
+    before = _mode_counts()
+    k = fused_rnn.graph_mpsrnn_logpsi_fused(model, bits, matmul_dtype=dt)
+    torch.cuda.synchronize()
+    assert _mode_counts() == (before[0] + 1, before[1] + (mm == "bf16"),
+                              before[2] + (mm == "f32"))
+    T = fused_rnn.pack_tables(model)
+    p = fused_rnn.graph_mpsrnn_logpsi_fused_plain(model, bits, matmul_dtype=dt, tables=T)
+    q = fused_rnn.graph_mpsrnn_logpsi_fused_plain(
+        model, bits, matmul_dtype=dt, tables={key: v.double() for key, v in T.items()})
+    tol = {"f32": (1e-4, 1e-3), "bf16": (1e-1, 1e-1)}[mm]
+    ok, _, st = smoke.hold_rows(k, p, q, tol)
+    assert ok, st
+
+
+@pytest.mark.parametrize("mm", ["f32", "bf16"])
 def test_mma_kernel_global_hidden_slots(mm, dev):
     """The r5g64 stand-in graph (7 live hiddens) where the slots do not fit
     in shared memory, at dcut 128 in bf16 and at its own dcut 64 in f32
@@ -252,9 +289,9 @@ def _prefix_counts():
 @pytest.mark.parametrize("mm", ["f32", "bf16"])
 def test_cuda_prefix_kernels_match_plain_and_flat(mm, dev):
     """One parent and one child launch per call, on the tensor cores in
-    bf16 and on the CUDA cores in f32; the values of the plain version
-    and of the flat kernel on the same rows, at the tolerances above;
-    in bf16 bit for bit the flat tensor-core kernel's."""
+    either precision; the values of the plain version at the tolerances
+    above, and bit for bit the flat tensor-core kernel's in the same
+    precision on the same rows."""
     model, _ = _model("fe2s2-dcut48", dev)
     parents = torch.as_tensor(_rand_dets(96, 40, 15, 15, 3), device=dev)
     kids = torch.as_tensor(_excitations(parents.cpu().numpy(), 50, 4), device=dev)
@@ -265,9 +302,8 @@ def test_cuda_prefix_kernels_match_plain_and_flat(mm, dev):
     before = _prefix_counts()
     kp, kc = pre.graph_mpsrnn_logpsi_fused_prefix(model, parents, kids, t_min, matmul_dtype=dt)
     torch.cuda.synchronize()
-    mma = int(mm == "bf16")
-    assert _prefix_counts() == (before[0] + 1, before[1] + 1, before[2] + mma,
-                                before[3] + mma, before[4])
+    assert _prefix_counts() == (before[0] + 1, before[1] + 1, before[2] + 1, before[3] + 1,
+                                before[4])
     pp, pc = pre.graph_mpsrnn_logpsi_fused_prefix_plain(model, parents, kids, t_min,
                                                         matmul_dtype=dt)
     assert torch.isfinite(kp).all() and torch.isfinite(kc).all()
@@ -275,11 +311,8 @@ def test_cuda_prefix_kernels_match_plain_and_flat(mm, dev):
     _close(kc, pc, tol)
     flat = fused_rnn.graph_mpsrnn_logpsi_fused(
         model, torch.cat([parents, kids.reshape(-1, 40).to(parents.dtype)]), matmul_dtype=dt)
-    _close(kp, flat[:96], tol)
-    _close(kc.reshape(-1, 2), flat[96:], tol)
-    if mm == "bf16":
-        assert torch.equal(kp, flat[:96])
-        assert torch.equal(kc.reshape(-1, 2), flat[96:])
+    assert torch.equal(kp, flat[:96])
+    assert torch.equal(kc.reshape(-1, 2), flat[96:])
 
 
 def _prefix_rows(dev, n_par, C, s0, seed=5):
@@ -301,13 +334,13 @@ def _prefix_rows(dev, n_par, C, s0, seed=5):
     return model, parents, kids, t_min
 
 
-def _hold_prefix(model, parents, kids, t_min):
-    """The tensor-core passes: one launch each (none for no rows), the
-    plain version's values at the bf16 tolerance, and the flat
-    tensor-core kernel's bit for bit."""
-    bf16 = torch.bfloat16
+def _hold_prefix(model, parents, kids, t_min, mm="bf16"):
+    """The tensor-core passes in ``mm``: one launch each (none for no
+    rows), the plain version's values at the tolerance of ``mm``, and the
+    flat tensor-core kernel's in ``mm`` bit for bit."""
+    dt = {"f32": torch.float32, "bf16": torch.bfloat16}[mm]
     before = _prefix_counts()
-    kp, kc = pre.graph_mpsrnn_logpsi_fused_prefix(model, parents, kids, t_min)
+    kp, kc = pre.graph_mpsrnn_logpsi_fused_prefix(model, parents, kids, t_min, matmul_dtype=dt)
     torch.cuda.synchronize()
     lp, lc = int(parents.shape[0] > 0), int(kids.shape[0] * kids.shape[1] > 0)
     assert _prefix_counts() == (before[0] + lp, before[1] + lc, before[2] + lp,
@@ -316,15 +349,18 @@ def _hold_prefix(model, parents, kids, t_min):
     if rows.shape[0] == 0:
         assert kp.shape == (0, 2) and kc.numel() == 0
         return
-    pp, pc = pre.graph_mpsrnn_logpsi_fused_prefix_plain(model, parents, kids, t_min)
-    _close(torch.cat([kp, kc.reshape(-1, 2)]), torch.cat([pp, pc.reshape(-1, 2)]), (1e-1, 1e-1))
-    flat = fused_rnn.graph_mpsrnn_logpsi_fused(model, rows, matmul_dtype=bf16)
+    pp, pc = pre.graph_mpsrnn_logpsi_fused_prefix_plain(model, parents, kids, t_min,
+                                                        matmul_dtype=dt)
+    _close(torch.cat([kp, kc.reshape(-1, 2)]), torch.cat([pp, pc.reshape(-1, 2)]),
+           (1e-4, 1e-3) if mm == "f32" else (1e-1, 1e-1))
+    flat = fused_rnn.graph_mpsrnn_logpsi_fused(model, rows, matmul_dtype=dt)
     assert torch.equal(kp, flat[:parents.shape[0]])
     assert torch.equal(kc.reshape(-1, 2), flat[parents.shape[0]:])
 
 
+@pytest.mark.parametrize("mm", ["f32", "bf16"])
 @pytest.mark.parametrize("s0", ["mixed", "zero", "norb"])
-def test_mma_prefix_first_changed_sites(s0, dev):
+def test_mma_prefix_first_changed_sites(s0, mm, dev):
     """Child tiles that start at 0, at norb (no site runs: the parent's
     state) and in between, across parents; rows shuffled so that the
     wrapper's sort matters."""
@@ -334,18 +370,20 @@ def test_mma_prefix_first_changed_sites(s0, dev):
                           and ((t_min > 0) & (t_min < norb)).any()),
             "zero": bool((t_min == 0).all()), "norb": bool((t_min == norb).all())}[s0]
     perm = torch.randperm(kids.shape[1], generator=torch.Generator().manual_seed(0))
-    _hold_prefix(model, parents, kids[:, perm], t_min[:, perm])
+    _hold_prefix(model, parents, kids[:, perm], t_min[:, perm], mm)
 
 
+@pytest.mark.parametrize("mm", ["f32", "bf16"])
 @pytest.mark.parametrize("rows", ["0", "5", "tile+1", "grid+1"])
-def test_mma_prefix_ragged_rows(rows, dev):
+def test_mma_prefix_ragged_rows(rows, mm, dev):
     """Parent and child passes at N = 0, 5, one CTA of the small-N shape
     (1 warp) + 1, and one row past a grid of 8-warp CTAs that fills the
     SMs: rows past N are neither written nor felt by the others."""
     n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
     model, _ = _model("fe2s2-dcut48", dev)
     n = {"0": 0, "5": 5, "tile+1": 17, "grid+1": n_sm * 128 + 1}[rows]
-    shape = fused_rnn.mma_launch_shape(model, n, n_sm)
+    shape = fused_rnn.mma_launch_shape(model, n, n_sm,
+                                       torch.float32 if mm == "f32" else torch.bfloat16)
     if rows == "tile+1":
         assert shape["warps"] == 1 and shape["ctas"] == 2
     if rows == "grid+1":
@@ -353,35 +391,32 @@ def test_mma_prefix_ragged_rows(rows, dev):
     # n parents with one child each, and one parent with n children
     for n_par, C in ((n, 1), (min(n, 1), n)):
         _, parents, kids, t_min = _prefix_rows(dev, n_par, C, "mixed", seed=n)
-        _hold_prefix(model, parents, kids, t_min)
+        _hold_prefix(model, parents, kids, t_min, mm)
 
 
-def test_bf16_prefix_rows_on_card_never_take_the_plain_version_or_the_cuda_cores(
-        dev, monkeypatch):
+def _prefix_never_plain_or_cuda_cores(dev, monkeypatch, dt):
     def boom(*a, **k):
-        raise AssertionError("the plain version or a CUDA-core prefix kernel ran on bf16 rows")
+        raise AssertionError("the plain version or a CUDA-core prefix kernel ran on CUDA rows")
 
     for name in ("prefix_parent_plain", "prefix_child_plain", "_parent_simt", "_child_simt"):
         monkeypatch.setattr(pre, name, boom)
     monkeypatch.setattr(fused_rnn, "graph_mpsrnn_logpsi_fused_plain", boom)
     model, parents, kids, t_min = _prefix_rows(dev, 32, 20, "mixed")
-    pre.graph_mpsrnn_logpsi_fused_prefix(model, parents, kids, t_min)
-    pre.ReducePrefixForward(model)(parents, kids, t_min)
-    torch.cuda.synchronize()
-
-
-def test_f32_prefix_rows_on_card_take_the_cuda_cores(dev, monkeypatch):
-    def boom(*a, **k):
-        raise AssertionError("a tensor-core prefix kernel ran on f32 rows")
-
-    monkeypatch.setattr(pre, "_parent_mma", boom)
-    monkeypatch.setattr(pre, "_child_mma", boom)
-    model, parents, kids, t_min = _prefix_rows(dev, 32, 20, "mixed")
     before = _prefix_counts()
-    pre.graph_mpsrnn_logpsi_fused_prefix(model, parents, kids, t_min,
-                                         matmul_dtype=torch.float32)
+    pre.graph_mpsrnn_logpsi_fused_prefix(model, parents, kids, t_min, matmul_dtype=dt)
+    pre.ReducePrefixForward(model, matmul_dtype=dt)(parents, kids, t_min)
     torch.cuda.synchronize()
-    assert _prefix_counts() == (before[0] + 1, before[1] + 1) + before[2:]
+    assert _prefix_counts() == tuple(b + 2 for b in before[:4]) + before[4:]
+
+
+def test_bf16_prefix_rows_on_card_never_take_the_plain_version_or_the_cuda_cores(
+        dev, monkeypatch):
+    _prefix_never_plain_or_cuda_cores(dev, monkeypatch, torch.bfloat16)
+
+
+def test_f32_prefix_rows_on_card_never_take_the_plain_version_or_the_cuda_cores(
+        dev, monkeypatch):
+    _prefix_never_plain_or_cuda_cores(dev, monkeypatch, torch.float32)
 
 
 def test_vmc_step_with_eloc_prefix_on_card(dev):
