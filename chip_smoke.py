@@ -111,7 +111,7 @@ Phases, one line each (and a few detail lines):
      cut (--max-space 256 --max-rounds 3), its file read back by load_ci;
      NqsCi training through pynqs_tpu_torch/scripts/fe2s2_nqsci_train.main
      on checkpoints/fe2s2_hci_m1024.npz at full width (m 1024, eloc batch
-     256; cut: capacity 1024, n 1e5, 2 iterations), its gradient-free
+     256; cut: capacity 1024, n 1e5, 1 iteration), its gradient-free
      forwards through kernel #1 in f32 (the tensor-core kernel's 3xTF32
      mode), every e_tot and |c_m| finite, the parameters changed, the
      saved state loaded, one more iteration timed stage by stage, its
@@ -130,7 +130,32 @@ Phases, one line each (and a few detail lines):
      predecessors, the stand-in graph, seeded weights) on 65,536 random
      rows in bf16 and f32, one launch each counted, held by ``hold_rows``
      to the plain version and to the CUDA-core kernel, and timed beside
-     the same shape at dcut_cmpr 4 on the same rows.
+     the same shape at dcut_cmpr 4 on the same rows;
+ 15. the SR trainer (pynqs_tpu_torch/scripts/fe2s2_r2_push.main) at the
+     script's defaults (n 5e5, capacity 4096, REDUCE k_det 512 / n_stoch
+     128, clip 0.1, CG min-SR with --n-cg 50 --sr-damping 1e-3 and SGD on
+     the exp schedule; the stand-in integrals through the default system
+     path): --stage 64 --sr from checkpoints/fe2s2_dcut64.pkl (2
+     iterations), --stage 96 --sr grown from fe2s2_r2_dcut64.pkl and
+     --stage 128 --sr grown from a copy of fe2s2_r2_dcut96_final.pkl (1
+     each), --stage 64 --n-slab 4 with AdamW (1): every step finite with
+     w_sum 1, its stages synchronized (sample, eloc, SR solve, update),
+     the CG residual of every solve by one more matvec, the eloc
+     forwards through the tensor-core walk alone (the CUDA-core count 0),
+     peak memory; kernel #1 at dp 64, 96 and 128 held by ``hold_rows`` on
+     65,536 eloc rows and timed on the eloc rows of 1024 samples; the
+     slabbed rows unique, their counts summing to n_sample less the
+     dropped count;
+ 16. the SR solvers in f64 on the card (dense = blocked with one block,
+     CG with n_cg = 2P = dense) on a small chain; the f32 CG on phase
+     15's dcut-64 samples beside f64 (both residuals); one call each of
+     the MCMC (1024 chains, 32 sweeps; the sector kept), Gumbel (distinct
+     rows, finite weights) and RESTRICTED (phase 15's unique rows, one VMC
+     step) samplers on the dcut-64 state; local_energy_simple_dedup
+     against local_energy_simple; the ported feature tour
+     (pynqs_tpu_torch/examples/feature_tour.main) at its iteration
+     counts but 5 CG-SR steps (of 100), each VMC rung's tail mean at most
+     5 s.e. below FCI.
 
 The last two lines are the kernels' JSON summary and the result JSON.
 Any failed check raises, so the script exits non-zero with no result.
@@ -178,6 +203,22 @@ HCI_ARGS = ["--max-space", "256", "--max-rounds", "3"]
 SEL_ARGS = ["--m", "256", "--seed-dets", "64", "--iters", "1", "--eloc-batch", "256",
             "--capacity", "1024", "--n-sample", "100000"]
 N_SUB = 9  # CI determinants of phase 13's chunked-gradient check (70,884 connected rows)
+# phase 15: fe2s2_r2_push.main at its defaults (n 5e5, capacity 4096, REDUCE
+# 512/128, clip 0.1, --n-cg 50 --sr-damping 1e-3, SGD or AdamW on the exp
+# schedule), cut to 1-2 iterations per stage
+R2_RUNS = (("64", ["--stage", "64", "--sr", "--iters", "2", "--tag", "_sr"]),
+           ("96", ["--stage", "96", "--sr", "--iters", "1"]),
+           ("128", ["--stage", "128", "--sr", "--iters", "1"]),
+           ("64-slab", ["--stage", "64", "--n-slab", "4", "--iters", "1", "--tag", "_slab"]))
+N_TIME = 1024  # samples whose eloc rows time kernel #1 at each r2_push width
+# phase 16: the f64 solver check's damping (at 1e-3 plain CG stalls near a
+# 1e-6 residual on that S), the dedup'd SIMPLE check's rows, and
+# feature_tour.main's keywords: its iteration counts but the CG-SR rung's,
+# cut from 100 to 5 steps (the tour took 358 s at 100 on the card, 68 s
+# at 10; each step is 100 CG iterations)
+SR_DAMP16 = 1e-2
+N_DEDUP16 = 64
+TOUR_KW = {"n_sr": 5}
 H100_BF16_FLOPS = 989e12  # dense tensor-core peak, SXM data sheet
 H100_TF32_FLOPS = 495e12  # dense tensor-core peak in TF32
 H100_F32_FLOPS = 67e12  # f32 outside the tensor cores
@@ -256,7 +297,10 @@ def hold_rows(k, p, q, tol):
     """Hold a kernel's rows ``k`` [N, 2] against the plain version's ``p``
     at ``tol`` = (log|ψ| tol, phase tol); ``q`` is the plain version
     with f64 sums, which shows how far summation order alone moves each
-    row.  Returns (ok, what was held, stats).
+    row (or a list of such evaluations of the same function: the largest
+    move of each row counts; phase 15 adds the f32 evaluation of a bf16
+    forward, whose distance is the bf16 plain version's own rounding
+    error).  Returns (ok, what was held, stats).
 
     Every row is held at the log|ψ| tolerance, and the median row at
     ``MED_TOL`` in both: summation order alone moves it by f32 ulps, a
@@ -268,7 +312,7 @@ def hold_rows(k, p, q, tol):
     most 1 row in 1000 may differ by more than the phase tolerance."""
     ta, tp = tol
     da, dp = row_errs(k, p)
-    dq = row_errs(q, p)[1]
+    dq = torch.stack([row_errs(x, p)[1] for x in (q if isinstance(q, list) else [q])]).amax(0)
     st = {"max_a": da.max().item(), "max_p": dp.max().item(), "med_a": da.median().item(),
           "med_p": dp.median().item(), "q_max_p": dq.max().item(),
           "q_over": int((dq > tp).sum()), "over": int((dp > tp).sum())}
@@ -314,6 +358,20 @@ def ptxas_report(text):
             out.append(f"{name}: {m.group(1)} registers{m.group(2)}; {spill}")
             name = None
     return out
+
+
+def flat_regs(dp, mode, warps):
+    """(registers, [spill stores, loads] B) of the tensor-core kernel's flat
+    forward instantiation at width ``dp`` in ``mode`` ("bf16" or "f32") at
+    ``warps`` warps, from ptxas' report of the build."""
+    from pynqs_tpu_torch.ops import cuda_build
+
+    ln = [x for x in ptxas_report(cuda_build.BUILD_INFO.get("fused_rnn_mma", ""))
+          if f"(dp {dp})" in x and f"tensor cores {mode}, flat forward" in x
+          and f"{warps} warps of 16 rows" in x]
+    n = int(re.search(r": (\d+) registers", ln[0]).group(1)) if ln else None
+    sp = re.search(r"spill stores (\d+) B, loads (\d+) B", ln[0]) if ln else None
+    return n, ([int(sp.group(1)), int(sp.group(2))] if sp else [0, 0])
 
 
 def r5_graph_model(system, dcut_cmpr, dev, seed=14):
@@ -377,11 +435,11 @@ def flagship_run(dev, smi, here, bound, flop_per_site, table_bytes, tol, timed):
     saved = (flagship.FE2S2_PTH, vmc_mod.VMC.step, vmc_mod.save_checkpoint)
     steps, copies = [], []
 
-    def step(self, generator, clip_val, sampler=None):
+    def step(self, generator, clip_val, sampler=None, gmask=None):
         """VMC.step, synchronized and recorded (host clock)."""
         sync()
         t = time.perf_counter()
-        out = saved[1](self, generator, clip_val, sampler)
+        out = saved[1](self, generator, clip_val, sampler, gmask)
         sync()
         steps.append({"s": time.perf_counter() - t, "count": self.count - 1, "lr": out["lr"],
                       "energy": float(out["energy"]), "w_sum": float(out["w_sum"]),
@@ -531,17 +589,8 @@ def flagship_run(dev, smi, here, bound, flop_per_site, table_bytes, tol, timed):
         for ln in regs:
             log(11, f"  ptxas fused_rnn_mma: {ln}")
 
-        def reg_spill(mode, warps):
-            """(registers, [spill stores, loads] B) of the flat dp-96
-            instantiation of ``mode`` at ``warps`` warps (ptxas)."""
-            ln = [x for x in regs if f"tensor cores {mode}, flat forward" in x
-                  and f"{warps} warps of 16 rows" in x]
-            n = int(re.search(r": (\d+) registers", ln[0]).group(1)) if ln else None
-            sp = re.search(r"spill stores (\d+) B, loads (\d+) B", ln[0]) if ln else None
-            return n, ([int(sp.group(1)), int(sp.group(2))] if sp else [0, 0])
-
         sh = fused_rnn.mma_launch_shape(m)
-        n_reg, spill = reg_spill("bf16", sh["warps"])
+        n_reg, spill = flat_regs(96, "bf16", sh["warps"])
         log(11, f"fused forward bf16 dp {fused_rnn.mma_width(a.dcut)} at {n_rows} rows: tensor-core kernel {k_ms:.3f} ms "
                 f"({flop / k_ms / 1e9:.2f} TFLOP/s), CUDA-core kernel {prev:.3f} ms "
                 f"({prev / k_ms:.2f}x), plain {p_ms:.3f} ms (in chunks of {CH}), bound "
@@ -561,7 +610,7 @@ def flagship_run(dev, smi, here, bound, flop_per_site, table_bytes, tol, timed):
         q_out = fused_rnn.graph_mpsrnn_logpsi_fused_plain(m, sub, matmul_dtype=f32, tables=T64)
         ok, held, st = hold_rows(k_out, p_out, q_out, tol[f32])
         shx = fused_rnn.mma_launch_shape(m, matmul_dtype=f32)
-        n_reg32, spill32 = reg_spill("f32", shx["warps"])
+        n_reg32, spill32 = flat_regs(96, "f32", shx["warps"])
         log(11, f"kernel #1 f32 (3xTF32) dp {fused_rnn.mma_width(a.dcut)} vs plain on {N_HOLD} of "
                 f"the chunk's rows: max|dlog|psi|| {st['max_a']:.3e} (tol {tol[f32][0]:g}), max "
                 f"phase distance {st['max_p']:.3e}, median row {st['med_a']:.3e} / "
@@ -954,7 +1003,7 @@ def nqsci_run(dev, smi, here, bound, flop_per_site, table_bytes, tol, timed):
               and hci["m"] <= 256, "the HCI file did not round-trip through load_ci")
 
         # ---- (b) NqsCi from the repository's HCI space, full width, f32 ----
-        out_b, l_b = train([*NQSCI_ARGS, "--iters", "2", "--tag", "smoke"],
+        out_b, l_b = train([*NQSCI_ARGS, "--iters", "1", "--tag", "smoke"],
                            "(f32, the repository's m-1024 HCI space)")
         peak_b = peak_gib()
         start = flagship.load_flagship_params(ck)
@@ -1153,6 +1202,349 @@ def nqsci_run(dev, smi, here, bound, flop_per_site, table_bytes, tol, timed):
     finally:
         flagship.FE2S2_PTH = saved
         shutil.rmtree(work, ignore_errors=True)
+
+
+def sr_run(dev, smi, here, bound, flop_per_site, table_bytes, tol, timed):
+    """Phase 15: the SR trainer through ``fe2s2_r2_push.main`` at the
+    script's defaults on the stand-in integrals (read through the default
+    system path), each run in ``R2_RUNS``: its steps finite with w_sum 1,
+    its eloc forwards through kernel #1's tensor-core walk alone, each
+    step split by stage (synchronized), the CG residual of every SR solve
+    by one more matvec, peak memory; kernel #1 held to its plain version
+    and timed at each width on the eloc rows of ``N_TIME`` samples; the
+    slabbed sampler's rows unique with counts summing to n_sample less
+    the dropped count.  Writes only in a temporary directory."""
+    import shutil
+    import tempfile
+
+    from pynqs_tpu_torch.energy.eloc import local_energy_reduce, unique_rows
+    from pynqs_tpu_torch.grad import sr
+    from pynqs_tpu_torch.ops import fused_rnn
+    from pynqs_tpu_torch.optim import vmc as vmc_mod
+    from pynqs_tpu_torch.sampler.ar import ar_sampling_slabbed
+    from pynqs_tpu_torch.scripts import fe2s2_r2_push
+    from pynqs_tpu_torch.utils import flagship
+
+    bf16 = torch.bfloat16
+    V = vmc_mod.VMC
+    work = tempfile.mkdtemp(prefix="chip_smoke_sr_")
+    saved = (flagship.FE2S2_PTH, V.step, V._sample, V.local_energy, V.sr_gradient,
+             V.apply_gradients)
+    steps, cur, last = [], {}, {}
+    counters = {"fused": fused_rnn.LAUNCHES, "fused_mma": fused_rnn.MMA_LAUNCHES,
+                "fused_f32_mma": fused_rnn.F32_MMA_LAUNCHES}
+
+    def launches():
+        lc = {k: c.n for k, c in counters.items()}
+        lc["cuda_cores"] = lc["fused"] - lc["fused_mma"] - lc["fused_f32_mma"]
+        return lc
+
+    def clocked(name, orig):
+        def run(self, *a, **k):
+            out, ms = timed(lambda: orig(self, *a, **k))
+            cur[name] = cur.get(name, 0.0) + ms
+            return out
+        return run
+
+    def sr_gradient(self, bits, w, eloc):
+        """The step's SR solve, timed; then its CG residual by one more
+        matvec at the same parameters (timed apart, not in the step)."""
+        x, ms = timed(lambda: saved[4](self, bits, w, eloc))
+        cur["sr"] = cur.get("sr", 0.0) + ms
+        res, ms_r = timed(lambda: sr.cg_residual(self.model, bits, w, eloc, x,
+                                                   self.cfg.sr_damping, self.cfg.grad_batch))
+        cur["residual"] = cur.get("residual", 0.0) + ms_r
+        last.update(bits=bits, w=w, eloc=eloc, residual=float(res))
+        return x
+
+    def step(self, generator, clip_val, sampler=None, gmask=None):
+        cur.clear()
+        out, ms = timed(lambda: saved[1](self, generator, clip_val, sampler, gmask))
+        steps.append({"ms": ms - cur.get("residual", 0.0), "split": dict(cur),
+                      "energy": float(out["energy"]), "w_sum": float(out["w_sum"]),
+                      "dropped": float(out["dropped_frac"]), "n_unique": int(out["n_unique"]),
+                      "lr": out["lr"], "gnorm": float(out["gnorm"]),
+                      "residual": last.get("residual")})
+        return out
+
+    def eloc_rows(v, bits):
+        """The rows the eloc forward of ``bits`` hands the kernel."""
+        seen = []
+
+        def fwd(b):
+            seen.append(b)
+            return torch.zeros(b.shape[0], 2, device=b.device)
+
+        local_energy_reduce(fwd, bits, v._ops, v._table, torch.Generator(device=dev).manual_seed(15),
+                            k_det=v.cfg.eloc_k_det, n_stoch=v.cfg.eloc_n_stoch, hpair=v._hpair)
+        return torch.cat(seen)
+
+    def hold_and_time(name, v):
+        """Kernel #1 on the eloc rows of the run's last N_TIME samples: held
+        on N_HOLD of them, timed on all beside the plain version."""
+        m = v.model
+        trows = eloc_rows(v, last["bits"][:N_TIME])
+        n_rows = trows.shape[0]
+        T = fused_rnn.pack_tables(m)
+        T64 = {key: t.double() for key, t in T.items()}
+        sub = trows[torch.linspace(0, n_rows - 1, N_HOLD, device=dev).long()]
+        k_out = fused_rnn.graph_mpsrnn_logpsi_fused(m, sub, matmul_dtype=bf16, tables=T)
+        p_out = fused_rnn.graph_mpsrnn_logpsi_fused_plain(m, sub, matmul_dtype=bf16, tables=T)
+        q_out = fused_rnn.graph_mpsrnn_logpsi_fused_plain(m, sub, matmul_dtype=bf16, tables=T64)
+        f_out = fused_rnn.graph_mpsrnn_logpsi_fused_plain(m, sub, matmul_dtype=torch.float32,
+                                                          tables=T)
+        q_p, f_p = row_errs(q_out, p_out)[1], row_errs(f_out, p_out)[1]
+        ok, held, st = hold_rows(k_out, p_out, [q_out, f_out], tol[bf16])
+        dp = fused_rnn.mma_width(m.dcut)
+        log(15, f"  kernel #1 dp {dp} vs plain on {N_HOLD} of the {n_rows} eloc rows: max|dlog|psi|| "
+                f"{st['max_a']:.3e} (tol {tol[bf16][0]:g}), max phase distance {st['max_p']:.3e}, "
+                f"median row {st['med_a']:.3e} / {st['med_p']:.3e}; plain vs plain with f64 sums: "
+                f"max phase distance {q_p.max().item():.3e} ({int((q_p > tol[bf16][1]).sum())} "
+                f"rows over {tol[bf16][1]:g}), vs the f32 evaluation (the bf16 plain version's own "
+                f"rounding error) {f_p.max().item():.3e} ({int((f_p > tol[bf16][1]).sum())} rows "
+                f"over); held: {held} (kernel rows over {tol[bf16][1]:g}: {st['over']})")
+        check(ok, f"{name}: kernel #1 at dp {dp} disagrees with its plain version")
+        del k_out, p_out, q_out, f_out, sub
+        CH = 1 << 18
+
+        def plain():
+            return torch.cat([fused_rnn.graph_mpsrnn_logpsi_fused_plain(
+                m, trows[i:i + CH], matmul_dtype=bf16, tables=T) for i in range(0, n_rows, CH)])
+
+        kern = lambda: fused_rnn.graph_mpsrnn_logpsi_fused(m, trows, matmul_dtype=bf16, tables=T)  # noqa: E731
+        kern()
+        p1, k1, k2, p2 = cuda_ms(plain, 1), cuda_ms(kern, 3), cuda_ms(kern, 3), cuda_ms(plain, 1)
+        k_ms, p_ms = (k1 + k2) / 2, (p1 + p2) / 2
+        flop = n_rows * (SORB // 2) * flop_per_site(m.dcut, 1)
+        b = bound(flop, n_rows * SORB + n_rows * 2 * 4 + table_bytes(T, bf16), bf16)
+        sh = fused_rnn.mma_launch_shape(m)
+        n_reg, spill = flat_regs(dp, "bf16", sh["warps"])
+        log(15, f"  fused forward bf16 dp {dp} on {n_rows} rows: tensor-core kernel {k_ms:.3f} ms "
+                f"({flop / k_ms / 1e9:.2f} TFLOP/s), plain {p_ms:.3f} ms (in chunks of {CH}), "
+                f"bound {b[0]:.3f} ms ({b[1]}); {16 * sh['warps']} rows per CTA, "
+                f"{sh['smem_bytes']} B shared memory; registers {n_reg}, spill stores/loads "
+                f"{spill} B; gpu {smi}")
+        return {"err": st["max_a"], "times": (k_ms, p_ms), "bound": b, "rows": n_rows,
+                "registers": n_reg, "spill_bytes": spill}
+
+    out = {}
+    try:
+        flagship.FE2S2_PTH = standin_pth(work)
+        ckd = os.path.join(work, "checkpoints")
+        os.makedirs(ckd)
+        for src, dst in (("fe2s2_dcut64.pkl", "fe2s2_dcut64.pkl"),
+                         ("fe2s2_r2_dcut64.pkl", "fe2s2_r2_dcut64.pkl"),
+                         ("fe2s2_r2_dcut96_final.pkl", "fe2s2_r2_dcut96.pkl")):
+            shutil.copy(os.path.join(here, "checkpoints", src), os.path.join(ckd, dst))
+        V.step, V.sr_gradient = step, sr_gradient
+        V._sample = clocked("sample", saved[2])
+        V.local_energy = clocked("eloc", saved[3])
+        V.apply_gradients = clocked("update", saved[5])
+        a = fe2s2_r2_push.parser().parse_args([])
+        log(15, f"fe2s2_r2_push at its defaults: n_sample {a.n_sample}, capacity {a.capacity}, "
+                f"REDUCE k_det 512 / n_stoch 128, clip 0.1, exp schedule {a.lr:g} -> "
+                f"{a.lr_end:g}; --sr: CG min-SR with n_cg {a.n_cg}, damping {a.sr_damping:g}, "
+                f"SGD; the stand-in integrals through the default system path")
+        for name, argv in R2_RUNS:
+            for c in counters.values():
+                c.reset()
+            steps.clear()
+            last.clear()
+            reset_peak()
+            r, ms = timed(lambda: fe2s2_r2_push.main(argv, device=dev, root=work))
+            lc, peak = launches(), peak_gib()
+            v = r["vmc"]
+            use_sr = "--sr" in argv
+            log(15, f"({name}) fe2s2_r2_push.main({' '.join(argv)}): dcut {v.model.dcut}, "
+                    f"{len(steps)} step(s) in {ms / 1e3:.3f} s with set-up; launches {lc}; "
+                    f"max_memory_allocated {peak:.3f} GiB; gpu {smi}")
+            for i, st in enumerate(steps):
+                sp = ", ".join(f"{k} {t:.1f} ms" for k, t in st["split"].items()
+                               if k != "residual")
+                rest = st["ms"] - sum(t for k, t in st["split"].items() if k != "residual")
+                sp += f", the rest {rest:.1f} ms" + ("" if use_sr else " (the gradient)")
+                log(15, f"  step {i}: E {st['energy']:.6f} w_sum {st['w_sum']:.8f} dropped "
+                        f"{st['dropped']:.3e} live {st['n_unique']} lr {st['lr']:.6e} gnorm "
+                        f"{st['gnorm']:.3e}; {st['ms'] / 1e3:.3f} s (synchronized: {sp})"
+                        + (f"; CG residual |(S+l)x-F|/|F| after {a.n_cg} iterations "
+                           f"{st['residual']:.3e} ({st['split']['residual']:.1f} ms)"
+                           if use_sr else ""))
+            check(len(steps) == int(argv[argv.index("--iters") + 1]),
+                  f"({name}) the run took {len(steps)} steps")
+            check(all(np.isfinite(st["energy"]) and abs(st["w_sum"] - 1.0) <= 1e-5
+                      for st in steps), f"({name}) non-finite energy or w_sum != 1")
+            check(lc["fused_mma"] > 0 and lc["cuda_cores"] == 0 and lc["fused_f32_mma"] == 0,
+                  f"({name}) the eloc forwards did not all go through the tensor-core walk in "
+                  f"bf16: {lc}")
+            if use_sr:
+                check(all(np.isfinite(st["residual"]) for st in steps),
+                      f"({name}) a non-finite CG residual")
+            rec = {"launches": lc["fused_mma"], "steps": [dict(st) for st in steps],
+                   "peak": peak}
+            if name != "64-slab":
+                rec.update(hold_and_time(name, v))
+            else:
+                g = torch.Generator(device=dev).manual_seed(15)
+                sb, counts, dropped = ar_sampling_slabbed(v.model, a.n_sample,
+                                                          capacity=a.capacity, n_slab=4,
+                                                          generator=g)
+                live = counts > 0
+                n_live = int(live.sum())
+                n_distinct = unique_rows(sb[live])[0].shape[0]
+                total = int(counts.sum()) + int(dropped)
+                log(15, f"  slabbed sampler (4 slabs of capacity {a.capacity}): {n_live} live "
+                        f"rows, {n_distinct} distinct; counts sum {int(counts.sum())} + dropped "
+                        f"{int(dropped)} = {total} (n_sample {a.n_sample})")
+                check(n_live == n_distinct and total == a.n_sample,
+                      "the slabbed rows are not unique, or their counts do not sum to "
+                      "n_sample less the dropped count")
+            if name == "64":
+                out["sr_inputs"] = (v.model, last["bits"], last["w"], last["eloc"])
+            out[name] = rec
+        return out
+    finally:
+        (flagship.FE2S2_PTH, V.step, V._sample, V.local_energy, V.sr_gradient,
+         V.apply_gradients) = saved
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def tour_run(dev, smi, system, f15, timed):
+    """Phase 16: the three SR solvers held to each other in f64 on the card;
+    the f32 CG on phase 15's dcut-64 samples beside the same CG in f64;
+    one call each of the MCMC, Gumbel and RESTRICTED samplers on the
+    dcut-64 state; ``local_energy_simple_dedup`` against
+    ``local_energy_simple``; the ported feature tour at ``TOUR_KW``."""
+    from pynqs_tpu_torch.energy.eloc import (
+        local_energy_simple,
+        local_energy_simple_dedup,
+        unique_rows,
+    )
+    from pynqs_tpu_torch.examples import feature_tour
+    from pynqs_tpu_torch.grad import sr
+    from pynqs_tpu_torch.models.graph_mps_rnn import GraphMPSRNN
+    from pynqs_tpu_torch.ops import cplx, fused_rnn
+    from pynqs_tpu_torch.ops.hamiltonian import comb_hij
+    from pynqs_tpu_torch.optim.vmc import VMC, VMCConfig
+    from pynqs_tpu_torch.sampler.ar import ar_sampling_gumbel, gumbel_importance_weights
+    from pynqs_tpu_torch.sampler.mcmc import MCMCSampler
+    from pynqs_tpu_torch.sampler.restricted import RestrictedSampler
+    from pynqs_tpu_torch.utils.fci import fci_bits
+
+    f64, f32 = torch.float64, torch.float32
+
+    def rel(x, y):
+        """max |x − y| over the parameters / max |y|."""
+        return (max(float((x[k] - y[k]).abs().max()) for k in y)
+                / max(float(y[k].abs().max()) for k in y))
+
+    # ---- the solvers in f64 on a small chain model ----
+    sm = GraphMPSRNN(12, 3, 3, dcut=2, phase_mode="arg", norm_mode="mpsrnn", dtype=f64,
+                     device=dev, generator=torch.Generator().manual_seed(16))
+    P = sum(p.numel() for p in sm.parameters())
+    rng = np.random.default_rng(16)
+    bits = torch.as_tensor(fci_bits(12, 3, 3)[rng.permutation(400)[:300]], device=dev)
+    w = rng.random(300)
+    w[::7] = 0.0
+    w = torch.as_tensor(w / w.sum(), device=dev)
+    el = torch.as_tensor(rng.standard_normal((300, 2)), device=dev)
+    names = [n for n, _ in sm.named_parameters()]
+    dense, t_d = timed(lambda: sr.sr_gradient(sm, bits, w, el, damping=SR_DAMP16))
+    one, _ = timed(lambda: sr.sr_gradient_blocked(sm, bits, w, el, damping=SR_DAMP16,
+                                                  blocks={n: 0 for n in names}))
+    _, t_b = timed(lambda: sr.sr_gradient_blocked(sm, bits, w, el, damping=SR_DAMP16))
+    cg, t_c = timed(lambda: sr.sr_gradient_cg(sm, bits, w, el, damping=SR_DAMP16, n_cg=2 * P))
+    res = float(sr.cg_residual(sm, bits, w, el, cg, damping=SR_DAMP16))
+    e_b, e_c = rel(one, dense), rel(cg, dense)
+    log(16, f"SR solvers in f64 on the card: chain sorb 12 dcut 2, P {P}, {bits.shape[0]} rows "
+            f"({int((w > 0).sum())} live), damping {SR_DAMP16:g}: blocked with one block vs "
+            f"dense {e_b:.3e} (tol 1e-10), CG with n_cg = 2P = {2 * P} vs dense {e_c:.3e} (tol "
+            f"1e-8; residual {res:.3e}); dense {t_d:.1f} ms, blocked per tensor {t_b:.1f} ms, "
+            f"CG {t_c:.1f} ms")
+    check(e_b <= 1e-10 and e_c <= 1e-8, "the SR solvers disagree in f64")
+
+    # ---- the f32 CG on phase 15's dcut-64 samples beside f64 ----
+    m32, sb, sw, sel = f15["sr_inputs"]
+    m64 = GraphMPSRNN(SORB, NOA, NOB, dcut=m32.dcut, phase_mode="arg", norm_mode="mpsrnn",
+                      dtype=f64, device=dev).load_numpy_params(
+        {k: p.detach().cpu().numpy() for k, p in m32.named_parameters()})
+    x32, t32 = timed(lambda: sr.sr_gradient_cg(m32, sb, sw, sel, damping=1e-3, n_cg=50))
+    x64, t64 = timed(lambda: sr.sr_gradient_cg(m64, sb, sw.double(), sel.double(), damping=1e-3,
+                                               n_cg=50))
+    r32 = float(sr.cg_residual(m32, sb, sw, sel, x32, damping=1e-3))
+    r64 = float(sr.cg_residual(m64, sb, sw.double(), sel.double(), x64, damping=1e-3))
+    num = sum(float(((x32[k].double() - x64[k]) ** 2).sum()) for k in x64)
+    den = sum(float((x64[k] ** 2).sum()) for k in x64)
+    log(16, f"CG (n_cg 50, damping 1e-3) on phase 15's dcut-64 samples ({sb.shape[0]} rows, "
+            f"{int((sw > 0).sum())} live, P {sum(p.numel() for p in m32.parameters())}): f32 "
+            f"{t32:.1f} ms, residual {r32:.3e}; f64 {t64:.1f} ms, residual {r64:.3e}; "
+            f"|x32 - x64| / |x64| {np.sqrt(num / den):.3e}")
+    check(np.isfinite(r32) and np.isfinite(r64) and r32 < 1 and r64 < 1
+          and all(bool(torch.isfinite(x).all()) for x in x32.values()),
+          "the f32 or f64 CG did not reduce the residual")
+    del m64, x64
+
+    # ---- the samplers on the dcut-64 state ----
+    g = torch.Generator(device=dev).manual_seed(16)
+    mc = MCMCSampler(SORB, NOA, NOB, n_chain=1024, n_sweep=32)
+    st = mc.init_state(m32, g)
+    (mb, mw, md, _), ms = timed(lambda: mc.sample(m32, g, st))
+    kept = bool(((mb[:, 0::2].sum(1) == NOA) & (mb[:, 1::2].sum(1) == NOB)).all())
+    log(16, f"MCMC: {mc.n_chain} chains x {mc.n_sweep} sweeps (p_double {mc.p_double}) in "
+            f"{ms:.1f} ms; acceptance {float(md['acc_rate']):.4f}; (noa, nob) kept: {kept}; "
+            f"{unique_rows(mb)[0].shape[0]} distinct rows")
+    check(kept and abs(float(mw.sum()) - 1) <= 1e-5, "MCMC left the (noa, nob) sector")
+    (gb, lq, gG, alive), ms = timed(lambda: ar_sampling_gumbel(m32, 4096, g))
+    gw, keep = gumbel_importance_weights(lq, gG, alive)
+    n_alive = int(alive.sum())
+    distinct = unique_rows(gb[alive])[0].shape[0]
+    log(16, f"Gumbel beam at capacity 4096 in {ms:.1f} ms: {n_alive} alive, {distinct} distinct, "
+            f"{int(keep.sum())} kept; sum of the weights {float(gw.sum()):.6f} (an estimate "
+            f"of 1)")
+    check(distinct == n_alive and bool(torch.isfinite(gw).all()) and float(gw.sum()) > 0,
+          "the Gumbel rows are not distinct or their weights not finite")
+    states = sb[sw > 0].cpu().numpy()
+    rs = RestrictedSampler(SORB, NOA, NOB, states=states)
+    vr = VMC(m32, system, rs, VMCConfig(lr=1e-4, eloc_method="reduce", eloc_k_det=512,
+                                        eloc_n_stoch=128, clip_grad=0.1))
+    for c in (fused_rnn.LAUNCHES, fused_rnn.MMA_LAUNCHES):
+        c.reset()
+    o, ms = timed(lambda: vr.step(torch.Generator(device=dev).manual_seed(16), 0.1))
+    lr_ = (fused_rnn.LAUNCHES.n, fused_rnn.MMA_LAUNCHES.n)
+    log(16, f"RESTRICTED on phase 15's {rs.n_states} unique rows, one VMC step (REDUCE 512/128, "
+            f"Adam): E {float(o['energy']):.6f} w_sum {float(o['w_sum']):.8f} in {ms:.1f} ms; "
+            f"kernel #1 launches (all, tensor cores bf16) {lr_}")
+    check(np.isfinite(float(o["energy"])) and abs(float(o["w_sum"]) - 1) <= 1e-5
+          and lr_[1] > 0 and lr_[0] == lr_[1], "the RESTRICTED step failed")
+
+    # ---- the dedup'd SIMPLE local energy ----
+    tabs = system.tables(dev, f32)
+    ops, table = tabs.astuple(), system.excitation
+    fwd = lambda b: fused_rnn.graph_mpsrnn_logpsi_fused(m32, b, matmul_dtype=f32)  # noqa: E731
+    rows = sb[sw > 0][:N_DEDUP16]
+    e_s = local_energy_simple(fwd, rows, ops, table, hpair=tabs.hpair_best)
+    (e_d, n_u), ms = timed(lambda: local_energy_simple_dedup(
+        fwd, rows, ops, table, n_unique_max=rows.shape[0] * (1 + table.n_sd),
+        hpair=tabs.hpair_best))
+    comb, hij = comb_hij(rows, *ops, tabs.hpair_best, table=table)
+    lp = fwd(comb.reshape(-1, SORB)).reshape(comb.shape[0], comb.shape[1], 2)
+    rr, ri = cplx.ratio_re_im(lp, lp[:, :1])
+    scale = (hij.abs() * torch.sqrt(rr**2 + ri**2)).sum(-1)
+    d = ((e_s - e_d).abs().max(-1).values / scale).max().item()
+    log(16, f"local_energy_simple_dedup vs local_energy_simple on {rows.shape[0]} rows "
+            f"({comb.shape[0] * comb.shape[1]} connected, {n_u} distinct) in {ms:.1f} ms: max "
+            f"|dE|/sum|h r| {d:.3e} (tol 1e-5)")
+    check(d <= 1e-5, "the dedup'd SIMPLE local energy differs")
+    del comb, hij, lp, rr, ri
+
+    # ---- the feature tour ----
+    tour, ms = timed(lambda: feature_tour.main(device=dev, **TOUR_KW))
+    log(16, f"feature_tour.main({TOUR_KW or 'defaults'}) in {ms / 1e3:.1f} s: "
+            + ", ".join(f"{k} {v:.6f}" for k, v in tour.items()))
+    check(all(np.isfinite(v) for v in tour.values()), "a non-finite feature-tour energy")
+    for rung in ("vmc", "sr"):
+        check(tour[rung] >= tour["fci"] - 5 * tour[f"{rung}_se"],
+              f"the tour's {rung} tail mean {tour[rung]} lies more than 5 s.e. below FCI")
+    return {"tour_s": ms / 1e3}
 
 
 def main():
@@ -2091,6 +2483,17 @@ def main():
     del m14, m14_dc4, x14, k14
     log(14, f"phase 14 in {time.perf_counter() - t14:.1f} s")
 
+    # ---- 15. the SR trainer: fe2s2_r2_push at dcut 64, 96 and 128 ----
+    t15 = time.perf_counter()
+    f15 = sr_run(dev, smi, here, bound, flop_per_site, table_bytes, tol, timed)
+    log(15, f"phase 15 in {time.perf_counter() - t15:.1f} s")
+
+    # ---- 16. the SR solvers, the samplers and the feature tour ----
+    t16 = time.perf_counter()
+    tour_run(dev, smi, system, f15, timed)
+    del f15["sr_inputs"]
+    log(16, f"phase 16 in {time.perf_counter() - t16:.1f} s")
+
     def entry(name, replaces, launches_n, err, times, bnd, source="fused_rnn.cu", lib=None,
               **extra):
         return {
@@ -2188,6 +2591,14 @@ def main():
               f32_ms=r14[f32]["times"][0], f32_plain_ms=r14[f32]["times"][1],
               f32_bound_ms=r14[f32]["bound"][0], f32_bound_f32_ms=r14[f32]["bound_f32"][0],
               f32_prev_ms=r14[f32]["prev_ms"], f32_dc4_ms=r14[f32]["dc4_ms"]),
+        # kernel #1 (bf16) on fe2s2_r2_push's eloc rows at dcut 64, 96 and
+        # 128 (phase 15): launches, the SR run's at that width; times on
+        # the eloc rows of N_TIME of its samples
+        *(entry(f"fused_rnn_forward_mma_r2_dp{dp}", "pynqs_tpu/ops/fused_rnn.py:197",
+                f15[dp]["launches"], f15[dp]["err"], f15[dp]["times"], f15[dp]["bound"],
+                "fused_rnn_mma.cu", rows=f15[dp]["rows"], registers=f15[dp]["registers"],
+                spill_bytes=f15[dp]["spill_bytes"])
+          for dp in ("64", "96", "128")),
     ]}
     log("end", f"chip_smoke.py in {time.perf_counter() - t_script:.1f} s; gpu {smi}")
     print(json.dumps(summary))

@@ -2,7 +2,9 @@
 singles and doubles.
 
 Counterpart of ``pynqs_tpu/energy/eloc.py`` (``local_energy_simple``,
-``local_energy_reduce``, ``dedup_eval``, ``reduce_unique_count``).  Ratios are formed in log space from
+``local_energy_simple_dedup``, ``local_energy_reduce``,
+``local_energy_sample_space``, ``make_local_energy``, ``dedup_eval``,
+``reduce_unique_count``).  Ratios are formed in log space from
 (log|ψ|, arg ψ) pairs.  The JAX package's one-hot block fetches
 (``_sample_tail_cdf_blkloc``, ``_onehot_fetch_i32``) are a TPU
 workaround for gathers; here the tail draw is ``torch.searchsorted`` on
@@ -21,7 +23,8 @@ from pynqs_tpu_torch.ops.lut import row_keys
 from pynqs_tpu_torch.ops.excitation import ExcitationTable, excite_bits
 from pynqs_tpu_torch.ops.hamiltonian import comb_hij
 
-__all__ = ["local_energy_simple", "local_energy_reduce", "sample_tail_cdf", "unique_rows",
+__all__ = ["local_energy_simple", "local_energy_simple_dedup", "local_energy_reduce",
+           "local_energy_sample_space", "make_local_energy", "sample_tail_cdf", "unique_rows",
            "dedup_eval", "reduce_unique_count"]
 
 
@@ -87,6 +90,78 @@ def local_energy_simple(
         h = hij.to(r_re.dtype)
         out.append(torch.stack([(h * r_re).sum(-1), (h * r_im).sum(-1)], -1))
     return torch.cat(out, 0)
+
+
+@torch.no_grad()
+def local_energy_simple_dedup(
+    log_psi_fn: Callable[[torch.Tensor], torch.Tensor],
+    bits: torch.Tensor,
+    tables: tuple,
+    table: ExcitationTable,
+    *,
+    n_unique_max: int,
+    hpair=None,
+):
+    """SIMPLE local energy with ψ evaluated once per distinct connected
+    determinant (``dedup_eval``, which raises past ``n_unique_max``).
+    Returns (eloc [B, 2], n_unique)."""
+    comb, hij = comb_hij(bits, *tables, hpair, table=table, with_comb=True)
+    b, m, sorb = comb.shape
+    lp, n_unique = dedup_eval(log_psi_fn, comb.reshape(b * m, sorb), n_unique_max)
+    lp = lp.reshape(b, m, 2)
+    r_re, r_im = cplx.ratio_re_im(lp, lp[:, :1])
+    h = hij.to(r_re.dtype)
+    return torch.stack([(h * r_re).sum(-1), (h * r_im).sum(-1)], -1), n_unique
+
+
+@torch.no_grad()
+def local_energy_sample_space(
+    bits: torch.Tensor,
+    log_psi: torch.Tensor,
+    lut,
+    tables: tuple,
+    table: ExcitationTable,
+    *,
+    batch: int | None = None,
+    hpair=None,
+) -> torch.Tensor:
+    """Sample-space E_loc: ψ(m) only for m inside the sampled set, read
+    from ``lut`` (an ``ops.lut.WavefunctionLUT`` over exactly those rows);
+    a connected determinant outside it contributes nothing, and no ψ
+    forward runs.  ``bits``/``log_psi``: the unique sampled rows and their
+    (log|ψ|, arg ψ)."""
+    out = []
+    for s, e in _chunks(bits.shape[0], batch):
+        comb, hij = comb_hij(bits[s:e], *tables, hpair, table=table, with_comb=True)
+        b, m, sorb = comb.shape
+        vals, found = lut.lookup_packed(onv.pack_bits(comb[:, 1:].reshape(b * (m - 1), sorb)))
+        r_re, r_im = cplx.ratio_re_im(vals.reshape(b, m - 1, 2), log_psi[s:e, None, :])
+        found = found.reshape(b, m - 1)
+        r_re = torch.where(found, r_re, torch.zeros_like(r_re))
+        r_im = torch.where(found, r_im, torch.zeros_like(r_im))
+        h = hij[:, 1:].to(r_re.dtype)
+        out.append(torch.stack([hij[:, 0].to(r_re.dtype) + (h * r_re).sum(-1),
+                                (h * r_im).sum(-1)], -1))
+    return torch.cat(out, 0)
+
+
+def make_local_energy(model, table: ExcitationTable, tables: tuple, *, method: str = "simple",
+                      batch: int | None = None):
+    """The local energy bound to ``model`` (its parameters as they are at
+    call time) and a system's tables, through ``model.log_psi``:
+    "simple" → eloc(bits); "reduce" → eloc(bits, generator, **kw) with
+    ``local_energy_reduce``'s keywords.  "sample_space" depends on the
+    sampled set: call ``local_energy_sample_space`` with a lookup table."""
+
+    def fwd(rows):
+        return model.log_psi(rows)
+
+    if method == "simple":
+        return lambda bits: local_energy_simple(fwd, bits, tables, table, batch=batch)
+    if method == "reduce":
+        return lambda bits, generator, **kw: local_energy_reduce(
+            fwd, bits, tables, table, generator, batch=batch, **kw)
+    raise NotImplementedError(f"eloc method {method!r}")
 
 
 def sample_tail_cdf(

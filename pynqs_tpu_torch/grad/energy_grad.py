@@ -14,13 +14,10 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["energy_and_grad"]
+__all__ = ["energy_and_grad", "energy_stats"]
 
 
-def energy_and_grad(model, bits, weights, eloc, *, grad_batch=None):
-    """Returns (e_mean [2], grads {name: tensor}, variance).
-
-    bits [B, sorb]; weights [B] (sum 1; 0 = dead row); eloc [B, 2]."""
+def _centered(weights, eloc):
     weights = weights.detach()
     eloc = eloc.detach().to(weights.dtype)
     alive = weights > 0
@@ -29,6 +26,20 @@ def energy_and_grad(model, bits, weights, eloc, *, grad_batch=None):
     e_mean = weights @ eloc
     cen = torch.where(alive[:, None], eloc - e_mean, torch.zeros_like(eloc))
     var = (weights * (cen**2).sum(-1)).sum()
+    return weights, alive, e_mean, cen, var
+
+
+def energy_stats(weights, eloc):
+    """(e_mean [2], variance) of ``energy_and_grad`` without its backward."""
+    _, _, e_mean, _, var = _centered(weights, eloc)
+    return e_mean, var
+
+
+def energy_and_grad(model, bits, weights, eloc, *, grad_batch=None):
+    """Returns (e_mean [2], grads {name: tensor}, variance).
+
+    bits [B, sorb]; weights [B] (sum 1; 0 = dead row); eloc [B, 2]."""
+    weights, alive, e_mean, cen, var = _centered(weights, eloc)
 
     names, params = zip(*[(n, p) for n, p in model.named_parameters() if p.requires_grad])
     grads = [torch.zeros_like(p) for p in params]

@@ -15,10 +15,15 @@ __all__ = [
     "logabs",
     "phase",
     "to_np_complex",
+    "from_np_complex",
     "exp_pair",
     "ratio_re_im",
     "add_exp",
+    "scale",
     "safe_atan2",
+    "log2cosh_pair",
+    "log2cos_pair",
+    "log2tanh_pair",
 ]
 
 
@@ -40,6 +45,11 @@ def to_np_complex(lp) -> np.ndarray:
     return a[..., 0] + 1j * a[..., 1]
 
 
+def from_np_complex(logpsi) -> np.ndarray:
+    """Host-side: numpy complex log ψ -> pair array."""
+    return np.stack([np.real(logpsi), np.imag(logpsi)], axis=-1)
+
+
 def exp_pair(lp):
     """ψ itself as (re, im)."""
     r = torch.exp(lp[..., 0])
@@ -58,18 +68,37 @@ class _SafeAtan2(torch.autograd.Function):
 
     The exact derivative (x·dy − y·dx)/(x² + y²) diverges as |z| → 0,
     and one inf poisons every parameter; the forward value is exact.
+    The derivative is linear in the tangents, so it serves both
+    directions: ``backward`` for reverse mode, ``jvp`` for forward mode
+    (``torch.func.jvp``, the CG-SR matvecs), and the ``setup_context``
+    form with a generated vmap rule lets ``torch.func`` transform it.
     """
 
+    generate_vmap_rule = True
+
     @staticmethod
-    def forward(ctx, y, x):
-        ctx.save_for_backward(y, x)
+    def forward(y, x):
         return torch.atan2(y, x)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        y, x = inputs
+        ctx.save_for_backward(y, x)
+        ctx.save_for_forward(y, x)
 
     @staticmethod
     def backward(ctx, g):
         y, x = ctx.saved_tensors
         m2 = torch.clamp(x * x + y * y, min=1e-12)
         return g * x / m2, -g * y / m2
+
+    @staticmethod
+    def jvp(ctx, dy, dx):
+        y, x = ctx.saved_tensors
+        m2 = torch.clamp(x * x + y * y, min=1e-12)
+        dy = torch.zeros_like(y) if dy is None else dy
+        dx = torch.zeros_like(x) if dx is None else dx
+        return (x * dy - y * dx) / m2
 
 
 def safe_atan2(y, x):
@@ -85,3 +114,39 @@ def add_exp(lp1, lp2, c1=1.0, c2=1.0):
     im = r1 * torch.sin(lp1[..., 1]) + r2 * torch.sin(lp2[..., 1])
     mag2 = re**2 + im**2
     return make(m + 0.5 * torch.log(torch.clamp(mag2, min=1e-30)), safe_atan2(im, re))
+
+
+def scale(lp, log_c: float = 0.0, phase_c: float = 0.0):
+    """Multiply ψ by a constant c = exp(log_c + i·phase_c)."""
+    return make(lp[..., 0] + log_c, lp[..., 1] + phase_c)
+
+
+# ---- stable log(2·f(θ)) for complex θ given as (re, im) pairs ----
+
+
+def log2cosh_pair(x, y):
+    """(log|2cosh(x+iy)|, arg) — |cosh z|² = (cosh 2x + cos 2y)/2."""
+    a = 2.0 * torch.abs(x)
+    la = 0.5 * (a + torch.log1p(torch.exp(-2.0 * a) + 2.0 * torch.cos(2.0 * y) * torch.exp(-a))
+                ) - 0.5 * np.log(4.0) + np.log(2.0)
+    ph = torch.atan2(torch.tanh(x) * torch.sin(y), torch.cos(y))
+    return la, ph
+
+
+def log2cos_pair(x, y):
+    """(log|2cos(x+iy)|, arg) — |cos z|² = (cosh 2y + cos 2x)/2."""
+    a = 2.0 * torch.abs(y)
+    la = 0.5 * (a + torch.log1p(torch.exp(-2.0 * a) + 2.0 * torch.cos(2.0 * x) * torch.exp(-a))
+                ) - 0.5 * np.log(4.0) + np.log(2.0)
+    ph = torch.atan2(-torch.sin(x) * torch.tanh(y), torch.cos(x))
+    return la, ph
+
+
+def log2tanh_pair(x, y):
+    """(log|2tanh(x+iy)|, arg) via tanh z = (tanh x + i tan y)/(1 + i tanh x tan y)."""
+    tx, ty = torch.tanh(x), torch.tan(y)
+    num_l = 0.5 * torch.log(torch.clamp(tx**2 + ty**2, min=1e-30))
+    num_p = torch.atan2(ty, tx)
+    den_l = 0.5 * torch.log1p((tx * ty) ** 2)
+    den_p = torch.atan2(tx * ty, torch.ones_like(tx))
+    return num_l - den_l + np.log(2.0), num_p - den_p

@@ -22,8 +22,11 @@ __all__ = [
     "triangle_size",
     "compress_h2e",
     "h2e_element",
+    "decompress_h2e",
+    "antisymmetrize_spin_h2e",
     "spin_orbital_from_spatial",
     "hubbard_1d",
+    "hubbard_2d",
     "HijTables",
     "sector_pair_index",
     "hpair_sector_blocks",
@@ -74,6 +77,27 @@ def compress_h2e(h2e_dense: np.ndarray, sorb: int) -> np.ndarray:
     out = np.empty(triangle_size(sorb), dtype=h2e_dense.dtype)
     out[a * (a + 1) // 2 + b] = h2e_dense[pi[a], pj[a], pi[b], pj[b]]
     return out
+
+
+def decompress_h2e(h2e_c: np.ndarray, sorb: int) -> np.ndarray:
+    """Compressed triangle -> dense antisymmetrized <ij||kl> [sorb]^4."""
+    idx = np.indices((sorb, sorb, sorb, sorb))
+    return h2e_element(h2e_c, idx[0], idx[1], idx[2], idx[3])
+
+
+def antisymmetrize_spin_h2e(eri_spatial: np.ndarray) -> np.ndarray:
+    """Spatial chemist ERI (pr|qs) [norb]^4 -> dense spin <pq||rs> [sorb]^4,
+    with <pq|rs> = (pr|qs)·δ(σp,σr)·δ(σq,σs) and <pq||rs> = <pq|rs> − <pq|sr>.
+    For small sorb (tests); ``spin_orbital_from_spatial`` fills the
+    triangle directly."""
+    norb = eri_spatial.shape[0]
+    p = np.arange(2 * norb)
+    sp = p & 1
+    P = p // 2
+    d = (sp[:, None] == sp[None, :]).astype(eri_spatial.dtype)
+    phys = np.einsum("prqs->pqrs", eri_spatial[np.ix_(P, P, P, P)])
+    phys = phys * d[:, None, :, None] * d[None, :, None, :]
+    return phys - phys.transpose(0, 1, 3, 2)
 
 
 def spin_orbital_from_spatial(
@@ -128,6 +152,34 @@ def hubbard_1d(
         hcore[0, nsites - 1] = hcore[nsites - 1, 0] = -t
     eri = np.zeros((nsites,) * 4)
     for s in range(nsites):
+        eri[s, s, s, s] = u
+    return hcore, eri
+
+
+def hubbard_2d(
+    nx: int, ny: int, t: float = 1.0, u: float = 4.0, pbc: bool = False
+) -> tuple[np.ndarray, np.ndarray]:
+    """2D square-lattice Hubbard model spatial integrals (hcore, ERI),
+    site (r, c) = r·nx + c."""
+    n = nx * ny
+    hcore = np.zeros((n, n))
+
+    def sid(r, c):
+        return r * nx + c
+
+    for r in range(ny):
+        for c in range(nx):
+            s = sid(r, c)
+            if c + 1 < nx:
+                hcore[s, sid(r, c + 1)] = hcore[sid(r, c + 1), s] = -t
+            elif pbc and nx > 2:
+                hcore[s, sid(r, 0)] = hcore[sid(r, 0), s] = -t
+            if r + 1 < ny:
+                hcore[s, sid(r + 1, c)] = hcore[sid(r + 1, c), s] = -t
+            elif pbc and ny > 2:
+                hcore[s, sid(0, c)] = hcore[sid(0, c), s] = -t
+    eri = np.zeros((n,) * 4)
+    for s in range(n):
         eri[s, s, s, s] = u
     return hcore, eri
 

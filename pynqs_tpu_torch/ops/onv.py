@@ -22,6 +22,8 @@ __all__ = [
     "pack_bits",
     "unpack_bits",
     "popcount_u32",
+    "bits_to_spins",
+    "spins_to_bits",
     "compare_keys_lt",
     "compare_keys_le",
     "hf_bits",
@@ -94,6 +96,16 @@ def hf_bits(sorb: int, noa: int, nob: int) -> np.ndarray:
     bits[0 : 2 * noa : 2] = 1
     bits[1 : 2 * nob : 2] = 1
     return bits
+
+
+def bits_to_spins(bits: torch.Tensor, dtype=torch.float32) -> torch.Tensor:
+    """0/1 bits -> ±1 spins (occupied +1, empty −1)."""
+    return 2 * bits.to(dtype) - 1
+
+
+def spins_to_bits(spins: torch.Tensor) -> torch.Tensor:
+    """±1 spins -> 0/1 int8 bits."""
+    return (spins > 0).to(torch.int8)
 
 
 def prefix_occ(bits: torch.Tensor) -> torch.Tensor:

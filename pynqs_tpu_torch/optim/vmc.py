@@ -1,14 +1,17 @@
 """VMC optimization loop.
 
 Counterpart of ``pynqs_tpu/optim/vmc.py`` (``VMC``, ``VMCConfig``)
-with the fields of the flagship training run.  One step: AR sampling
-→ local energy (SIMPLE or REDUCE; the ψ ratio forwards go through the
-fused forward) → pair-form gradient → clip → Adam/AdamW update at the
-scheduled learning rate; ``run`` adds the parameter EMA, the
-sample-count ramp, 3σ clipping, the run log and the resume checkpoints
-(the JAX package's file format, ``utils/checkpoint.py``), and
-``operator_expected`` measures any operator on the state.  Not ported
-yet (ROADMAP): SR, freeze-and-sweep, profiling, the mesh.
+with the fields of the flagship training run.  One step: sampling
+(AR, restricted, or MCMC with its chain state) → local energy (SIMPLE
+or REDUCE; the ψ ratio forwards go through the fused forward) →
+pair-form gradient, or its SR preconditioning (``grad/sr.py``; then the
+plain gradient's backward is not run) → freeze-and-sweep mask → clip →
+Adam/AdamW/SGD update at the scheduled learning rate; ``run`` adds the
+parameter EMA, the sample-count ramp, 3σ clipping, the MCMC
+thermalization, the run log and the resume checkpoints (the JAX
+package's file format, ``utils/checkpoint.py``), ``noise_tune`` the
+NoisyTune perturbation, and ``operator_expected`` measures any operator
+on the state.  Not ported yet (ROADMAP): profiling, the mesh.
 
 Resuming keeps two behaviours of the JAX loop: the loop's iteration
 restarts at 0 (the clip schedule, the ramp, the 3σ window and the
@@ -29,7 +32,8 @@ import numpy as np
 import torch
 
 from pynqs_tpu_torch.energy.eloc import local_energy_reduce, local_energy_simple
-from pynqs_tpu_torch.grad.energy_grad import energy_and_grad
+from pynqs_tpu_torch.grad.energy_grad import energy_and_grad, energy_stats
+from pynqs_tpu_torch.grad.sr import sr_gradient, sr_gradient_blocked, sr_gradient_cg
 from pynqs_tpu_torch.ops.fused_rnn import (
     fused_forward_available,
     graph_mpsrnn_logpsi_fused,
@@ -41,7 +45,9 @@ from pynqs_tpu_torch.utils.checkpoint import (
     adam_state_tree,
     load_adam_state,
     load_checkpoint,
+    optax_sgd_tree,
     save_checkpoint,
+    sgd_schedule_count,
 )
 from pynqs_tpu_torch.utils.logging import RunLogger
 from pynqs_tpu_torch.utils.stats import operator_stats
@@ -55,7 +61,8 @@ class VMCConfig:
     # a float, or a schedule: update count -> lr (optim/schedule.py), as
     # optax's ``learning_rate: float | Schedule``
     lr: float | Callable[[int], float] = 1e-2
-    optimizer: str = "adam"  # "adam" | "adamw"
+    # "adam" | "adamw" (decay 1e-4, optax's) | "sgd" (optax.sgd: no momentum)
+    optimizer: str = "adam"
     eloc_batch: int | None = None  # samples per eloc chunk
     eloc_method: str = "simple"  # "simple" | "reduce"
     eloc_k_det: int = 256  # REDUCE: deterministic terms per sample
@@ -99,6 +106,20 @@ class VMCConfig:
     # exponential moving average of the parameters, e ← d·e + (1−d)·p
     # after every update; ``VMC.ema_params``, saved under "ema"
     ema_decay: float | None = None
+    # stochastic reconfiguration in place of the plain gradient
+    # (grad/sr.py): "dense" [P, P] solve, "cg" matrix-free min-SR
+    # (jac_batch = grad_batch), "blocked" per-tensor block-diagonal
+    use_sr: bool = False
+    sr_damping: float = 1e-3
+    sr_solver: str = "dense"
+    sr_n_cg: int = 50
+    # freeze-and-sweep: iteration -> gradient mask {name: tensor}
+    # (optim/sweep.site_freeze_mask); None = all trainable
+    param_mask_fn: Callable[[int], dict] | None = None
+
+
+_OPTIMIZERS = ("adam", "adamw", "sgd")
+_SR_SOLVERS = ("dense", "cg", "blocked")
 
 
 @torch.no_grad()
@@ -117,6 +138,10 @@ class VMC:
         self.system = system
         self.sampler = sampler
         self.cfg = config or VMCConfig()
+        if self.cfg.optimizer not in _OPTIMIZERS:
+            raise ValueError(f"unknown optimizer {self.cfg.optimizer!r}")
+        if self.cfg.sr_solver not in _SR_SOLVERS:
+            raise ValueError(f"unknown sr_solver {self.cfg.sr_solver!r}")
         dev = model.M_re.device
         # Hamiltonian arithmetic in the model's float type (f32 on the
         # card, f64 in the CPU tests); never bf16
@@ -128,12 +153,15 @@ class VMC:
         self.count = 0  # updates so far: the schedule's count
         self.ema_params: dict | None = None
         self.history: list[float] = []
+        # a stateful sampler's chains (MCMC), threaded through step/run
+        self.chain_state = None
 
     def _new_optimizer(self):
         # AdamW decays by optax.adamw's default 1e-4 (torch's default is
         # 0.01): every AdamW run of the JAX package passes optax.adamw(lr)
         opt, kw = {"adam": (torch.optim.Adam, {}),
-                   "adamw": (torch.optim.AdamW, {"weight_decay": 1e-4})}[self.cfg.optimizer]
+                   "adamw": (torch.optim.AdamW, {"weight_decay": 1e-4}),
+                   "sgd": (torch.optim.SGD, {})}[self.cfg.optimizer]
         return opt(self.model.parameters(), lr=self.lr_at(0), **kw)
 
     def lr_at(self, count: int) -> float:
@@ -180,29 +208,60 @@ class VMC:
         self.count += 1
         return lr
 
-    def step(self, generator: torch.Generator, clip_val: float | None, sampler=None):
-        """One training step (samples from ``sampler``, default the VMC's
-        own); returns a dict of 0-d tensors (energy without ecore,
-        variance, w_sum, n_eff, gnorm, dropped_frac, n_unique) and the
-        update's lr."""
-        bits, w, diag = (sampler or self.sampler).sample(self.model, generator)
+    def _sample(self, sampler, generator):
+        """(bits, weights, diagnostics) of ``sampler``; a stateful sampler
+        (MCMC) continues ``chain_state``, starting it on first use."""
+        if not getattr(sampler, "stateful", False):
+            return sampler.sample(self.model, generator)
+        if self.chain_state is None:
+            self.chain_state = sampler.init_state(self.model, generator)
+        bits, w, diag, self.chain_state = sampler.sample(self.model, generator,
+                                                         self.chain_state)
+        return bits, w, diag
+
+    def sr_gradient(self, bits, w, eloc) -> dict:
+        """The SR-preconditioned gradient by ``cfg.sr_solver``."""
+        cfg = self.cfg
+        if cfg.sr_solver == "cg":
+            return sr_gradient_cg(self.model, bits, w, eloc, damping=cfg.sr_damping,
+                                  n_cg=cfg.sr_n_cg, jac_batch=cfg.grad_batch)
+        if cfg.sr_solver == "blocked":
+            return sr_gradient_blocked(self.model, bits, w, eloc, damping=cfg.sr_damping)
+        return sr_gradient(self.model, bits, w, eloc, damping=cfg.sr_damping)
+
+    def local_energy(self, bits, generator):
+        """The step's local energies of ``bits`` by ``cfg.eloc_method``."""
         fwd = self._eloc_forward()
         if self.cfg.eloc_method == "reduce":
-            eloc = local_energy_reduce(
+            return local_energy_reduce(
                 fwd, bits, self._ops, self._table, generator,
                 k_det=self.cfg.eloc_k_det, n_stoch=self.cfg.eloc_n_stoch,
                 batch=self.cfg.eloc_batch, hpair=self._hpair,
                 topk=self.cfg.eloc_topk, dedup_unique_max=self.cfg.eloc_dedup_max,
                 prefix_fwd=self._eloc_prefix_fwd(),
             )
+        return local_energy_simple(fwd, bits, self._ops, self._table,
+                                   batch=self.cfg.eloc_batch, hpair=self._hpair)
+
+    def step(self, generator: torch.Generator, clip_val: float | None, sampler=None,
+             gmask: dict | None = None):
+        """One training step (samples from ``sampler``, default the VMC's
+        own; ``gmask`` multiplies the gradient, as ``cfg.param_mask_fn``'s
+        masks in ``run``); returns a dict of 0-d tensors (energy without
+        ecore, variance, w_sum, n_eff, gnorm, dropped_frac, n_unique) and
+        the update's lr."""
+        bits, w, diag = self._sample(sampler or self.sampler, generator)
+        eloc = self.local_energy(bits, generator)
+        if self.cfg.use_sr:
+            # the plain gradient would be discarded: its backward is not run
+            e, var = energy_stats(w, eloc)
+            grads = self.sr_gradient(bits, w, eloc)
         else:
-            eloc = local_energy_simple(
-                fwd, bits, self._ops, self._table,
-                batch=self.cfg.eloc_batch, hpair=self._hpair,
+            e, grads, var = energy_and_grad(
+                self.model, bits, w, eloc, grad_batch=self.cfg.grad_batch
             )
-        e, grads, var = energy_and_grad(
-            self.model, bits, w, eloc, grad_batch=self.cfg.grad_batch
-        )
+        if gmask is not None:
+            grads = {k: g * gmask[k] for k, g in grads.items()}
         gnorm = torch.sqrt(sum((g.double() ** 2).sum() for g in grads.values()))
         scale = 1.0
         if clip_val is not None:
@@ -218,6 +277,18 @@ class VMC:
             "dropped_frac": diag["dropped_frac"],
             "n_unique": diag["n_unique"],
         }
+
+    @torch.no_grad()
+    def noise_tune(self, generator: torch.Generator, scale: float = 0.1) -> dict:
+        """NoisyTune: add (U(0, 1) − ½)·std(p)·scale to every parameter
+        tensor in place (std over the tensor, ddof 0); returns the
+        parameters."""
+        named = self._named()
+        for name in sorted(named):
+            p = named[name]
+            u = torch.rand(p.shape, generator=generator, dtype=p.dtype, device=p.device)
+            p.add_((u - 0.5) * p.std(correction=0) * scale)
+        return named
 
     def operator_expected(self, operator_tables, generator: torch.Generator, sampler=None):
         """⟨O⟩ ± se for an operator given as (dense h1e, compressed h2e),
@@ -236,7 +307,11 @@ class VMC:
 
         ops = tuple(put(x) for x in (t.h1e, t.h2e, t.diag1, t.K, t.J))
         hp = None if t.Hpair is None else put(t.Hpair)
-        bits, w, _ = (sampler or self.sampler).sample(self.model, generator)
+        smp = sampler or self.sampler
+        if getattr(smp, "stateful", False):  # fresh chains, as the JAX package
+            bits, w = smp.sample(self.model, generator, smp.init_state(self.model, generator))[:2]
+        else:
+            bits, w, _ = smp.sample(self.model, generator)
         fwd = self._eloc_forward()
         if self.cfg.eloc_method == "reduce":
             oloc = local_energy_reduce(
@@ -257,24 +332,30 @@ class VMC:
 
     def save_checkpoint(self, path: str, step: int) -> None:
         """The JAX package's resume file: parameters, the optimizer state
-        as ``optax.adam``/``adamw`` lays it out (with the schedule count
-        where ``cfg.lr`` is a schedule), the history and the EMA."""
+        as ``optax.adam``/``adamw``/``sgd`` lays it out (with the schedule
+        count where ``cfg.lr`` is a schedule), the history and the EMA."""
         named = self._named()
-        opt_state = adam_state_tree(self.opt, named,
-                                    self.count if callable(self.cfg.lr) else None,
-                                    decay=self.cfg.optimizer == "adamw")
+        sched = self.count if callable(self.cfg.lr) else None
+        if self.cfg.optimizer == "sgd":
+            opt_state = optax_sgd_tree(sched)
+        else:
+            opt_state = adam_state_tree(self.opt, named, sched,
+                                        decay=self.cfg.optimizer == "adamw")
         save_checkpoint(path, step, named, opt_state, self.history,
                         extra={"ema": self.ema_params} if self.ema_params is not None else None)
 
     def restore(self, path: str) -> dict:
         """Load a resume file of either package: the parameters into the
-        model, the Adam moments and count into a fresh optimizer, the
-        schedule count, the history and (when the file has one) the EMA
-        into ``ema_params``.  Returns the file's tree."""
+        model, the Adam moments and count into a fresh optimizer (SGD has
+        none), the schedule count, the history and (when the file has one)
+        the EMA into ``ema_params``.  Returns the file's tree."""
         ck = load_checkpoint(path)
         self.model.load_numpy_params(ck["params"])
         self.opt = self._new_optimizer()
-        self.count = load_adam_state(self.opt, self._named(), ck["opt_state"])
+        if self.cfg.optimizer == "sgd":
+            self.count = sgd_schedule_count(ck["opt_state"])
+        else:
+            self.count = load_adam_state(self.opt, self._named(), ck["opt_state"])
         self.history = [float(e) for e in ck["history"]]
         self.ema_params = None
         if ck.get("ema") is not None:
@@ -308,8 +389,17 @@ class VMC:
         elif resume_from is None or self.ema_params is None:
             self.ema_params = {k: p.detach().clone() for k, p in self._named().items()}
         ramp = None
-        if cfg.start_n_sample is not None and cfg.ramp_iter > 0:
+        if (cfg.start_n_sample is not None and cfg.ramp_iter > 0
+                and hasattr(self.sampler, "n_sample")):
             ramp = dataclasses.replace(self.sampler, n_sample=cfg.start_n_sample)
+        self.chain_state = None
+        if getattr(self.sampler, "stateful", False):
+            # MCMC: start the chains and thermalize them once, before the loop
+            self.chain_state = self.sampler.init_state(self.model, generator)
+            therm = int(getattr(self.sampler, "therm", 0) or 0)
+            if therm > 0:
+                self.chain_state = self.sampler.run(self.model, generator, self.chain_state,
+                                                    therm)[0]
         clip_on = cfg.clip_grad is not None or cfg.clip_schedule is not None
         ecore, e_ref = self.system.ecore, self.system.e_ref
         log = RunLogger(cfg.log_path)
@@ -322,8 +412,10 @@ class VMC:
                 if cfg.adaptive_clip_3sigma and len(gnorms) >= cfg.clip_window:
                     recent = np.asarray(gnorms[-cfg.clip_window:])
                     clip_val = min(clip_val, float(recent.mean() + 3 * recent.std()))
+                mask = {} if cfg.param_mask_fn is None else {"gmask": cfg.param_mask_fn(it)}
                 out = self.step(generator, clip_val if clip_on else None,
-                                ramp if ramp is not None and it < cfg.ramp_iter else None)
+                                ramp if ramp is not None and it < cfg.ramp_iter else None,
+                                **mask)
                 if cfg.ema_decay is not None:
                     self.ema_params = ema_update(self.ema_params, self._named(), cfg.ema_decay)
                 gnorms.append(float(out["gnorm"]))

@@ -1,8 +1,10 @@
 """Exact autoregressive sampling with fixed-capacity tree expansion.
 
 Counterpart of ``pynqs_tpu/sampler/ar.py`` (``multinomial_partition``,
-``ar_sampling``, ``ar_sampling_dfs``, ``dfs_depth_profile``,
-``tune_dfs_split_depth``, ``compact_by_count``).  A buffer
+``ar_sampling`` with the ``exclude_sorted_keys`` final-step mask,
+``ar_sampling_slabbed``, ``ar_sampling_dfs``, ``dfs_depth_profile``,
+``tune_dfs_split_depth``, ``ar_sampling_gumbel``,
+``gumbel_importance_weights``, ``compact_by_count``).  A buffer
 of at most C branches is carried through the site loop; each step
 partitions every branch's count multinomially over the 4 values of the
 next site, then keeps the C largest of the 4C children (rows with count
@@ -20,12 +22,16 @@ from __future__ import annotations
 
 import torch
 
-from pynqs_tpu_torch.sampler.symmetry import apply_mask_logp, mask_two_site
+from pynqs_tpu_torch.ops import lut, onv
+from pynqs_tpu_torch.sampler.symmetry import NEG_INF, apply_mask_logp, mask_two_site
 
 __all__ = [
     "multinomial_partition",
     "ar_sampling",
+    "ar_sampling_slabbed",
     "ar_sampling_dfs",
+    "ar_sampling_gumbel",
+    "gumbel_importance_weights",
     "dfs_depth_profile",
     "tune_dfs_split_depth",
     "compact_by_count",
@@ -74,15 +80,37 @@ def multinomial_partition(
     return torch.stack(out, -1)
 
 
-def _ar_steps(model, state, k_from: int, k_to: int, generator, max_count):
-    """Advance the fixed-capacity AR state over site indices [k_from, k_to)."""
+def _exclude_mask(bits, s: int, exclude_sorted_keys):
+    """[C, 4] bool: the completed determinant of each value v = a + 2b at
+    site ``s`` is not in the excluded set."""
+    cand = []
+    for v in range(4):
+        b2 = bits.clone()
+        b2[:, 2 * s] = v & 1
+        b2[:, 2 * s + 1] = v >> 1
+        cand.append(~lut.lut_search(exclude_sorted_keys, onv.pack_bits(b2))[1])
+    return torch.stack(cand, -1)
+
+
+def _ar_steps(model, state, k_from: int, k_to: int, generator, max_count,
+              exclude_sorted_keys=None):
+    """Advance the fixed-capacity AR state over site indices [k_from, k_to).
+    ``exclude_sorted_keys`` (sorted packed ONVs) masks the members of that
+    set out at the final step."""
     n_steps = model.sorb // 2
     bits, counts, used_a, used_b, prev, carry = state
     C = bits.shape[0]
     for k in range(k_from, k_to):
         logp, carry = model.ar_step(carry, k, prev)
         rem = n_steps - k - 1
-        logp = apply_mask_logp(logp, mask_two_site(used_a, used_b, model.noa, model.nob, rem, rem))
+        mask = mask_two_site(used_a, used_b, model.noa, model.nob, rem, rem)
+        if exclude_sorted_keys is not None and k == n_steps - 1:
+            mask = mask & _exclude_mask(bits, model.site_order[k], exclude_sorted_keys)
+            # a prefix whose every completion is excluded cannot be
+            # completed: its count is dropped (the JAX package sends it to
+            # value 0, into the excluded set or out of the sector)
+            counts = torch.where(mask.any(-1), counts, torch.zeros_like(counts))
+        logp = apply_mask_logp(logp, mask)
         sub = multinomial_partition(counts, logp, generator, max_count=max_count)
         top_counts, top_idx = torch.topk(sub.reshape(-1), C)  # sorted descending
         parent = top_idx // 4
@@ -109,14 +137,46 @@ def _root_state(model, capacity: int, n_sample: int):
 
 
 @torch.no_grad()
-def ar_sampling(model, n_sample: int, *, capacity: int, generator):
+def ar_sampling(model, n_sample: int, *, capacity: int, generator,
+                exclude_sorted_keys=None, max_count: int | None = None):
     """Exact AR sampling. Returns (bits [C, sorb] int8, counts [C] int64,
-    dropped mass).  Rows are unique determinants; counts == 0 are dead."""
+    dropped mass).  Rows are unique determinants; counts == 0 are dead.
+
+    ``exclude_sorted_keys``: sorted packed ONVs masked out at the final
+    step.  Masking renormalizes the last conditional per prefix, so the
+    sampled measure is not the global restriction |ψ'|²/‖ψ'‖²; a prefix
+    with no completion outside the set is dropped (it counts in the
+    dropped mass).
+    ``max_count`` bounds any count (default ``n_sample``)."""
     state = _ar_steps(
         model, _root_state(model, capacity, n_sample), 0, model.sorb // 2,
-        generator, n_sample,
+        generator, n_sample if max_count is None else max_count,
+        exclude_sorted_keys=exclude_sorted_keys,
     )
     bits, counts = state[0], state[1]
+    return bits, counts, n_sample - counts.sum()
+
+
+@torch.no_grad()
+def ar_sampling_slabbed(model, n_sample: int, *, capacity: int, n_slab: int, generator,
+                        exclude_sorted_keys=None, dedup: bool = True):
+    """AR sampling past the capacity ceiling by multinomial additivity:
+    ``n_slab`` independent capacity-C trees of n_sample/n_slab draws each
+    (the first n_sample mod n_slab take one more) sum to exactly
+    Multinomial(n_sample, |ψ|²); the only bias left is each slab's own
+    truncation.  Returns (bits [n_slab·capacity, sorb], counts, dropped);
+    with ``dedup`` the rows are unique (duplicates across slabs merged,
+    sorted by key, the tail zero), else the raw slab concatenation."""
+    base = n_sample // n_slab
+    ns = [base + (i < n_sample - base * n_slab) for i in range(n_slab)]
+    out = [ar_sampling(model, n, capacity=capacity, generator=generator,
+                       exclude_sorted_keys=exclude_sorted_keys, max_count=max(ns))[:2]
+           for n in ns]
+    bits = torch.cat([b for b, _ in out], 0)
+    counts = torch.cat([c for _, c in out], 0)
+    if dedup:
+        uniq, counts, _ = lut.unique_onv(onv.pack_bits(bits), counts)
+        bits = onv.unpack_bits(uniq, model.sorb)
     return bits, counts, n_sample - counts.sum()
 
 
@@ -218,6 +278,94 @@ def tune_dfs_split_depth(model, generator, n_sample: int, *, capacity: int, n_gr
     if best is None:
         best = max(1, min(n_steps - 1, (capacity_root.bit_length() - 1) // 2))
     return (int(best), live, kept) if return_profile else int(best)
+
+
+def _log1mexp(x):
+    """log(1 − eˣ) for x ≤ 0, stable near both ends."""
+    return torch.where(x > -0.693, torch.log(-torch.expm1(torch.clamp(x, max=-1e-30))),
+                       torch.log1p(-torch.exp(x)))
+
+
+def _log1pexp(x):
+    """log(1 + eˣ) without overflow."""
+    return torch.where(x < 18.0, torch.log1p(torch.exp(torch.clamp(x, max=18.0))), x)
+
+
+def _gumbel(shape, generator, dtype, device):
+    u = torch.rand(shape, generator=generator, dtype=dtype, device=device)
+    return -torch.log(-torch.log(torch.clamp(u, min=torch.finfo(dtype).tiny)))
+
+
+@torch.no_grad()
+def ar_sampling_gumbel(model, capacity: int, generator):
+    """Stochastic beam search: AR sampling without replacement.
+
+    Gumbel-top-k over complete determinants drawn ancestrally (Kool et
+    al., JMLR 21(47)): each live branch carries its prefix log-probability
+    ``logq`` and a Gumbel ``G``; its children draw Gumbels conditioned on
+    their max equalling ``G``, and the beam keeps the ``capacity``
+    largest.  The leaves are the distinct determinants of one Gumbel-top-k
+    draw from |ψ|².  Returns (bits [C, sorb] int8, logq [C], G [C],
+    alive [C] bool); ``gumbel_importance_weights`` gives unbiased
+    estimator weights."""
+    n_steps = model.sorb // 2
+    C = capacity
+    dev, dt = model.M_re.device, model.M_re.dtype
+    NEG = NEG_INF
+    bits = torch.zeros(C, model.sorb, dtype=torch.int8, device=dev)
+    logq = torch.full((C,), NEG, dtype=dt, device=dev)
+    logq[0] = 0.0
+    G = torch.full((C,), NEG, dtype=dt, device=dev)
+    G[0] = _gumbel((), generator, dt, dev)
+    used_a = torch.zeros(C, dtype=torch.long, device=dev)
+    used_b = torch.zeros_like(used_a)
+    prev = torch.zeros_like(used_a)
+    carry = model.ar_init(C)
+    for k in range(n_steps):
+        logp, carry = model.ar_step(carry, k, prev)
+        rem = n_steps - k - 1
+        logp = apply_mask_logp(logp, mask_two_site(used_a, used_b, model.noa, model.nob,
+                                                   rem, rem))
+        child_lq = logq[:, None] + logp  # [C, 4]
+        g = child_lq + _gumbel((C, 4), generator, dt, dev)
+        Z = g.max(-1, keepdim=True).values
+        # shift so the children's max equals the parent's G exactly
+        # (the numerically stable form, Kool et al. appendix B)
+        v = G[:, None] - g + _log1mexp(torch.clamp(g - Z, max=-1e-30))
+        cond_g = G[:, None] - torch.clamp(v, min=0.0) - _log1pexp(-v.abs())
+        cond_g = torch.where(g == Z, G[:, None].expand_as(cond_g), cond_g)
+        dead = (logq <= NEG / 2)[:, None] | (child_lq <= NEG / 2)
+        cond_g = torch.where(dead, torch.full_like(cond_g, NEG), cond_g)
+        top_g, top_idx = torch.topk(cond_g.reshape(-1), C)
+        parent = top_idx // 4
+        val = top_idx % 4
+        bits = bits[parent]
+        used_a = used_a[parent] + (val & 1)
+        used_b = used_b[parent] + (val >> 1)
+        carry = {key: t[parent] for key, t in carry.items()}
+        logq = child_lq.reshape(-1)[top_idx]
+        G = top_g
+        s = model.site_order[k]
+        bits[:, 2 * s] = (val & 1).to(torch.int8)
+        bits[:, 2 * s + 1] = (val >> 1).to(torch.int8)
+        prev = val
+    return bits, logq, G, logq > NEG / 2
+
+
+def gumbel_importance_weights(logq, G, alive):
+    """Unbiased estimator weights of a Gumbel-top-k draw: with κ the
+    smallest kept Gumbel (that leaf leaves the estimator),
+    w_i = p_i / P(G_i > κ), P(G_i > κ) = 1 − exp(−exp(logq_i − κ)) (Kool
+    et al. eq. 14), in the log-space form that stays finite in f32.
+    Returns (w [C], keep [C] bool); self-normalize for expectations."""
+    kappa = torch.where(alive, G, torch.full_like(G, -NEG_INF)).min()
+    keep = alive & (G > kappa)
+    # t = exp(logq − κ); P(G > κ) = −expm1(−t), and for tiny t
+    # log P = (logq − κ) − t/2 + O(t²), where f32's expm1 underflows
+    t = torch.exp(logq - kappa)
+    log_pgt = torch.where(t > 1e-4, torch.log(torch.clamp(-torch.expm1(-t), min=1e-30)),
+                          (logq - kappa) - t / 2)
+    return torch.where(keep, torch.exp(logq - log_pgt), torch.zeros_like(logq)), keep
 
 
 def compact_by_count(bits: torch.Tensor, counts: torch.Tensor, n_keep: int):

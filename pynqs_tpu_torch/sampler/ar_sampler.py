@@ -1,9 +1,10 @@
 """AR sampler of the VMC loop.
 
-Counterpart of ``pynqs_tpu/sampler/ar_sampler.py`` without a mesh or
-slabs: the plain fixed-capacity tree, the prefix-partitioned (DFS)
-tree, the adaptive sample count (``target_unique``) and the
-``max_unique`` compaction, with the truncation diagnostics.  Weights
+Counterpart of ``pynqs_tpu/sampler/ar_sampler.py`` without a mesh: the
+plain fixed-capacity tree, independent slabs (``n_slab``), the
+prefix-partitioned (DFS) tree, the adaptive sample count
+(``target_unique``) and the ``max_unique`` compaction, with the
+truncation diagnostics.  Weights
 are the multinomial counts normalized over the unique rows, or with
 ``exact_weights`` the exact |ψ|² renormalized over them.
 """
@@ -14,7 +15,12 @@ from dataclasses import dataclass
 
 import torch
 
-from pynqs_tpu_torch.sampler.ar import ar_sampling, ar_sampling_dfs, compact_by_count
+from pynqs_tpu_torch.sampler.ar import (
+    ar_sampling,
+    ar_sampling_dfs,
+    ar_sampling_slabbed,
+    compact_by_count,
+)
 
 __all__ = ["ARSampler"]
 
@@ -26,6 +32,10 @@ class ARSampler:
     nob: int
     n_sample: int = 1 << 12
     capacity: int = 1 << 10  # max unique determinants carried per tree
+    # > 1: n_sample over n_slab independent capacity-C trees, duplicates
+    # merged (exactly Multinomial-additive; effective capacity
+    # n_slab × capacity); DFS takes precedence
+    n_slab: int = 1
     # DFS prefix partitioning: > 1 expands the tree exactly to
     # dfs_split_depth at dfs_capacity_root rows, then finishes
     # dfs_n_group disjoint prefix groups at full capacity each
@@ -60,7 +70,7 @@ class ARSampler:
         """Returns (bits [R, sorb] int8, weights [R] (sum 1; 0 = dead row),
         diagnostics {"dropped_frac", "n_unique"} as 0-d tensors)."""
         n_sample = self.n_sample
-        if self.target_unique is not None:
+        if self.target_unique is not None and self.n_slab == 1:
             bits, counts = self._sample_adaptive(model, generator)
             n_sample = max(int(counts.sum()), 1)
         elif self.dfs_n_group > 1:
@@ -68,6 +78,11 @@ class ARSampler:
                 model, self.n_sample, capacity=self.capacity,
                 n_group=self.dfs_n_group, split_depth=self.dfs_split_depth,
                 capacity_root=self.dfs_capacity_root, generator=generator,
+            )
+        elif self.n_slab > 1:
+            bits, counts, _ = ar_sampling_slabbed(
+                model, self.n_sample, capacity=self.capacity, n_slab=self.n_slab,
+                generator=generator,
             )
         else:
             bits, counts, _ = ar_sampling(

@@ -10,7 +10,9 @@ by either package load in the other:
     the numpy globals such files hold and maps exactly the three optax
     state classes of an Adam/AdamW run to namedtuples of this module;
     any other class raises.  Unpickling runs no other code.
-  * the optimizer state is optax's: ``adam_state_from_tree`` finds the
+  * the optimizer state is optax's (Adam/AdamW, and momentum-free SGD,
+    whose state holds only the schedule count: ``sgd_schedule_count``,
+    ``optax_sgd_tree``): ``adam_state_from_tree`` finds the
     Adam moments and the schedule count in such a tree (by class name,
     else by optax's leaf order), ``optax_adam_tree`` writes them back as
     plain tuples and dicts in optax's leaf order, which the JAX
@@ -40,6 +42,8 @@ __all__ = [
     "optax_adam_tree",
     "load_adam_state",
     "adam_state_tree",
+    "sgd_schedule_count",
+    "optax_sgd_tree",
 ]
 
 # optax's Adam/AdamW states, by the names their files pickle
@@ -242,3 +246,26 @@ def adam_state_tree(opt: torch.optim.Optimizer, named_params: dict,
         mu[name] = (st["exp_avg"] if st else torch.zeros_like(p)).detach().cpu().numpy()
         nu[name] = (st["exp_avg_sq"] if st else torch.zeros_like(p)).detach().cpu().numpy()
     return optax_adam_tree(count, mu, nu, sched_count, decay=decay)
+
+
+def sgd_schedule_count(opt_state) -> int:
+    """The schedule count of a momentum-free ``optax.sgd`` state tree:
+    ``(EmptyState(), ScaleByScheduleState(count))`` with a schedule,
+    ``(EmptyState(), EmptyState())`` with a float rate (count 0).  SGD
+    keeps no moments; an Adam state raises."""
+    if _find(opt_state, ScaleByAdamState):
+        raise ValueError("the optimizer state is Adam's, not momentum-free SGD's")
+    sched = _find(opt_state, ScaleByScheduleState)
+    if sched:
+        return int(sched[0].count)
+    leaves = _leaves(opt_state)
+    if len(leaves) > 1:
+        raise ValueError(f"optimizer state has {len(leaves)} leaves; a momentum-free SGD "
+                         f"state has at most 1 (the schedule count)")
+    return int(leaves[0]) if leaves else 0
+
+
+def optax_sgd_tree(sched_count: int | None) -> tuple:
+    """The state tree of momentum-free ``optax.sgd`` with a float lr
+    (``sched_count`` None) or a schedule, in optax's leaf order."""
+    return ((), () if sched_count is None else (np.asarray(sched_count, np.int32),))

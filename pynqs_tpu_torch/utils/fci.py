@@ -1,7 +1,7 @@
 """Host-side determinant spaces (numpy).
 
-Counterpart of ``pynqs_tpu/utils/fci.py::fci_bits`` (its native C++
-enumerator for large spaces is not ported).
+Counterpart of ``pynqs_tpu/utils/fci.py`` (``fci_bits``, ``fock_bits``,
+``hf_index``; the native C++ enumerator for large spaces is not ported).
 """
 
 from __future__ import annotations
@@ -10,7 +10,7 @@ from itertools import combinations
 
 import numpy as np
 
-__all__ = ["fci_bits"]
+__all__ = ["fci_bits", "fock_bits", "hf_index"]
 
 
 def fci_bits(sorb: int, noa: int, nob: int) -> np.ndarray:
@@ -29,3 +29,20 @@ def fci_bits(sorb: int, noa: int, nob: int) -> np.ndarray:
         for s in range(sorb):
             out[r, s] = (d >> s) & 1
     return out
+
+
+def fock_bits(sorb: int) -> np.ndarray:
+    """The full Fock space (2^sorb determinants) as bits; tiny systems only."""
+    ar = np.arange(1 << sorb, dtype=np.uint64)[:, None]
+    return ((ar >> np.arange(sorb, dtype=np.uint64)[None, :]) & 1).astype(np.int8)
+
+
+def hf_index(space_bits: np.ndarray, noa: int, nob: int) -> int:
+    """Index of the aufbau HF determinant inside a bit-space array."""
+    hf = np.zeros(space_bits.shape[1], dtype=np.int8)
+    hf[0 : 2 * noa : 2] = 1
+    hf[1 : 2 * nob : 2] = 1
+    hit = np.nonzero((space_bits == hf).all(1))[0]
+    if hit.size != 1:
+        raise ValueError("HF determinant not found in space")
+    return int(hit[0])

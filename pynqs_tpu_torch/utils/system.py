@@ -3,7 +3,7 @@
 Counterpart of ``pynqs_tpu/utils/system.py``: electron counts, the
 compressed integrals and the core energy, with the Slater–Condon
 operand tables moved to a device on request; ``from_pth`` reads the
-reference's molecule files.
+reference's molecule files, ``from_fcidump`` an FCIDUMP.
 """
 
 from __future__ import annotations
@@ -163,6 +163,43 @@ class System:
             int(d["sorb"]), int(d["noa"]), int(d["nob"]),
             float(d.get("ecore", 0.0)), e_ref=e_ref, ci_space=ci_space, **kw,
         )
+
+    @classmethod
+    def from_fcidump(cls, path: str, **kw) -> "System":
+        """A restricted FCIDUMP: chemist (ij|kl) with 8-fold symmetry; index-0
+        entries are hcore (i, j, 0, 0) and ecore (0, 0, 0, 0)."""
+        import re
+
+        with open(path) as f:
+            text = f.read()
+        header, _, body = text.partition("&END")
+        if not body:
+            header, _, body = text.partition("/")
+        norb = int(re.search(r"NORB\s*=\s*(\d+)", header, re.I).group(1))
+        nelec = int(re.search(r"NELEC\s*=\s*(\d+)", header, re.I).group(1))
+        m = re.search(r"MS2\s*=\s*(-?\d+)", header, re.I)
+        ms2 = int(m.group(1)) if m else 0
+        noa = (nelec + ms2) // 2
+        nob = nelec - noa
+        hcore = np.zeros((norb, norb))
+        eri = np.zeros((norb,) * 4)
+        ecore = 0.0
+        for line in body.strip().splitlines():
+            parts = line.split()
+            if len(parts) != 5:
+                continue
+            v = float(parts[0])
+            i, j, k, l = (int(x) for x in parts[1:])
+            if i == 0:
+                ecore = v
+            elif k == 0:
+                hcore[i - 1, j - 1] = hcore[j - 1, i - 1] = v
+            else:
+                i, j, k, l = i - 1, j - 1, k - 1, l - 1
+                for a, b, c, d in ((i, j, k, l), (j, i, k, l), (i, j, l, k), (j, i, l, k),
+                                   (k, l, i, j), (l, k, i, j), (k, l, j, i), (l, k, j, i)):
+                    eri[a, b, c, d] = v
+        return cls.from_spatial(hcore, eri, noa, nob, ecore, **kw)
 
     @classmethod
     def hubbard_1d(

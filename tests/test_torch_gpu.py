@@ -4,7 +4,9 @@ coupling included, at dcut_cmpr 4 and 12), the prefix-sharing kernels (on
 the tensor cores in both precisions, bit for bit the flat tensor-core
 kernel's rows in the same precision) and the doubles pair selection
 against their plain versions, and VMC steps (with the REDUCE forward
-dedup too) and the dense ``comb_hij`` that go through the kernels.
+dedup too, and with CG-SR) and the dense ``comb_hij`` that go through the
+kernels; the SR solvers against each other in f64 and ``safe_atan2``'s
+forward mode on the card; the dp-128 forward under ``hold_rows``.
 
 They import neither JAX nor the JAX package, so they also run where only
 PyTorch for CUDA is installed.  On a machine with a card:
@@ -740,3 +742,98 @@ def test_nqsci_chunked_gradient_on_card_equals_one_chunk(dev):
     assert nq._ci_flat.shape[0] > 64 * 10
     big = max(float(g.abs().max()) for g in grads[1])
     assert big > 0 and max(float((a - b).abs().max()) for a, b in zip(*grads)) <= 1e-5 * big
+
+
+# ---------------- SR on the card ----------------
+
+
+def test_sr_solvers_agree_in_f64_on_card(dev):
+    """Dense = blocked with one block (1e-10), CG with n_cg = 2P = dense
+    (1e-8) at damping 1e-2; the per-tensor blocks finite."""
+    from pynqs_tpu_torch.grad import sr
+
+    m = GraphMPSRNN(8, 2, 2, dcut=2, phase_mode="arg", norm_mode="mpsrnn", dtype=torch.float64,
+                    device=dev, generator=torch.Generator().manual_seed(3))
+    P = sum(p.numel() for p in m.parameters())
+    rng = np.random.default_rng(3)
+    bits = torch.as_tensor(_all_dets(8, 2, 2), device=dev)
+    w = rng.random(bits.shape[0])
+    w[::5] = 0.0
+    w = torch.as_tensor(w / w.sum(), device=dev)
+    el = torch.as_tensor(rng.standard_normal((bits.shape[0], 2)), device=dev)
+    dense = sr.sr_gradient(m, bits, w, el, damping=1e-2)
+    one = sr.sr_gradient_blocked(m, bits, w, el, damping=1e-2,
+                                 blocks={n: 0 for n, _ in m.named_parameters()})
+    cg = sr.sr_gradient_cg(m, bits, w, el, damping=1e-2, n_cg=2 * P)
+    per = sr.sr_gradient_blocked(m, bits, w, el, damping=1e-2)
+    big = max(float(v.abs().max()) for v in dense.values())
+    for k, v in dense.items():
+        assert v.device.type == "cuda" and torch.isfinite(per[k]).all()
+        assert float((one[k] - v).abs().max()) <= 1e-10 * big, k
+        assert float((cg[k] - v).abs().max()) <= 1e-8 * big, k
+
+
+def test_safe_atan2_forward_mode_on_card(dev):
+    from pynqs_tpu_torch.ops.cplx import safe_atan2
+
+    g = torch.Generator(device=dev).manual_seed(4)
+    y, x, dy, dx = (torch.randn(256, generator=g, device=dev, dtype=torch.float64)
+                    for _ in range(4))
+    x[:3] = 0.0
+    y[:2] = 0.0
+    _, t = torch.func.jvp(safe_atan2, (y, x), (dy, dx))
+    m2 = torch.clamp(x * x + y * y, min=1e-12)
+    assert t.device.type == "cuda"
+    torch.testing.assert_close(t, (x * dy - y * dx) / m2, rtol=1e-14, atol=0)
+    gy, gx = torch.func.vmap(torch.func.grad(safe_atan2, argnums=(0, 1)))(y, x)
+    torch.testing.assert_close(gy, x / m2, rtol=1e-14, atol=0)
+    torch.testing.assert_close(gx, -y / m2, rtol=1e-14, atol=0)
+
+
+def test_cg_sr_step_on_card_launches_kernel_1(dev):
+    """One CG-SR + SGD step on a dcut-8 chain: its REDUCE forward is one
+    tensor-core launch, the energy finite, every parameter moved by the
+    SGD update and none by the plain gradient's backward (not run)."""
+    system = System.hubbard_1d(6, 3, 3, u=4.0)
+    model = GraphMPSRNN(12, 3, 3, dcut=8, phase_mode="arg", norm_mode="mpsrnn",
+                        dtype=torch.float32, device=dev,
+                        generator=torch.Generator().manual_seed(5))
+    cfg = VMCConfig(lr=0.01, optimizer="sgd", use_sr=True, sr_solver="cg", sr_n_cg=10,
+                    eloc_method="reduce", eloc_k_det=16, eloc_n_stoch=4, clip_grad=1.0)
+    v = VMC(model, system, ARSampler(12, 3, 3, n_sample=20_000, capacity=400), cfg)
+    p0 = {k: p.detach().clone() for k, p in model.named_parameters()}
+    before = _mode_counts()
+    out = v.step(torch.Generator(device=dev).manual_seed(6), 1.0)
+    after = _mode_counts()
+    assert (after[0] - before[0], after[1] - before[1], after[2] - before[2]) == (1, 1, 0)
+    assert math.isfinite(float(out["energy"])) and abs(float(out["w_sum"]) - 1) < 1e-5
+    assert any(not torch.equal(p0[k], p) for k, p in model.named_parameters())
+    assert all(torch.isfinite(p).all() for p in model.parameters())
+
+
+@pytest.mark.parametrize("mm", ["bf16", "f32"])
+def test_dp128_forward_matches_plain_on_card(mm, dev):
+    """dcut 128 (dp 128, the widest the tensor-core walk takes) on 16,384
+    random rows, held by chip_smoke's ``hold_rows`` (in bf16 the f32
+    evaluation counts among the references, as in its phase 15)."""
+    model = GraphMPSRNN(40, 15, 15, dcut=128, phase_mode="arg", norm_mode="mpsrnn",
+                        dtype=torch.float32, device=dev,
+                        generator=torch.Generator().manual_seed(7))
+    x = torch.as_tensor(_rand_dets(16384, 40, 15, 15, 8), device=dev)
+    dt = torch.bfloat16 if mm == "bf16" else torch.float32
+    T = fused_rnn.pack_tables(model)
+    before = _mode_counts()
+    k = fused_rnn.graph_mpsrnn_logpsi_fused(model, x, matmul_dtype=dt, tables=T)
+    after = _mode_counts()
+    assert after[0] - before[0] == 1 and after[1 if mm == "bf16" else 2] - before[
+        1 if mm == "bf16" else 2] == 1
+    p = fused_rnn.graph_mpsrnn_logpsi_fused_plain(model, x, matmul_dtype=dt, tables=T)
+    q = [fused_rnn.graph_mpsrnn_logpsi_fused_plain(
+        model, x, matmul_dtype=dt, tables={key: t.double() for key, t in T.items()})]
+    if mm == "bf16":
+        q.append(fused_rnn.graph_mpsrnn_logpsi_fused_plain(model, x, matmul_dtype=torch.float32,
+                                                           tables=T))
+    tol = (1e-4, 1e-3) if mm == "f32" else (1e-1, 1e-1)
+    ok, held, st = smoke.hold_rows(k, p, q, tol)
+    assert ok, (held, st)
+

@@ -183,3 +183,31 @@ def test_ci_ladder_entry_points_raise_without_a_card(monkeypatch, tmp_path):
     c, hist = nq.run(torch.Generator().manual_seed(0), n_iter=1)
     assert np.isfinite(hist).all() and c.shape == (5,)
     assert nq._h_cc.device.type == "cpu"
+
+
+def test_sr_trainer_entry_points_raise_without_a_card(monkeypatch, tmp_path):
+    """fe2s2_r2_push's main and the feature tour default to the card; a
+    VMC with CG-SR runs where its model lives, asked for the CPU, and its
+    SR update stays there."""
+    from pynqs_tpu_torch.examples import feature_tour
+    from pynqs_tpu_torch.models.graph_mps_rnn import GraphMPSRNN
+    from pynqs_tpu_torch.optim.vmc import VMC, VMCConfig
+    from pynqs_tpu_torch.sampler.restricted import RestrictedSampler
+    from pynqs_tpu_torch.scripts import fe2s2_r2_push
+    from pynqs_tpu_torch.utils.fci import fci_bits
+    from pynqs_tpu_torch.utils.system import System
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    system = System.hubbard_1d(4, 2, 2)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        fe2s2_r2_push.main(["--stage", "64", "--sr"], system=system, root=str(tmp_path))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        feature_tour.main()
+    assert not (tmp_path / "logs").exists()
+    model = GraphMPSRNN(8, 2, 2, dcut=4, device="cpu")
+    v = VMC(model, system, RestrictedSampler(8, 2, 2, states=fci_bits(8, 2, 2)),
+            VMCConfig(optimizer="sgd", use_sr=True, sr_solver="cg", sr_n_cg=3))
+    bits, w, _ = v.sampler.sample(model)
+    grads = v.sr_gradient(bits, w, v.local_energy(bits, torch.Generator()))
+    assert all(g.device.type == "cpu" and torch.isfinite(g).all() for g in grads.values())
+    assert np.isfinite(float(v.step(torch.Generator(), 1.0)["energy"]))

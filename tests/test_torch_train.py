@@ -32,7 +32,7 @@ from pynqs_tpu_torch.ops.integrals import triangle_size
 from pynqs_tpu_torch.optim.schedule import exponential_decay, ref_schedule
 from pynqs_tpu_torch.optim.vmc import VMC, VMCConfig, ema_update
 from pynqs_tpu_torch.sampler.ar_sampler import ARSampler
-from pynqs_tpu_torch.scripts import eval_fe2s2_final, fe2s2_r3_push
+from pynqs_tpu_torch.scripts import eval_fe2s2_final, fe2s2_r2_push, fe2s2_r3_push
 from pynqs_tpu_torch.utils.checkpoint import load_checkpoint, save_params
 from pynqs_tpu_torch.utils.system import System
 
@@ -414,3 +414,98 @@ def test_scripts_main_on_the_cpu(tmp_path, capsys):
         fe2s2_r3_push.main(args + ["--iters", "1", "--split-depth", str(r["split_depth"]),
                                    "--eloc-dedup-max", "2", "--tag", "d"],
                            system=system, device="cpu", root=str(tmp_path))
+
+
+@pytest.fixture
+def one_thread():
+    """One intra-op thread for the tiny models of a script's ``main``: more
+    threads only contend for the cores under the runner's workers."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _jax_script_flags(path):
+    """{option: keywords} of every ``add_argument`` call in a script whose
+    parser is built inside ``main`` (the JAX scripts), read from its
+    source without running it."""
+    import ast
+
+    flags = {}
+    for node in ast.walk(ast.parse(pathlib.Path(path).read_text())):
+        if (isinstance(node, ast.Call) and getattr(node.func, "attr", "") == "add_argument"):
+            kw = {k.arg: (k.value.id if isinstance(k.value, ast.Name) else ast.literal_eval(k.value))
+                  for k in node.keywords if k.arg in ("type", "default", "action")}
+            flags[node.args[0].value] = kw
+    return flags
+
+
+def test_r2_push_flags_equal_the_jax_script():
+    """The port's command line is the JAX script's: the same options,
+    types, defaults and actions."""
+    want = _jax_script_flags(pathlib.Path(__file__).resolve().parent.parent
+                             / "scripts" / "fe2s2_r2_push.py")
+    got = {}
+    for a in fe2s2_r2_push.parser()._actions:
+        if not a.option_strings or a.dest == "help":
+            continue
+        kw = {"default": a.default}
+        if a.type is not None:
+            kw["type"] = a.type.__name__
+        if a.const is True:
+            kw = {"action": "store_true"}
+        got[a.option_strings[0]] = kw
+    assert got == want
+
+
+def test_r2_push_main_on_the_cpu(tmp_path, capsys, one_thread):
+    """The growth chain at a tiny size under a temporary root: --stage 64
+    --sr (CG-SR + SGD) from checkpoints/fe2s2_dcut64.pkl, --stage 96 with
+    slabs grown from the stage-64 output, --stage 128 --sr grown from
+    dcut 96; every file under the root; the records parse with the JAX
+    package's ``read_log``."""
+    system = _tiny_system()
+    (tmp_path / "checkpoints").mkdir()
+    m = GraphMPSRNN(8, 2, 2, dcut=64, phase_mode="arg", norm_mode="mpsrnn", device="cpu",
+                    dtype=torch.float32, generator=torch.Generator().manual_seed(2))
+    save_params(str(tmp_path / "checkpoints" / "fe2s2_dcut64.pkl"), dict(m.named_parameters()))
+    small = ["--n-sample", "5000", "--capacity", "36", "--n-cg", "3"]
+    r64 = fe2s2_r2_push.main(["--stage", "64", "--sr", "--iters", "2", *small], system=system,
+                             device="cpu", root=str(tmp_path))
+    v = r64["vmc"]
+    assert v.cfg.use_sr and v.cfg.sr_solver == "cg" and v.cfg.optimizer == "sgd"
+    assert v.cfg.sr_n_cg == 3 and v.cfg.clip_grad == 0.1 and v.cfg.eloc_k_det == 512
+    assert v.count == 2 and v.lr_at(1) == exponential_decay(1e-4, 2, 0.1)(1)
+    assert len(r64["history"]) == 2 and np.isfinite(r64["history"]).all()
+    assert [x["iter"] for x in jread_log(r64["paths"]["log"])] == [0, 1]
+    r96 = fe2s2_r2_push.main(["--stage", "96", "--iters", "1", "--n-slab", "2", *small],
+                             system=system, device="cpu", root=str(tmp_path))
+    assert r96["vmc"].model.dcut == 96 and r96["vmc"].cfg.optimizer == "adamw"
+    assert r96["vmc"].sampler.n_slab == 2 and np.isfinite(r96["history"]).all()
+    r128 = fe2s2_r2_push.main(["--stage", "128", "--sr", "--iters", "1", "--tag", "_x", *small],
+                              system=system, device="cpu", root=str(tmp_path))
+    assert r128["vmc"].model.dcut == 128 and np.isfinite(r128["history"]).all()
+    assert "stage dcut=128: 1 iters" in capsys.readouterr().out
+    assert sorted(os.listdir(tmp_path / "checkpoints")) == [
+        "fe2s2_dcut64.pkl", "fe2s2_r2_dcut128_x.pkl", "fe2s2_r2_dcut64.pkl",
+        "fe2s2_r2_dcut96.pkl"]
+    assert sorted(os.listdir(tmp_path / "logs")) == [
+        "fe2s2_r2_dcut128_x.log", "fe2s2_r2_dcut64.log", "fe2s2_r2_dcut96.log"]
+
+
+def test_feature_tour_main_on_the_cpu(capsys, one_thread):
+    """Every rung of the ported feature tour, a few iterations each."""
+    from pynqs_tpu_torch.examples import feature_tour
+
+    out = feature_tour.main(device="cpu", n_citrain=10, n_vmc=3, n_sr=2, n_cg=4,
+                            n_restricted=2, n_gfmc=12)
+    assert set(out) == {"fci", "cisd", "overlap", "vmc", "vmc_se", "sr", "sr_se", "restricted",
+                        "gfmc"}
+    assert all(np.isfinite(v) for v in out.values())
+    assert out["cisd"] >= out["fci"] - 1e-9 and 0 < out["overlap"] <= 1 + 1e-9
+    text = capsys.readouterr().out
+    for rung in ("FCI reference", "native CISD", "CITrain", "VMC (Adam)", "VMC (CG-SR)",
+                 "RESTRICTED", "GFMC (p=6)"):
+        assert rung in text
+
