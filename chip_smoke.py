@@ -155,7 +155,28 @@ Phases, one line each (and a few detail lines):
      against local_energy_simple; the ported feature tour
      (pynqs_tpu_torch/examples/feature_tour.main) at its iteration
      counts but 5 CG-SR steps (of 100), each VMC rung's tail mean at most
-     5 s.e. below FCI.
+     5 s.e. below FCI;
+ 17. the other ansätze (``a8_run``): the GPT decoder at the JAX defaults
+     (n_layer 2, n_head 4, d_model 64, phase_hidden 64, softmax-log; f32)
+     on the stand-in integrals in the flagship's step (DFS n = 1e6,
+     capacity 4096, 4 groups at depth 6, REDUCE k_det 256 / n_stoch 64,
+     eloc batch ``A8_ELOC_BATCH``, AdamW lr 1e-4): 3 ``VMC.step``s, each
+     split by stage (synchronized) with its peak memory, finite with
+     w_sum 1, and the KV-cached ``ar_step`` conditionals along the last
+     step's sampled rows summing to 2·log|ψ| of ``log_psi`` within 1e-4;
+     ⟨S⁻S⁺⟩ of the trained decoder through ``VMC.operator_expected``
+     (the dense pair matrix: kernel #4, lane, launches counted, its W
+     bitwise equal to the plain version on the first chunk, timed there
+     with ``time_pairs``), above −5 s.e.; the MPS-Transformer at its
+     defaults (dcut 8, n_layer 1, n_head 2, d_model 32) in the same step,
+     2 steps with the same checks; ``examples/hubbard_ladder.main`` for
+     stages 1–4 at ``HUB_ITERS`` iterations, each gap from FCI in mHa,
+     stage 4's eloc forwards through kernel #1 (bf16, the DAG path at dp
+     16), its launches counted, held by ``hold_rows`` on the stage's eloc
+     rows and timed there; one ``VMC.step`` each of RBM under MCMC,
+     ARRBM, ARRBM2, IsingRBM, DBM, Jastrow, MPSWavefunction,
+     Hybrid(ARRBM, RBM), MultiPsi(ARRBM, Jastrow) and SpinProjected(RNN)
+     on the 4-site Hubbard chain (finite, w_sum 1).
 
 The last two lines are the kernels' JSON summary and the result JSON.
 Any failed check raises, so the script exits non-zero with no result.
@@ -219,6 +240,14 @@ N_TIME = 1024  # samples whose eloc rows time kernel #1 at each r2_push width
 SR_DAMP16 = 1e-2
 N_DEDUP16 = 64
 TOUR_KW = {"n_sr": 5}
+# phase 17: the decoder step's sampler (the flagship's, without its
+# max_unique), its eloc batch in samples (2048 x 321 forward rows per
+# chunk) and the Hubbard ladder's iterations per stage (the JAX example's
+# default is 400; cut as PERF.md §4 says)
+A8_SAMPLER = dict(n_sample=1_000_000, capacity=4096, dfs_n_group=4, dfs_split_depth=6,
+                  dfs_capacity_root=4096)
+A8_ELOC_BATCH = 2048
+HUB_ITERS = {1: 200, 2: 400, 3: 200, 4: 200}
 H100_BF16_FLOPS = 989e12  # dense tensor-core peak, SXM data sheet
 H100_TF32_FLOPS = 495e12  # dense tensor-core peak in TF32
 H100_F32_FLOPS = 67e12  # f32 outside the tensor cores
@@ -288,6 +317,11 @@ def phase_err(a, b):
     """(max |Δ log|ψ||, max |e^{iφ_a} − e^{iφ_b}|)."""
     da, dp = row_errs(a, b)
     return da.max().item(), dp.max().item()
+
+
+def fmt_ms(ms):
+    """A time in ms, or "not measured" where there is none."""
+    return "not measured" if ms is None else f"{ms:.4f} ms"
 
 
 MED_TOL = 1e-4  # the median row's |Δlog|ψ|| and phase distance
@@ -1547,6 +1581,246 @@ def tour_run(dev, smi, system, f15, timed):
     return {"tour_s": ms / 1e3}
 
 
+def a8_run(dev, smi, system, tol, timed, time_pairs, bound, flop_per_site, table_bytes):
+    """Phase 17: the other ansätze on the card (see the module docstring).
+    Returns the two kernel entries' numbers: kernel #4 on the decoder's
+    ⟨S⁻S⁺⟩ chunk and kernel #1 on hubbard_ladder stage 4's eloc rows."""
+    from pynqs_tpu_torch import models as M
+    from pynqs_tpu_torch.energy.eloc import local_energy_simple
+    from pynqs_tpu_torch.examples import hubbard_ladder
+    from pynqs_tpu_torch.ops import fused_rnn
+    from pynqs_tpu_torch.ops import hamiltonian as ham_mod
+    from pynqs_tpu_torch.ops import pair_select as ps
+    from pynqs_tpu_torch.ops.integrals import precompute_hij_tables, spin_raising
+    from pynqs_tpu_torch.optim import vmc as vmc_mod
+    from pynqs_tpu_torch.optim.vmc import VMC, VMCConfig
+    from pynqs_tpu_torch.sampler import ar
+    from pynqs_tpu_torch.sampler.ar_sampler import ARSampler
+    from pynqs_tpu_torch.sampler.exact import ExactSampler
+    from pynqs_tpu_torch.sampler.mcmc import MCMCSampler
+    from pynqs_tpu_torch.sampler.symmetry import apply_mask_logp
+    from pynqs_tpu_torch.utils.system import System
+
+    f32, bf16 = torch.float32, torch.bfloat16
+    V = vmc_mod.VMC
+    saved = (V._sample, V.local_energy, V.apply_gradients, vmc_mod.energy_and_grad)
+    cur, last = {}, {}
+
+    def clocked(name, orig):
+        def run(*a, **k):
+            out, ms = timed(lambda: orig(*a, **k))
+            cur[name] = cur.get(name, 0.0) + ms
+            if name == "sample":
+                last["bits"], last["w"] = out[0], out[1]
+            return out
+        return run
+
+    @torch.no_grad()
+    def cache_walk(model, rows):
+        """max |Σ_k masked log p_k(x_k) − 2·log|ψ(x)|| over ``rows``: the
+        KV-cached walk against the teacher-forced pass."""
+        nps, _, n_steps, order = ar._layout(model)
+        r = rows.long()
+        carry = model.ar_init(r.shape[0])
+        prev = torch.zeros(r.shape[0], dtype=torch.long, device=dev)
+        ua, ub = prev.clone(), prev.clone()
+        tot = torch.zeros(r.shape[0], dtype=f32, device=dev)
+        for k in range(n_steps):
+            logp, carry = model.ar_step(carry, k, prev)
+            logp = apply_mask_logp(logp, ar._step_mask(model, k, ua, ub))
+            v = r[:, 2 * order[k]] + 2 * r[:, 2 * order[k] + 1] if nps == 2 else r[:, k]
+            tot += logp.gather(-1, v[:, None])[:, 0]
+            _, ua, ub = ar._place(model, k, r.clone(), ua, ub, v)
+            prev = v
+        return (tot - 2 * model.log_psi(rows)[:, 0]).abs().max().item()
+
+    sampler = ARSampler(SORB, NOA, NOB, **A8_SAMPLER)
+    cfg = VMCConfig(lr=1e-4, optimizer="adamw", eloc_method="reduce", eloc_k_det=K_DET,
+                    eloc_n_stoch=N_STOCH, eloc_topk="segmax", eloc_batch=A8_ELOC_BATCH,
+                    clip_grad=1.0)
+
+    def train(name, model, n_steps, seed):
+        """n_steps ``VMC.step``s, each synchronized and split by stage; the
+        checks; the cache walk on the last step's sampled rows."""
+        v = VMC(model, system, sampler, cfg)
+        g = torch.Generator(device=dev).manual_seed(seed)
+        steps = []
+        for i in range(n_steps):
+            cur.clear()
+            reset_peak()
+            out, ms = timed(lambda: v.step(g, cfg.clip_grad))
+            st = {"ms": ms, "split": dict(cur), "peak": peak_gib(),
+                  "energy": float(out["energy"]) + system.ecore, "w_sum": float(out["w_sum"])}
+            sp = ", ".join(f"{k} {t:.1f} ms" for k, t in st["split"].items())
+            log(17, f"({name}) step {i}: E {st['energy']:.6f} w_sum {st['w_sum']:.8f} dropped "
+                    f"{float(out['dropped_frac']):.3e} live {int(out['n_unique'])}; "
+                    f"{ms / 1e3:.3f} s (synchronized: {sp}, the rest "
+                    f"{ms - sum(cur.values()):.1f} ms); max_memory_allocated "
+                    f"{st['peak']:.3f} GiB; gpu {smi}")
+            check(np.isfinite(st["energy"]) and abs(st["w_sum"] - 1.0) <= 1e-5,
+                  f"({name}) step {i}: non-finite energy or w_sum != 1")
+            steps.append(st)
+        rows = last["bits"][last["w"] > 0]
+        err, ms = timed(lambda: cache_walk(model, rows))
+        log(17, f"({name}) KV-cached ar_step walk along {rows.shape[0]} sampled rows vs "
+                f"log_psi: max|sum log p - 2 log|psi|| {err:.3e} (tol 1e-4; {ms:.1f} ms)")
+        check(rows.shape[0] >= 4096 and err <= 1e-4,
+              f"({name}) the cache walk disagrees with log_psi ({err}) or too few rows")
+        return v, steps
+
+    out = {}
+    V._sample = clocked("sample", saved[0])
+    V.local_energy = clocked("eloc", saved[1])
+    V.apply_gradients = clocked("update", saved[2])
+    vmc_mod.energy_and_grad = clocked("gradient", saved[3])
+    try:
+        # ---- (a) the GPT decoder at the JAX defaults ----
+        dec = M.DecoderWavefunction(SORB, NOA, NOB, dtype=f32, device=dev,
+                                    generator=torch.Generator().manual_seed(17))
+        log(17, f"decoder: n_layer {dec.n_layer}, n_head {dec.n_head}, d_model {dec.d_model}, "
+                f"phase_hidden {dec.phase_hidden}, {dec.norm_method}, "
+                f"{sum(p.numel() for p in dec.parameters())} parameters, f32; sampler "
+                f"{A8_SAMPLER}; REDUCE {K_DET}/{N_STOCH} segmax, eloc batch {A8_ELOC_BATCH}; "
+                f"AdamW lr 1e-4")
+        v_dec, out["decoder_steps"] = train("decoder", dec, 3, 171)
+
+        # <S-S+> through the dense pair matrix: kernel #4 (lane)
+        first = {}
+        orig_psw = ham_mod.pair_select_w
+
+        def psw(*a, **k):
+            first.setdefault("args", a)
+            return orig_psw(*a, **k)
+
+        for c in ps.LAUNCHES.values():
+            c.reset()
+        ham_mod.pair_select_w = psw
+        try:
+            op, ms = timed(lambda: v_dec.operator_expected(
+                spin_raising(SORB), torch.Generator(device=dev).manual_seed(172)))
+        finally:
+            ham_mod.pair_select_w = orig_psw
+        l17 = {k: c.n for k, c in ps.LAUNCHES.items()}
+        log(17, f"<S-S+> of the trained decoder through operator_expected: {op} in "
+                f"{ms / 1e3:.3f} s; pair selection launches {l17}")
+        check(l17["lane"] > 0 and l17["rowrow"] == 0, f"<S-S+> pair selection launches {l17}")
+        check(np.isfinite(op.mean.real) and op.mean.real > -5 * op.se,
+              f"<S-S+> = {op.mean} below -5 s.e. ({op.se})")
+        po, pv, hp = first["args"][:3]
+        t_op = precompute_hij_tables(*spin_raising(SORB), SORB, system.dtype)
+        check(torch.equal(hp, torch.as_tensor(t_op.Hpair, device=dev).to(hp.dtype)),
+              "the <S-S+> chunk's pair matrix is not the operator's")
+        for vv in ps.VARIANTS:
+            check(torch.equal(ps.pair_select_w(po, pv, hp, variant=vv),
+                              ps.pair_select_w_plain(po, pv, hp, variant=vv)),
+                  f"pair selection {vv} != plain on the <S-S+> chunk")
+        out["pairs"], out["pairs_err"] = time_pairs(17, po, pv, hp, 20, 100)
+        out["pairs_launches"] = l17["lane"]
+        del v_dec, dec, po, pv, hp
+
+        # ---- (b) the MPS-Transformer at its defaults ----
+        mdec = M.MPSDecoder(SORB, NOA, NOB, dtype=f32, device=dev,
+                            generator=torch.Generator().manual_seed(173))
+        log(17, f"MPSDecoder: dcut {mdec.dcut}, n_layer {mdec.n_layer}, n_head {mdec.n_head}, "
+                f"d_model {mdec.d_model}, pmode {mdec.pmode}, "
+                f"{sum(p.numel() for p in mdec.parameters())} parameters, f32")
+        out["mpsdec_steps"] = train("MPSDecoder", mdec, 2, 174)[1]
+        del mdec
+    finally:
+        V._sample, V.local_energy, V.apply_gradients, vmc_mod.energy_and_grad = saved
+
+    # ---- (c) the Hubbard ladder, stages 1-4 ----
+    for stage in (1, 2, 3, 4):
+        for c in (fused_rnn.LAUNCHES, fused_rnn.MMA_LAUNCHES, fused_rnn.F32_MMA_LAUNCHES):
+            c.reset()
+        res, ms = timed(lambda: hubbard_ladder.main(
+            ["--stage", str(stage), "--iters", str(HUB_ITERS[stage])], device=dev))
+        lc = (fused_rnn.LAUNCHES.n, fused_rnn.MMA_LAUNCHES.n, fused_rnn.F32_MMA_LAUNCHES.n)
+        log(17, f"hubbard_ladder stage {stage} ({HUB_ITERS[stage]} iterations of 400): FCI "
+                f"{res['fci']:.6f} ({res['n_fci']} dets), VMC mean(20) {res['tail']:.6f}, gap "
+                f"{res['gap_mha']:+.3f} mHa; {ms / 1e3:.2f} s ({ms / HUB_ITERS[stage]:.1f} ms per "
+                f"iteration); fused forward launches (all, bf16, f32) {lc}; gpu {smi}")
+        check(all(np.isfinite(res["history"])), f"stage {stage}: a non-finite energy")
+        if stage != 4:
+            continue
+        check(lc[1] > 0 and lc[0] == lc[1], f"stage 4's eloc forwards did not all go through "
+                                            f"kernel #1 in bf16: {lc}")
+        m = res["model"]
+        bits = ARSampler(m.sorb, m.noa, m.nob, n_sample=1 << 15, capacity=400).sample(
+            m, torch.Generator(device=dev).manual_seed(175))[0]
+        seen = []
+
+        def fwd(b):
+            seen.append(b)
+            return torch.zeros(b.shape[0], 2, device=b.device)
+
+        s4 = hubbard_ladder.stage_setup(4, 1, dev)[0]
+        stabs = s4.tables(dev, f32)
+        local_energy_simple(fwd, bits, stabs.astuple(), s4.excitation, hpair=stabs.hpair_best)
+        trows = torch.cat(seen)
+        n_rows = trows.shape[0]
+        T = fused_rnn.pack_tables(m)
+        k_out = fused_rnn.graph_mpsrnn_logpsi_fused(m, trows, matmul_dtype=bf16, tables=T)
+        p_out = fused_rnn.graph_mpsrnn_logpsi_fused_plain(m, trows, matmul_dtype=bf16, tables=T)
+        q_out = fused_rnn.graph_mpsrnn_logpsi_fused_plain(
+            m, trows, matmul_dtype=bf16, tables={key: t.double() for key, t in T.items()})
+        f_out = fused_rnn.graph_mpsrnn_logpsi_fused_plain(m, trows, matmul_dtype=f32, tables=T)
+        ok, held, st = hold_rows(k_out, p_out, [q_out, f_out], tol[bf16])
+        dp = fused_rnn.mma_width(m.dcut)
+        log(17, f"  kernel #1 bf16 dp {dp} (DAG, {m.maxp} predecessors) vs plain on stage 4's "
+                f"{n_rows} eloc rows: max|dlog|psi|| {st['max_a']:.3e} (tol {tol[bf16][0]:g}), "
+                f"max phase distance {st['max_p']:.3e}, median row {st['med_a']:.3e} / "
+                f"{st['med_p']:.3e}; held: {held} (rows over {tol[bf16][1]:g}: {st['over']})")
+        check(ok, "stage 4: kernel #1 disagrees with its plain version")
+        kern = lambda: fused_rnn.graph_mpsrnn_logpsi_fused(m, trows, matmul_dtype=bf16,  # noqa: E731
+                                                           tables=T)
+        plain = lambda: fused_rnn.graph_mpsrnn_logpsi_fused_plain(  # noqa: E731
+            m, trows, matmul_dtype=bf16, tables=T)
+        kern()
+        p1, k1, k2, p2 = cuda_ms(plain, 3), cuda_ms(kern, 20), cuda_ms(kern, 20), cuda_ms(plain, 3)
+        k_ms, p_ms = (k1 + k2) / 2, (p1 + p2) / 2
+        flop = n_rows * sum(flop_per_site(m.dcut, len(pr)) for pr in m.preds)
+        b = bound(flop, n_rows * m.sorb + n_rows * 2 * 4 + table_bytes(T, bf16), bf16)
+        log(17, f"  fused forward bf16 dp {dp} on {n_rows} rows: tensor-core kernel "
+                f"{k_ms:.4f} ms, plain {p_ms:.4f} ms, bound {b[0]:.5f} ms ({b[1]}); gpu {smi}")
+        out["hub"] = {"launches": lc[1], "err": st["max_a"], "times": (k_ms, p_ms), "bound": b,
+                      "rows": n_rows}
+
+    # ---- (d) one step of each other model on the 4-site Hubbard chain ----
+    hub = System.hubbard_1d(4, 2, 2, u=4.0)
+    sorb = hub.sorb
+
+    def mk(cls, *a, seed=0, **kw):
+        return cls(*a, dtype=f32, device=dev, generator=torch.Generator().manual_seed(seed), **kw)
+
+    arr = lambda s: mk(M.ARRBM, sorb, 2, 2, nh=16, seed=s)  # noqa: E731
+    ar_s = ARSampler(sorb, 2, 2, n_sample=100_000, capacity=64)
+    ex_s = ExactSampler(sorb, 2, 2)
+    cases = [
+        ("RBM, MCMC", mk(M.RBM, sorb, alpha=2), MCMCSampler(sorb, 2, 2, n_chain=256,
+                                                            n_sweep=8, therm=0)),
+        ("ARRBM", arr(1), ar_s),
+        ("ARRBM2", mk(M.ARRBM2, sorb, 2, 2, nh=16, seed=2), ar_s),
+        ("IsingRBM", mk(M.IsingRBM, sorb, seed=3), ex_s),
+        ("DBM", mk(M.DBM, sorb, seed=4), ex_s),
+        ("Jastrow", mk(M.Jastrow, sorb, seed=5), ex_s),
+        ("MPSWavefunction", mk(M.MPSWavefunction, sorb, dcut=4, seed=6), ex_s),
+        ("Hybrid(ARRBM, RBM)", M.HybridWavefunction(arr(7), mk(M.RBM, sorb, alpha=1, seed=8,
+                                                               param_type="real")), ar_s),
+        ("MultiPsi(ARRBM, Jastrow)", M.MultiPsi(arr(9), mk(M.Jastrow, sorb, seed=10)), ar_s),
+        ("SpinProjected(RNN)", M.SpinProjected(mk(M.RNNWavefunction, sorb, 2, 2, hidden=16,
+                                                  seed=11), -1), ar_s),
+    ]
+    for name, model, smp in cases:
+        v = VMC(model, hub, smp, VMCConfig(lr=1e-2))
+        st, ms = timed(lambda: v.step(torch.Generator(device=dev).manual_seed(176), 1.0))
+        e, ws = float(st["energy"]), float(st["w_sum"])
+        log(17, f"{name}: one VMC.step ({type(smp).__name__}) E {e:.6f} w_sum {ws:.8f} gnorm "
+                f"{float(st['gnorm']):.3e} in {ms:.1f} ms")
+        check(np.isfinite(e) and abs(ws - 1.0) <= 1e-5, f"{name}: non-finite E or w_sum != 1")
+    return out
+
+
 def main():
     t_script = time.perf_counter()
     if not torch.cuda.is_available():
@@ -2301,9 +2575,9 @@ def main():
             del k, p
             r = res[v] = tps.measure(po, pv, hp, v, reps=reps, host_calls=host_calls)
             log(phase, f"pair selection {v} {r['shape']}: wrapper call {r['ms']:.4f} ms, kernel "
-                       f"alone {r['device_ms']:.4f} ms (profiler), host {r['host_ms']:.4f} ms per "
+                       f"alone {fmt_ms(r['device_ms'])} (profiler), host {r['host_ms']:.4f} ms per "
                        f"call; the earlier gather kernel in the same run {r['prev_ms']:.4f} ms, "
-                       f"alone {r['prev_device_ms']:.4f} ms, host {r['prev_host_ms']:.4f} ms; "
+                       f"alone {fmt_ms(r['prev_device_ms'])}, host {r['prev_host_ms']:.4f} ms; "
                        f"plain {r['plain_ms']:.4f} ms, one gather hpair[po[..., None], "
                        f"pv[:, None, :]] {r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
                        f"({r['bytes'] / 1e6:.1f} MB, bytes); L2 sectors a gather must touch "
@@ -2494,6 +2768,11 @@ def main():
     del f15["sr_inputs"]
     log(16, f"phase 16 in {time.perf_counter() - t16:.1f} s")
 
+    # ---- 17. the other ansätze: decoder, MPS-Transformer, Hubbard ladder ----
+    t17 = time.perf_counter()
+    f17 = a8_run(dev, smi, system, tol, timed, time_pairs, bound, flop_per_site, table_bytes)
+    log(17, f"phase 17 in {time.perf_counter() - t17:.1f} s")
+
     def entry(name, replaces, launches_n, err, times, bnd, source="fused_rnn.cu", lib=None,
               **extra):
         return {
@@ -2599,6 +2878,21 @@ def main():
                 "fused_rnn_mma.cu", rows=f15[dp]["rows"], registers=f15[dp]["registers"],
                 spill_bytes=f15[dp]["spill_bytes"])
           for dp in ("64", "96", "128")),
+        # kernel #4 on the trained decoder's <S-S+> (phase 17): its launches
+        # there and its first chunk's shape; prev_*: the earlier gather
+        # kernel on the same operands in this run
+        entry("pair_select_lane_decoder", "pynqs_tpu/ops/pallas_hij.py:48",
+              f17["pairs_launches"], f17["pairs_err"]["lane"],
+              (f17["pairs"]["lane"]["ms"], f17["pairs"]["lane"]["plain_ms"]),
+              (f17["pairs"]["lane"]["bound_ms"], "bytes"), "pair_select.cu",
+              f17["pairs"]["lane"]["library_ms"], shape=f17["pairs"]["lane"]["shape"],
+              device_ms=f17["pairs"]["lane"]["device_ms"], prev_ms=f17["pairs"]["lane"]["prev_ms"],
+              prev_device_ms=f17["pairs"]["lane"]["prev_device_ms"]),
+        # kernel #1 (bf16, the DAG path at dp 16) on hubbard_ladder stage 4's
+        # eloc rows (phase 17); launches: the stage's run
+        entry("fused_rnn_forward_mma_hubbard2d", "pynqs_tpu/ops/fused_rnn.py:197",
+              f17["hub"]["launches"], f17["hub"]["err"], f17["hub"]["times"], f17["hub"]["bound"],
+              "fused_rnn_mma.cu", rows=f17["hub"]["rows"]),
     ]}
     log("end", f"chip_smoke.py in {time.perf_counter() - t_script:.1f} s; gpu {smi}")
     print(json.dumps(summary))

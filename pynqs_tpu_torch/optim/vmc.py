@@ -49,8 +49,10 @@ from pynqs_tpu_torch.utils.checkpoint import (
     save_checkpoint,
     sgd_schedule_count,
 )
+from pynqs_tpu_torch.utils.device import model_device_dtype
 from pynqs_tpu_torch.utils.logging import RunLogger
 from pynqs_tpu_torch.utils.stats import operator_stats
+from pynqs_tpu_torch.utils.tree import flatten_tree, tree_named_parameters, unflatten_tree
 
 __all__ = ["VMC", "VMCConfig", "ema_update"]
 
@@ -142,10 +144,10 @@ class VMC:
             raise ValueError(f"unknown optimizer {self.cfg.optimizer!r}")
         if self.cfg.sr_solver not in _SR_SOLVERS:
             raise ValueError(f"unknown sr_solver {self.cfg.sr_solver!r}")
-        dev = model.M_re.device
+        dev, dt = model_device_dtype(model)
         # Hamiltonian arithmetic in the model's float type (f32 on the
         # card, f64 in the CPU tests); never bf16
-        tabs = system.tables(dev, model.M_re.dtype)
+        tabs = system.tables(dev, dt)
         self._ops = tabs.astuple()
         self._hpair = tabs.hpair_best
         self._table = system.excitation
@@ -176,7 +178,7 @@ class VMC:
         """log ψ closure for the gradient-free eloc forwards."""
         use = self.cfg.fused_forward
         if use is None:
-            use = self.model.M_re.device.type != "cpu"
+            use = model_device_dtype(self.model)[0].type != "cpu"
         if use:
             if fused_forward_available(self.model):
                 return partial(
@@ -219,6 +221,21 @@ class VMC:
                                                          self.chain_state)
         return bits, w, diag
 
+    @torch.no_grad()
+    def reweight(self, bits, w, sampler):
+        """Weights of ``sampler``'s draws as the model's |ψ|² measure.  A
+        model with a ``log_factor`` f (``MultiPsi``, ``SpinProjected``) is
+        sampled through its AR part φ, so counts of an AR sampler follow
+        |φ|²: w ← w·|f|² where w > 0, renormalized.  Weights that already
+        measure |ψ|² (exact enumeration, MCMC, RESTRICTED, exact weights)
+        stay as they are: reweighting them too would give |φ|²|f|⁴ (the
+        JAX step reweights whatever the sampler)."""
+        if not (hasattr(self.model, "log_factor") and getattr(sampler, "ar_part_measure", False)):
+            return w
+        f2 = torch.exp(2.0 * self.model.log_factor(bits)[..., 0]).to(w.dtype)
+        w = w * torch.where(w > 0, f2, torch.zeros_like(f2))
+        return w / w.sum()
+
     def sr_gradient(self, bits, w, eloc) -> dict:
         """The SR-preconditioned gradient by ``cfg.sr_solver``."""
         cfg = self.cfg
@@ -250,7 +267,9 @@ class VMC:
         masks in ``run``); returns a dict of 0-d tensors (energy without
         ecore, variance, w_sum, n_eff, gnorm, dropped_frac, n_unique) and
         the update's lr."""
-        bits, w, diag = self._sample(sampler or self.sampler, generator)
+        smp = sampler or self.sampler
+        bits, w, diag = self._sample(smp, generator)
+        w = self.reweight(bits, w, smp)
         eloc = self.local_energy(bits, generator)
         if self.cfg.use_sr:
             # the plain gradient would be discarded: its backward is not run
@@ -297,7 +316,7 @@ class VMC:
         matrix as the doubles operand; samples from ``sampler`` (default
         the VMC's own; an ``ExactSampler`` gives the exact measure); the
         local operator by ``cfg.eloc_method``.  Returns ``OperatorStats``."""
-        dev, dt = self.model.M_re.device, self.model.M_re.dtype
+        dev, dt = model_device_dtype(self.model)
         h1e_o, h2e_o = operator_tables
         t = precompute_hij_tables(np.asarray(h1e_o), np.asarray(h2e_o), self.system.sorb,
                                   self.system.dtype)
@@ -312,6 +331,7 @@ class VMC:
             bits, w = smp.sample(self.model, generator, smp.init_state(self.model, generator))[:2]
         else:
             bits, w, _ = smp.sample(self.model, generator)
+        w = self.reweight(bits, w, smp)
         fwd = self._eloc_forward()
         if self.cfg.eloc_method == "reduce":
             oloc = local_energy_reduce(
@@ -328,7 +348,8 @@ class VMC:
     # ---------------- checkpoints ----------------
 
     def _named(self) -> dict:
-        return dict(self.model.named_parameters())
+        """{dotted JAX-tree path: parameter} (``utils/tree.py``)."""
+        return tree_named_parameters(self.model)
 
     def save_checkpoint(self, path: str, step: int) -> None:
         """The JAX package's resume file: parameters, the optimizer state
@@ -341,8 +362,8 @@ class VMC:
         else:
             opt_state = adam_state_tree(self.opt, named, sched,
                                         decay=self.cfg.optimizer == "adamw")
-        save_checkpoint(path, step, named, opt_state, self.history,
-                        extra={"ema": self.ema_params} if self.ema_params is not None else None)
+        ema = None if self.ema_params is None else {"ema": unflatten_tree(self.ema_params)}
+        save_checkpoint(path, step, unflatten_tree(named), opt_state, self.history, extra=ema)
 
     def restore(self, path: str) -> dict:
         """Load a resume file of either package: the parameters into the
@@ -359,8 +380,9 @@ class VMC:
         self.history = [float(e) for e in ck["history"]]
         self.ema_params = None
         if ck.get("ema") is not None:
+            ema = flatten_tree(ck["ema"])
             self.ema_params = {
-                k: torch.as_tensor(np.asarray(ck["ema"][k])).reshape(p.shape).to(p).clone()
+                k: torch.as_tensor(np.asarray(ema[k])).reshape(p.shape).to(p).clone()
                 for k, p in self._named().items()}
         return ck
 

@@ -6,16 +6,21 @@ Counterpart of ``pynqs_tpu/sampler/ar.py`` (``multinomial_partition``,
 ``tune_dfs_split_depth``, ``ar_sampling_gumbel``,
 ``gumbel_importance_weights``, ``compact_by_count``).  A buffer
 of at most C branches is carried through the site loop; each step
-partitions every branch's count multinomially over the 4 values of the
-next site, then keeps the C largest of the 4C children (rows with count
-0 are dead).  Counts follow Multinomial(n_sample, |ψ|²) exactly, up to
-the mass dropped when more than C branches are alive.
+partitions every branch's count multinomially over the ncat values of
+the next step, then keeps the C largest of the ncat·C children (rows
+with count 0 are dead).  Counts follow Multinomial(n_sample, |ψ|²)
+exactly, up to the mass dropped when more than C branches are alive.
 
-Model contract: ``carry = model.ar_init(C)``;
-``logp, carry = model.ar_step(carry, k, prev)`` with logp [C, 4] the
-normalized conditionals of site index k and ``prev`` [C] the values
-chosen at step k-1.  Random draws take an explicit ``torch.Generator``
-on the model's device; the streams differ from ``jax.random``.
+Model contract (``models/base.py``): ``carry = model.ar_init(C)``;
+``logp, carry = model.ar_step(carry, k, prev)`` with logp [C, ncat] the
+conditional log-probabilities of step k (masked and renormalized here)
+and ``prev`` [C] the values chosen at step k-1.  A model decides ``model.sites_per_step`` spin orbitals per
+step: 2 (ncat 4, values v = a + 2b of spatial orbital
+``site_order[k]``, the identity where the model has no ``site_order``)
+or 1 (ncat 2, spin orbital k).  The carry is a tensor or a (nested)
+dict of tensors with leading axis C, gathered row-wise on branching.
+Random draws take an explicit ``torch.Generator`` on the model's
+device; the streams differ from ``jax.random``.
 """
 
 from __future__ import annotations
@@ -23,7 +28,13 @@ from __future__ import annotations
 import torch
 
 from pynqs_tpu_torch.ops import lut, onv
-from pynqs_tpu_torch.sampler.symmetry import NEG_INF, apply_mask_logp, mask_two_site
+from pynqs_tpu_torch.sampler.symmetry import (
+    NEG_INF,
+    apply_mask_logp,
+    mask_one_site,
+    mask_two_site,
+)
+from pynqs_tpu_torch.utils.device import model_device_dtype
 
 __all__ = [
     "multinomial_partition",
@@ -80,32 +91,79 @@ def multinomial_partition(
     return torch.stack(out, -1)
 
 
-def _exclude_mask(bits, s: int, exclude_sorted_keys):
-    """[C, 4] bool: the completed determinant of each value v = a + 2b at
-    site ``s`` is not in the excluded set."""
+def _layout(model):
+    """(sites per step, categories per step, steps, site order)."""
+    nps = model.sites_per_step
+    n_steps = model.sorb // nps
+    order = getattr(model, "site_order", None)
+    return nps, 2**nps, n_steps, list(range(n_steps)) if order is None else order
+
+
+def _gather(carry, idx):
+    """Rows ``idx`` of every tensor of a carry: a tensor or a (nested)
+    dict of tensors."""
+    if isinstance(carry, dict):
+        return {k: _gather(v, idx) for k, v in carry.items()}
+    return carry[idx]
+
+
+def _step_mask(model, k: int, used_a, used_b):
+    """[C, ncat] symmetry mask of step k."""
+    nps, _, n_steps, _ = _layout(model)
+    if nps == 2:
+        rem = n_steps - k - 1
+        return mask_two_site(used_a, used_b, model.noa, model.nob, rem, rem)
+    rem = model.sorb // 2 - k // 2 - 1  # channel sites after spin orbital k
+    if k % 2 == 0:
+        return mask_one_site(used_a, model.noa, rem)
+    return mask_one_site(used_b, model.nob, rem)
+
+
+def _place(model, k: int, bits, used_a, used_b, val):
+    """Write step k's values ``val`` into the (gathered) rows; returns
+    (bits, used_a, used_b)."""
+    nps, _, _, order = _layout(model)
+    if nps == 2:
+        s = order[k]
+        bits[:, 2 * s] = (val & 1).to(torch.int8)
+        bits[:, 2 * s + 1] = (val >> 1).to(torch.int8)
+        return bits, used_a + (val & 1), used_b + (val >> 1)
+    bits[:, k] = val.to(torch.int8)
+    if k % 2 == 0:
+        return bits, used_a + val, used_b
+    return bits, used_a, used_b + val
+
+
+def _exclude_mask(bits, s: int, exclude_sorted_keys, sites_per_step: int = 2):
+    """[C, ncat] bool: the completed determinant of each value at the final
+    step is not in the excluded set; the step sets spatial orbital ``s``
+    (v = a + 2b) or, with one site per step, spin orbital ``s``."""
     cand = []
-    for v in range(4):
+    for v in range(2**sites_per_step):
         b2 = bits.clone()
-        b2[:, 2 * s] = v & 1
-        b2[:, 2 * s + 1] = v >> 1
+        if sites_per_step == 2:
+            b2[:, 2 * s] = v & 1
+            b2[:, 2 * s + 1] = v >> 1
+        else:
+            b2[:, s] = v
         cand.append(~lut.lut_search(exclude_sorted_keys, onv.pack_bits(b2))[1])
     return torch.stack(cand, -1)
 
 
 def _ar_steps(model, state, k_from: int, k_to: int, generator, max_count,
               exclude_sorted_keys=None):
-    """Advance the fixed-capacity AR state over site indices [k_from, k_to).
+    """Advance the fixed-capacity AR state over steps [k_from, k_to).
     ``exclude_sorted_keys`` (sorted packed ONVs) masks the members of that
     set out at the final step."""
-    n_steps = model.sorb // 2
+    nps, ncat, n_steps, order = _layout(model)
     bits, counts, used_a, used_b, prev, carry = state
     C = bits.shape[0]
     for k in range(k_from, k_to):
         logp, carry = model.ar_step(carry, k, prev)
-        rem = n_steps - k - 1
-        mask = mask_two_site(used_a, used_b, model.noa, model.nob, rem, rem)
+        mask = _step_mask(model, k, used_a, used_b)
         if exclude_sorted_keys is not None and k == n_steps - 1:
-            mask = mask & _exclude_mask(bits, model.site_order[k], exclude_sorted_keys)
+            mask = mask & _exclude_mask(bits, order[k] if nps == 2 else k,
+                                        exclude_sorted_keys, nps)
             # a prefix whose every completion is excluded cannot be
             # completed: its count is dropped (the JAX package sends it to
             # value 0, into the excluded set or out of the sector)
@@ -113,22 +171,18 @@ def _ar_steps(model, state, k_from: int, k_to: int, generator, max_count,
         logp = apply_mask_logp(logp, mask)
         sub = multinomial_partition(counts, logp, generator, max_count=max_count)
         top_counts, top_idx = torch.topk(sub.reshape(-1), C)  # sorted descending
-        parent = top_idx // 4
-        val = top_idx % 4
-        bits = bits[parent]
-        used_a = used_a[parent] + (val & 1)
-        used_b = used_b[parent] + (val >> 1)
-        carry = {key: v[parent] for key, v in carry.items()}
-        s = model.site_order[k]
-        bits[:, 2 * s] = (val & 1).to(torch.int8)
-        bits[:, 2 * s + 1] = (val >> 1).to(torch.int8)
+        parent = top_idx // ncat
+        val = top_idx % ncat
+        carry = _gather(carry, parent)
+        bits, used_a, used_b = _place(model, k, bits[parent], used_a[parent],
+                                      used_b[parent], val)
         counts = top_counts
         prev = val
     return bits, counts, used_a, used_b, prev, carry
 
 
 def _root_state(model, capacity: int, n_sample: int):
-    dev = model.M_re.device
+    dev = model_device_dtype(model)[0]
     bits = torch.zeros(capacity, model.sorb, dtype=torch.int8, device=dev)
     counts = torch.zeros(capacity, dtype=torch.long, device=dev)
     counts[0] = n_sample
@@ -149,7 +203,7 @@ def ar_sampling(model, n_sample: int, *, capacity: int, generator,
     dropped mass).
     ``max_count`` bounds any count (default ``n_sample``)."""
     state = _ar_steps(
-        model, _root_state(model, capacity, n_sample), 0, model.sorb // 2,
+        model, _root_state(model, capacity, n_sample), 0, _layout(model)[2],
         generator, n_sample if max_count is None else max_count,
         exclude_sorted_keys=exclude_sorted_keys,
     )
@@ -180,6 +234,12 @@ def ar_sampling_slabbed(model, n_sample: int, *, capacity: int, n_slab: int, gen
     return bits, counts, n_sample - counts.sum()
 
 
+def _default_split(capacity_root: int, nps: int, n_steps: int) -> int:
+    """The static split depth: deep enough that ncat^d branches about fill
+    ``capacity_root``."""
+    return max(1, min(n_steps - 1, (capacity_root.bit_length() - 1) // nps))
+
+
 @torch.no_grad()
 def ar_sampling_dfs(
     model, n_sample: int, *, capacity: int, n_group: int, generator,
@@ -194,7 +254,7 @@ def ar_sampling_dfs(
     n_group × capacity.  Returns (bits [n_group·capacity, sorb], counts,
     dropped); rows are globally unique.
     """
-    n_steps = model.sorb // 2
+    nps, _, n_steps, _ = _layout(model)
     if capacity_root is None:
         capacity_root = capacity
     if capacity_root % n_group:
@@ -203,7 +263,7 @@ def ar_sampling_dfs(
     if rpg > capacity:
         raise ValueError("capacity_root/n_group must fit in capacity")
     if split_depth is None:
-        split_depth = max(1, min(n_steps - 1, (capacity_root.bit_length() - 1) // 2))
+        split_depth = _default_split(capacity_root, nps, n_steps)
     state = _ar_steps(
         model, _root_state(model, capacity_root, n_sample), 0, split_depth,
         generator, n_sample,
@@ -217,8 +277,7 @@ def ar_sampling_dfs(
         counts_g = counts[idx].clone()
         counts_g[rpg:] = 0  # padding rows are dead
         st = (
-            bits[idx], counts_g, used_a[idx], used_b[idx], prev[idx],
-            {key: v[idx] for key, v in carry.items()},
+            bits[idx], counts_g, used_a[idx], used_b[idx], prev[idx], _gather(carry, idx),
         )
         st = _ar_steps(model, st, split_depth, n_steps, generator, n_sample)
         out_bits.append(st[0])
@@ -236,7 +295,7 @@ def dfs_depth_profile(model, n_sample: int, *, capacity_root: int, generator,
     step d = 1..max_depth the live prefixes and the kept count mass
     (kept[d-1] < n_sample marks the first depth at which phase 1 would
     truncate).  Returns numpy (live, kept)."""
-    n_steps = model.sorb // 2
+    n_steps = _layout(model)[2]
     max_depth = min(n_steps - 1 if max_depth is None else max_depth, n_steps - 1)
     state = _root_state(model, capacity_root, n_sample)
     live, kept = [], []
@@ -258,8 +317,7 @@ def tune_dfs_split_depth(model, generator, n_sample: int, *, capacity: int, n_gr
     branches are live to deal; the static rule of ``ar_sampling_dfs``
     where no depth qualifies.  With ``return_profile``: (depth, live,
     kept)."""
-    ncat = 4
-    n_steps = model.sorb // 2
+    nps, ncat, n_steps, _ = _layout(model)
     if capacity_root is None:
         capacity_root = capacity
     if safety is None:
@@ -276,7 +334,7 @@ def tune_dfs_split_depth(model, generator, n_sample: int, *, capacity: int, n_gr
         if live[d - 1] >= n_group:
             best = d
     if best is None:
-        best = max(1, min(n_steps - 1, (capacity_root.bit_length() - 1) // 2))
+        best = _default_split(capacity_root, nps, n_steps)
     return (int(best), live, kept) if return_profile else int(best)
 
 
@@ -308,9 +366,9 @@ def ar_sampling_gumbel(model, capacity: int, generator):
     draw from |ψ|².  Returns (bits [C, sorb] int8, logq [C], G [C],
     alive [C] bool); ``gumbel_importance_weights`` gives unbiased
     estimator weights."""
-    n_steps = model.sorb // 2
+    _, ncat, n_steps, _ = _layout(model)
     C = capacity
-    dev, dt = model.M_re.device, model.M_re.dtype
+    dev, dt = model_device_dtype(model)
     NEG = NEG_INF
     bits = torch.zeros(C, model.sorb, dtype=torch.int8, device=dev)
     logq = torch.full((C,), NEG, dtype=dt, device=dev)
@@ -323,11 +381,9 @@ def ar_sampling_gumbel(model, capacity: int, generator):
     carry = model.ar_init(C)
     for k in range(n_steps):
         logp, carry = model.ar_step(carry, k, prev)
-        rem = n_steps - k - 1
-        logp = apply_mask_logp(logp, mask_two_site(used_a, used_b, model.noa, model.nob,
-                                                   rem, rem))
-        child_lq = logq[:, None] + logp  # [C, 4]
-        g = child_lq + _gumbel((C, 4), generator, dt, dev)
+        logp = apply_mask_logp(logp, _step_mask(model, k, used_a, used_b))
+        child_lq = logq[:, None] + logp  # [C, ncat]
+        g = child_lq + _gumbel((C, ncat), generator, dt, dev)
         Z = g.max(-1, keepdim=True).values
         # shift so the children's max equals the parent's G exactly
         # (the numerically stable form, Kool et al. appendix B)
@@ -337,17 +393,13 @@ def ar_sampling_gumbel(model, capacity: int, generator):
         dead = (logq <= NEG / 2)[:, None] | (child_lq <= NEG / 2)
         cond_g = torch.where(dead, torch.full_like(cond_g, NEG), cond_g)
         top_g, top_idx = torch.topk(cond_g.reshape(-1), C)
-        parent = top_idx // 4
-        val = top_idx % 4
-        bits = bits[parent]
-        used_a = used_a[parent] + (val & 1)
-        used_b = used_b[parent] + (val >> 1)
-        carry = {key: t[parent] for key, t in carry.items()}
+        parent = top_idx // ncat
+        val = top_idx % ncat
+        carry = _gather(carry, parent)
+        bits, used_a, used_b = _place(model, k, bits[parent], used_a[parent],
+                                      used_b[parent], val)
         logq = child_lq.reshape(-1)[top_idx]
         G = top_g
-        s = model.site_order[k]
-        bits[:, 2 * s] = (val & 1).to(torch.int8)
-        bits[:, 2 * s + 1] = (val >> 1).to(torch.int8)
         prev = val
     return bits, logq, G, logq > NEG / 2
 

@@ -21,6 +21,7 @@ from pynqs_tpu_torch.sampler.ar import (
     ar_sampling_slabbed,
     compact_by_count,
 )
+from pynqs_tpu_torch.utils.device import model_device_dtype
 
 __all__ = ["ARSampler"]
 
@@ -54,6 +55,13 @@ class ARSampler:
     # subtracted) renormalized over the rows with count > 0, in place of
     # the normalized counts
     exact_weights: bool = False
+
+    @property
+    def ar_part_measure(self) -> bool:
+        """The weights are the drawn counts, which follow the |ψ|² of the
+        model's AR part (``VMC.reweight``); exact weights evaluate the whole
+        model's |ψ|²."""
+        return not self.exact_weights
 
     def _sample_adaptive(self, model, generator):
         max_n = self.max_n_sample or 1000 * self.n_sample
@@ -99,11 +107,11 @@ class ARSampler:
             "n_unique": live.sum(),
         }
         if self.exact_weights:
-            logw = torch.full(counts.shape, -torch.inf, dtype=model.M_re.dtype,
-                              device=counts.device)
+            dt = model_device_dtype(model)[1]
+            logw = torch.full(counts.shape, -torch.inf, dtype=dt, device=counts.device)
             logw[live] = 2.0 * model.log_psi(bits[live])[:, 0]
             p = torch.exp(logw - logw.max())
             w = p / p.sum()
         else:
-            w = counts.to(model.M_re.dtype) / torch.clamp(total, min=1)
+            w = counts.to(model_device_dtype(model)[1]) / torch.clamp(total, min=1)
         return bits, w, diag

@@ -14,7 +14,7 @@ import numpy as np
 import torch
 
 from pynqs_tpu_torch.utils import fci
-from pynqs_tpu_torch.utils.device import resolve_device
+from pynqs_tpu_torch.utils.device import model_device_dtype, resolve_device
 
 __all__ = ["ExactSampler"]
 
@@ -44,7 +44,7 @@ class ExactSampler:
         diagnostics {"dropped_frac", "n_unique"} as 0-d tensors) on the
         model's device; ``generator`` is not used."""
         del generator
-        bits = self.space(model.M_re.device)
+        bits = self.space(model_device_dtype(model)[0])
         la = model.log_psi(bits)[..., 0]
         w = torch.exp(2 * (la - la.max()))
         w = w / w.sum()

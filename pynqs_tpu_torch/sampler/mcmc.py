@@ -20,6 +20,7 @@ from dataclasses import dataclass
 import torch
 
 from pynqs_tpu_torch.ops import onv
+from pynqs_tpu_torch.utils.device import model_device_dtype
 
 __all__ = ["MCMCSampler", "exchange_proposal"]
 
@@ -67,7 +68,7 @@ class MCMCSampler:
     def init_state(self, model, generator: torch.Generator) -> torch.Tensor:
         """Chains [n_chain, sorb] int8 at uniformly random (noa, nob)
         determinants, on the model's device."""
-        dev = model.M_re.device
+        dev = model_device_dtype(model)[0]
         norb = self.sorb // 2
 
         def channel(n):

@@ -16,6 +16,7 @@ import numpy as np
 import torch
 
 from pynqs_tpu_torch.ops import lut, onv
+from pynqs_tpu_torch.utils.device import model_device_dtype
 
 __all__ = ["RestrictedSampler"]
 
@@ -53,7 +54,7 @@ class RestrictedSampler:
         """(bits [N, sorb] on the model's device, weights |ψ|²/Z over the
         set, diagnostics): no draw, so the generator is not used and no
         mass is dropped (``dropped_frac`` −1: not measured)."""
-        bits = torch.as_tensor(self.states, device=model.M_re.device)
+        bits = torch.as_tensor(self.states, device=model_device_dtype(model)[0])
         la = model.log_psi(bits)[:, 0]
         w = torch.exp(2 * (la - la.max()))
         w = w / w.sum()

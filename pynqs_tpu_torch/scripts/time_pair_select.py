@@ -61,7 +61,8 @@ def event_ms(fn, reps):
 
 def device_ms(fn, pattern="pair_select", reps=20):
     """Device time per call of the kernels whose name matches
-    ``pattern``, from ``torch.profiler``."""
+    ``pattern``, from ``torch.profiler``; None where the profiler recorded
+    no such kernel (not measured)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -71,8 +72,9 @@ def device_ms(fn, pattern="pair_select", reps=20):
         for _ in range(reps):
             fn()
         _sync()
-    return sum(e.self_device_time_total for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA and re.search(pattern, e.key)) / reps / 1e3
+    us = sum(e.self_device_time_total for e in prof.key_averages()
+             if e.device_type == DeviceType.CUDA and re.search(pattern, e.key))
+    return us / reps / 1e3 if us > 0 else None
 
 
 def host_ms(fn, calls):

@@ -1,10 +1,11 @@
 """Checkpoints and parameter trees, in the JAX package's file format.
 
 Counterpart of ``pynqs_tpu/utils/checkpoint.py``.  A file is a pickled
-tree with numpy leaves: ``save_params`` writes a parameter dict (the
-key names of ``GraphMPSRNN``), ``save_checkpoint`` a resume file
-``{"step", "params", "opt_state", "history"[, "ema"]}``.  Files written
-by either package load in the other:
+tree with numpy leaves: ``save_params`` writes a parameter tree (flat
+for ``GraphMPSRNN``, nested for the decoder: ``utils/tree.py``),
+``save_checkpoint`` a resume file ``{"step", "params", "opt_state",
+"history"[, "ema"]}``.  Files written by either package load in the
+other:
 
   * reading never imports optax (hence JAX): ``_SafeUnpickler`` allows
     the numpy globals such files hold and maps exactly the three optax
@@ -17,7 +18,8 @@ by either package load in the other:
     else by optax's leaf order), ``optax_adam_tree`` writes them back as
     plain tuples and dicts in optax's leaf order, which the JAX
     package's resume rebuilds against its own optimizer
-    (``pynqs_tpu/optim/vmc.py``, by leaf order).
+    (``pynqs_tpu/optim/vmc.py``, by leaf order).  The moments are keyed by
+    dotted tree paths here and nested as the parameter tree in a file.
 """
 
 from __future__ import annotations
@@ -31,6 +33,7 @@ import numpy as np
 import torch
 
 from pynqs_tpu_torch.utils.device import resolve_device
+from pynqs_tpu_torch.utils.tree import flatten_tree, tree_order, unflatten_tree
 
 __all__ = [
     "load_params",
@@ -182,21 +185,22 @@ def _leaves(tree):
 
 def adam_state_from_tree(opt_state, names) -> tuple:
     """(count, mu, nu, schedule count or None) of an optax Adam/AdamW
-    state tree, ``mu``/``nu`` dicts over ``names``.  The states are found
-    by class name where the file kept the classes (a JAX file may wrap
-    them, e.g. an outer ``EmptyState``), otherwise by optax's leaf order:
-    count, the mu leaves, the nu leaves, then the schedule count."""
-    names = sorted(names)
+    state tree, ``mu``/``nu`` dicts over ``names`` (dotted tree paths).
+    The states are found by class name where the file kept the classes (a
+    JAX file may wrap them, e.g. an outer ``EmptyState``), otherwise by
+    optax's leaf order: count, the mu leaves, the nu leaves (each in the
+    parameter tree's leaf order), then the schedule count."""
+    names = tree_order(names)
     adam = _find(opt_state, ScaleByAdamState)
     if adam:
         if len(adam) != 1:
             raise ValueError(f"{len(adam)} Adam states in one optimizer state")
         a = adam[0]
         sched = _find(opt_state, ScaleByScheduleState)
-        if set(a.mu) != set(names):
-            raise KeyError(f"optimizer state keys differ: {sorted(set(a.mu) ^ set(names))}")
-        return (int(a.count), dict(a.mu), dict(a.nu),
-                int(sched[0].count) if sched else None)
+        mu, nu = flatten_tree(a.mu), flatten_tree(a.nu)
+        if set(mu) != set(names):
+            raise KeyError(f"optimizer state keys differ: {sorted(set(mu) ^ set(names))}")
+        return (int(a.count), mu, nu, int(sched[0].count) if sched else None)
     leaves = _leaves(opt_state)
     P = len(names)
     if len(leaves) not in (1 + 2 * P, 2 + 2 * P):
@@ -211,8 +215,9 @@ def optax_adam_tree(count: int, mu: dict, nu: dict, sched_count: int | None, *,
                     decay: bool) -> tuple:
     """The state tree of ``optax.adam``/``optax.adamw`` (``decay``) with a
     float lr (``sched_count`` None) or a schedule, as plain tuples and
-    dicts in optax's leaf order; counts int32 like optax's."""
-    adam = (np.asarray(count, np.int32), dict(mu), dict(nu))
+    dicts in optax's leaf order; counts int32 like optax's; ``mu``/``nu``
+    keyed by dotted paths, nested as the parameter tree."""
+    adam = (np.asarray(count, np.int32), unflatten_tree(mu), unflatten_tree(nu))
     lr = () if sched_count is None else (np.asarray(sched_count, np.int32),)
     return (adam, (), lr) if decay else (adam, lr)
 

@@ -9,7 +9,7 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["resolve_device"]
+__all__ = ["resolve_device", "model_device_dtype"]
 
 
 def resolve_device(device=None) -> torch.device:
@@ -19,3 +19,12 @@ def resolve_device(device=None) -> torch.device:
             "no CUDA device is available; pass device='cpu' to run on the CPU"
         )
     return dev
+
+
+def model_device_dtype(model) -> tuple[torch.device, torch.dtype]:
+    """(device, dtype) of a model's first floating parameter: where its
+    samples live and the float type of its Hamiltonian arithmetic."""
+    for p in model.parameters():
+        if p.is_floating_point():
+            return p.device, p.dtype
+    raise ValueError(f"{type(model).__name__} has no floating parameter")

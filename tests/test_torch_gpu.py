@@ -837,3 +837,79 @@ def test_dp128_forward_matches_plain_on_card(mm, dev):
     ok, held, st = smoke.hold_rows(k, p, q, tol)
     assert ok, (held, st)
 
+
+
+# ---------------- the other ansätze (ROADMAP A8) ----------------
+
+
+def _a8_model(kind, dev, seed=0):
+    """Every A8 model at a small size, f64, seeded."""
+    from pynqs_tpu_torch import models as M
+
+    g = torch.Generator().manual_seed(seed)
+    kw = dict(dtype=torch.float64, device=dev, generator=g)
+    return {
+        "rbm": lambda: M.RBM(8, param_type="complex", activation="cos", **kw),
+        "jastrow": lambda: M.Jastrow(8, **kw),
+        "ising": lambda: M.IsingRBM(8, param_type="complex", **kw),
+        "dbm": lambda: M.DBM(8, nh1=6, nh2=5, **kw),
+        "arrbm": lambda: M.ARRBM(8, 2, 2, nh=6, **kw),
+        "arrbm2": lambda: M.ARRBM2(8, 2, 2, nh=6, **kw),
+        "rnn": lambda: M.RNNWavefunction(8, 2, 2, hidden=8, **kw),
+        "decoder": lambda: M.DecoderWavefunction(8, 2, 2, norm_method="softmax-sign", **kw),
+        "mpsdec": lambda: M.MPSDecoder(8, 2, 2, pmode="spm", **kw),
+        "mps": lambda: M.MPSWavefunction(8, dcut=4, **kw),
+        "spinproj": lambda: M.SpinProjected(M.RNNWavefunction(8, 2, 2, hidden=8, **kw), -1),
+    }[kind]()
+
+
+@pytest.mark.parametrize("kind", ["rbm", "jastrow", "ising", "dbm", "arrbm", "arrbm2", "rnn",
+                                  "decoder", "mpsdec", "mps", "spinproj"])
+def test_a8_log_psi_on_card_equals_cpu(kind, dev):
+    """Each model's log_psi on the card equals the same model's on the CPU
+    in f64 (log|ψ| and the phase mod 2π to 1e-10)."""
+    m_gpu, m_cpu = _a8_model(kind, dev), _a8_model(kind, "cpu")
+    bits = torch.as_tensor(_all_dets(8, 2, 2))
+    with torch.no_grad():
+        got = m_gpu.log_psi(bits.to(dev)).cpu()
+        want = m_cpu.log_psi(bits)
+    assert (got[:, 0] - want[:, 0]).abs().max() < 1e-10
+    assert torch.remainder(got[:, 1] - want[:, 1] + math.pi, 2 * math.pi).sub(math.pi).abs(
+    ).max() < 1e-10
+
+
+@pytest.mark.parametrize("kind", ["arrbm", "rnn", "decoder", "mpsdec"])
+def test_a8_sampling_on_card(kind, dev):
+    """One-site (ARRBM, RNN) and two-site (decoder, MPSDecoder: nested
+    carries) DFS sampling on the card: rows unique and in the sector,
+    Σcounts = n − dropped; the decoder's KV-cached conditionals along the
+    drawn rows sum to 2·log|ψ| to 1e-10."""
+    from pynqs_tpu_torch.sampler import ar
+    from pynqs_tpu_torch.sampler.symmetry import apply_mask_logp
+
+    model = _a8_model(kind, dev, seed=1)
+    n = 100_000
+    bits, counts, dropped = ar.ar_sampling_dfs(
+        model, n, capacity=32, n_group=2, split_depth=4 // model.sites_per_step,
+        generator=torch.Generator(device=dev).manual_seed(2))
+    live = counts > 0
+    rows = bits[live]
+    assert bits.device.type == "cuda" and int(counts.sum()) == n - int(dropped)
+    assert (rows[:, 0::2].sum(-1) == 2).all() and (rows[:, 1::2].sum(-1) == 2).all()
+    keys = (rows.long() << torch.arange(8, device=dev)).sum(-1)
+    assert torch.unique(keys).numel() == rows.shape[0]
+    nps, _, n_steps, order = ar._layout(model)
+    with torch.no_grad():
+        carry = model.ar_init(rows.shape[0])
+        prev = torch.zeros(rows.shape[0], dtype=torch.long, device=dev)
+        ua, ub = prev.clone(), prev.clone()
+        tot = torch.zeros(rows.shape[0], dtype=torch.float64, device=dev)
+        r = rows.long()
+        for k in range(n_steps):
+            logp, carry = model.ar_step(carry, k, prev)
+            logp = apply_mask_logp(logp, ar._step_mask(model, k, ua, ub))
+            v = r[:, 2 * order[k]] + 2 * r[:, 2 * order[k] + 1] if nps == 2 else r[:, k]
+            tot += logp.gather(-1, v[:, None])[:, 0]
+            _, ua, ub = ar._place(model, k, r.clone(), ua, ub, v)
+            prev = v
+        assert (tot - 2 * model.log_psi(rows)[:, 0]).abs().max() < 1e-10

@@ -137,6 +137,41 @@ def test_refinement_entry_points_raise_without_a_card(monkeypatch):
     assert np.isfinite(e)
 
 
+A8_MODULES = ("models.base", "models.rbm", "models.extra", "models.ar_rbm", "models.ar_rbm2",
+              "models.rnn", "models.transformer", "models.mps_transformer", "models.mps",
+              "utils.tree", "examples.hubbard_ladder")
+
+
+@pytest.mark.parametrize("name", A8_MODULES)
+def test_a8_module_imports_neither_jax_nor_the_jax_package(name):
+    """The other ansätze, the tree helpers and the Hubbard ladder are
+    sources of the port, checked as the rest."""
+    path = PORT / (name.replace(".", "/") + ".py")
+    assert path in _sources()
+    test_source_imports_neither_jax_nor_the_jax_package(path)
+
+
+def test_a8_entry_points_raise_without_a_card(monkeypatch):
+    """Every new model and the Hubbard ladder default to the card; asked
+    for the CPU, they run there."""
+    from pynqs_tpu_torch import models as M
+    from pynqs_tpu_torch.examples import hubbard_ladder
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    makers = [lambda **k: M.RBM(8, **k), lambda **k: M.Jastrow(8, **k),
+              lambda **k: M.IsingRBM(8, **k), lambda **k: M.DBM(8, **k),
+              lambda **k: M.ARRBM(8, 2, 2, **k), lambda **k: M.ARRBM2(8, 2, 2, **k),
+              lambda **k: M.RNNWavefunction(8, 2, 2, **k),
+              lambda **k: M.DecoderWavefunction(8, 2, 2, **k),
+              lambda **k: M.MPSDecoder(8, 2, 2, **k), lambda **k: M.MPSWavefunction(8, **k)]
+    for make in makers:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make()
+        assert next(make(device="cpu").parameters()).device.type == "cpu"
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        hubbard_ladder.main(["--stage", "3", "--iters", "1"])
+
+
 @pytest.mark.parametrize("where", ["repo", "alone"])
 def test_chip_smoke_fails_without_a_card(where, tmp_path):
     """No card (hidden from the process) or no repository beside the
