@@ -177,6 +177,31 @@ Phases, one line each (and a few detail lines):
      ARRBM, ARRBM2, IsingRBM, DBM, Jastrow, MPSWavefunction,
      Hybrid(ARRBM, RBM), MultiPsi(ARRBM, Jastrow) and SpinProjected(RNN)
      on the 4-site Hubbard chain (finite, w_sum 1).
+ 18. data parallelism (``dp_phase``; pynqs_tpu_torch/parallel/): the
+     dcut-48 chain in the flagship step with ``ARSampler(mesh,
+     "same_tree")`` (n 1e6, capacity 4096: 2048 rows per rank at two
+     ranks), REDUCE k_det 256 / n_stoch 64 segmax, bf16 through kernel
+     #1, AdamW lr 1e-4, 3 steps: over one rank of NCCL, bit for bit the
+     run without a mesh; over two gloo ranks sharing the card (spawned
+     processes, ``dp_rank``): one sharded tree's rows disjoint with counts
+     + dropped = n, step 1's local energies, energy and gradient within
+     the stated tolerances of one process on the gathered rows with the
+     same tail draws, the 3 steps with each rank's kernel #1 launches
+     counted, the parameters equal between the ranks and the shared
+     generator in sync after every step, each step's wall time, one
+     step's stages and the peak memory per rank, <S-S+> through
+     ``operator_expected`` (the dense pair matrix: kernel #4, launches
+     counted), one step of ``mesh_mode="independent"``, and fixed-node
+     GFMC at 2048 walkers for 3 iterations (a branching every 2) against
+     one process; NCCL with one card per rank where there are two cards;
+ 19. the entry points: ``pynqs_tpu_torch.entry.entry()`` on the card (its
+     kernel #1 launches counted, against its plain version on the CPU),
+     ``dryrun_multichip(1)`` over NCCL, a 5-iteration VMC run with
+     ``profile_dir`` (``profile_rank``, in a fresh process over one gloo
+     rank) whose trace holds the four ``vmc.*`` ranges of iterations 2-4
+     and kernel #1 by name, and
+     ``pynqs_tpu_torch.bench.main()`` with BENCH_MODE flat and prefix,
+     each JSON line beside the card's name and power limit.
 
 The last two lines are the kernels' JSON summary and the result JSON.
 Any failed check raises, so the script exits non-zero with no result.
@@ -185,6 +210,7 @@ Any failed check raises, so the script exits non-zero with no result.
 from __future__ import annotations
 
 import ctypes
+import gc
 import itertools
 import json
 import os
@@ -248,6 +274,11 @@ A8_SAMPLER = dict(n_sample=1_000_000, capacity=4096, dfs_n_group=4, dfs_split_de
                   dfs_capacity_root=4096)
 A8_ELOC_BATCH = 2048
 HUB_ITERS = {1: 200, 2: 400, 3: 200, 4: 200}
+# phase 18: the flagship step's sampler over the mesh (same tree, 2048 rows
+# per rank at two ranks), its steps, and GFMC's walkers and iterations
+DP_SAMPLER = dict(n_sample=1_000_000, capacity=4096)
+DP_STEPS = 3
+DP_WALKERS, DP_GFMC_ITERS = 2048, 3
 H100_BF16_FLOPS = 989e12  # dense tensor-core peak, SXM data sheet
 H100_TF32_FLOPS = 495e12  # dense tensor-core peak in TF32
 H100_F32_FLOPS = 67e12  # f32 outside the tensor cores
@@ -1821,6 +1852,370 @@ def a8_run(dev, smi, system, tol, timed, time_pairs, bound, flop_per_site, table
     return out
 
 
+def standin_system():
+    """bench.py's stand-in for the absent Fe2S2 integrals (seed 0)."""
+    from pynqs_tpu_torch.ops.integrals import triangle_size
+    from pynqs_tpu_torch.utils.system import System
+
+    irng = np.random.default_rng(0)
+    h1e = irng.standard_normal((SORB, SORB)) * 0.1
+    h1e = (h1e + h1e.T) / 2
+    h2e = irng.standard_normal(triangle_size(SORB)) * 0.01
+    return System.from_integrals(h1e, h2e, SORB, NOA, NOB)
+
+
+def chain48_model(dev):
+    """The dcut-48 chain of checkpoints/fe2s2_dcut48_final.pkl, f32, on ``dev``."""
+    from pynqs_tpu_torch.models.graph_mps_rnn import GraphMPSRNN
+    from pynqs_tpu_torch.utils.flagship import load_flagship_params
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    params = load_flagship_params(os.path.join(here, "checkpoints", "fe2s2_dcut48_final.pkl"))
+    return GraphMPSRNN(SORB, NOA, NOB, dcut=DCUT, phase_mode="arg", norm_mode="mpsrnn",
+                       dtype=torch.float32, device=dev).load_numpy_params(params)
+
+
+def dp_vmc(mesh, dev, mode="same_tree"):
+    """Phase 18's VMC: the dcut-48 chain in the flagship step with the AR
+    sampler over ``mesh`` (none: one process), AdamW."""
+    from pynqs_tpu_torch.optim.vmc import VMC, VMCConfig
+    from pynqs_tpu_torch.sampler.ar_sampler import ARSampler
+
+    sampler = ARSampler(SORB, NOA, NOB, mesh=mesh, mesh_mode=mode, **DP_SAMPLER)
+    cfg = VMCConfig(lr=1e-4, optimizer="adamw", eloc_method="reduce", eloc_k_det=K_DET,
+                    eloc_n_stoch=N_STOCH, eloc_topk="segmax", clip_grad=1.0)
+    return VMC(chain48_model(dev), standin_system(), sampler, cfg)
+
+
+def dp_train(mesh, dev):
+    """DP_STEPS steps of ``dp_vmc`` from seed 18: (energies, parameters)."""
+    vmc = dp_vmc(mesh, dev)
+    hist = vmc.run(torch.Generator(device=dev).manual_seed(18), DP_STEPS)
+    return hist, {k: p.detach().clone() for k, p in vmc.model.named_parameters()}
+
+
+def dp_rank(mesh, walkers):
+    """One rank of phase 18's two-rank run (gloo, both ranks on one card).
+    Returns what the parent checks: the rows of one sharded tree, step 1's
+    energy and gradient beside one process on the gathered rows with the
+    same tail draws (rank 0), DP_STEPS training steps (launches of kernel
+    #1, parameter spread, generator sync, wall time), one step's stages,
+    the peak memory, <S-S+> through kernel #4, one independent-mode step
+    and GFMC over the ranks."""
+    from pynqs_tpu_torch.energy.eloc import local_energy_reduce
+    from pynqs_tpu_torch.grad.energy_grad import energy_and_grad
+    from pynqs_tpu_torch.ops import fused_rnn, onv
+    from pynqs_tpu_torch.ops import pair_select as ps
+    from pynqs_tpu_torch.ops.integrals import spin_raising
+    from pynqs_tpu_torch.parallel import all_gather_rows, generators_in_sync, replicated_check
+    from pynqs_tpu_torch.sampler.ar import ar_sampling_sharded
+
+    dev = mesh.device
+    out = {"rank": mesh.rank, "device": str(dev)}
+
+    def timed(fn):
+        torch.cuda.synchronize(dev)
+        t = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize(dev)
+        return res, (time.perf_counter() - t) * 1e3
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    vmc = dp_vmc(mesh, dev)
+    model = vmc.model
+    # the rows of one sharded tree
+    g = torch.Generator(device=dev).manual_seed(11)
+    bits, counts, dropped = ar_sampling_sharded(model, DP_SAMPLER["n_sample"],
+                                                capacity=DP_SAMPLER["capacity"], mesh=mesh,
+                                                generator=g)
+    live = counts > 0
+    out.update(rows=onv.pack_bits(bits[live]).cpu().numpy(), count_sum=int(counts.sum()),
+               dropped=int(dropped), rows_local=bits.shape[0])
+    # step 1's energy and gradient; rank 0 also on the gathered rows alone
+    g = torch.Generator(device=dev).manual_seed(12)
+    sb, sw, _ = vmc.sampler.sample(model, g)
+    state = g.get_state()
+    el = vmc.local_energy(sb, g)
+    e, grads, var = energy_and_grad(model, sb, sw, el, mesh=mesh)
+    ab, aw = all_gather_rows(mesh, sb), all_gather_rows(mesh, sw)
+    if mesh.rank == 0:
+        g1 = torch.Generator(device=dev)
+        g1.set_state(state)
+        tabs = vmc.system.tables(dev, torch.float32)
+        el1 = local_energy_reduce(vmc._eloc_forward(), ab, tabs.astuple(),
+                                  vmc.system.excitation, g1, k_det=K_DET, n_stoch=N_STOCH,
+                                  hpair=tabs.hpair_best, topk="segmax")
+        e1, grads1, var1 = energy_and_grad(model, ab, aw, el1)
+        gmax = max(float(v.abs().max()) for v in grads1.values())
+        out.update(
+            eloc_err=float((el - el1[:sb.shape[0]]).abs().max()),
+            e=float(e[0]), e1=float(e1[0]), var=float(var), var1=float(var1),
+            g_err=max(float((grads[k] - grads1[k]).abs().max()) for k in grads) / gmax)
+        del el1, grads1
+    del el, grads
+    # DP_STEPS training steps
+    fused_rnn.LAUNCHES.reset()
+    fused_rnn.MMA_LAUNCHES.reset()
+    gen = torch.Generator(device=dev).manual_seed(18)
+    steps = []
+
+    def cb(it, info):
+        torch.cuda.synchronize(dev)
+        now = time.perf_counter()
+        named = dict(model.named_parameters())
+        steps.append({"energy": info["energy_total"], "w_sum": info["w_sum"],
+                      "dropped_frac": info["dropped_frac"], "n_unique": info["n_unique"],
+                      "s": now - cb.t0, "spread": replicated_check(mesh, named),
+                      "sync": generators_in_sync(mesh, gen),
+                      "launches": fused_rnn.MMA_LAUNCHES.n})
+        cb.t0 = time.perf_counter()
+
+    cb.t0 = time.perf_counter()
+    vmc.run(gen, DP_STEPS, callback=cb)
+    out.update(steps=steps, launches=fused_rnn.MMA_LAUNCHES.n,
+               all_launches=fused_rnn.LAUNCHES.n)
+    # one more step, each stage synchronized (the collectives inside)
+    (sb, sw, _), t_s = timed(lambda: vmc._sample(vmc.sampler, gen))
+    el, t_e = timed(lambda: vmc.local_energy(sb, gen))
+    (e, grads, var), t_g = timed(lambda: energy_and_grad(model, sb, sw, el, mesh=mesh))
+    _, t_u = timed(lambda: vmc.apply_gradients(grads))
+    out["stages_ms"] = {"sample": t_s, "eloc": t_e, "grad": t_g, "update": t_u}
+    out["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2**30
+    del sb, sw, el, grads
+    # <S-S+> under the mesh: the dense pair matrix through kernel #4
+    ps.LAUNCHES["lane"].reset()
+    s2, t_o = timed(lambda: vmc.operator_expected(spin_raising(SORB), gen))
+    out.update(ssp=(s2.mean.real, s2.se), ssp_ms=t_o, pair_launches=ps.LAUNCHES["lane"].n)
+    # one step with one tree per rank, merged
+    ind = dp_vmc(mesh, dev, "independent")
+    ind.model.load_state_dict(model.state_dict())
+    info, t_i = timed(lambda: ind.step(gen, 1.0))
+    out.update(ind_energy=float(info["energy"]) + vmc.system.ecore,
+               ind_w_sum=float(info["w_sum"]), ind_n_unique=float(info["n_unique"]),
+               ind_dropped=float(info["dropped_frac"]), ind_ms=t_i)
+    out["spread_end"] = replicated_check(mesh, dict(model.named_parameters()))
+    # fixed-node GFMC over the ranks from the same walkers and seed, the
+    # checkpoint's state as the trial (as the parent's one-process run)
+    g = torch.Generator(device=dev).manual_seed(13)
+    trial = chain48_model(dev)
+    res, t_f = timed(lambda: gfmc_dp(mesh, dev, trial, walkers).run(walkers, generator=g))
+    out["gfmc"] = {k: res[k] for k in ("e_gen", "wbar", "walkers", "weights")}
+    out["gfmc_ms"] = t_f / DP_GFMC_ITERS
+    out["sync_end"] = generators_in_sync(mesh, gen) and generators_in_sync(mesh, g)
+    return out
+
+
+def gfmc_dp(mesh, dev, model, walkers):
+    """Phase 18's GFMC: ``model``'s bf16 fused forward as the trial,
+    DP_GFMC_ITERS iterations, a branching every 2."""
+    from pynqs_tpu_torch.gfmc.walker import GFMC, GFMCConfig
+    from pynqs_tpu_torch.ops import fused_rnn
+
+    cfg = GFMCConfig(n_walkers=walkers.shape[0], n_iter=DP_GFMC_ITERS, branch_interval=2)
+    return GFMC(lambda b: fused_rnn.graph_mpsrnn_logpsi_fused(model, b), standin_system(), cfg,
+                device=dev, mesh=mesh)
+
+
+def dp_phase(dev, smi, walkers):
+    """Phase 18: the data-parallel flagship step on the card (see the
+    module docstring).  Returns the launch counts for the kernels line."""
+    import shutil
+    import tempfile
+
+    import torch.distributed as dist
+
+    from pynqs_tpu_torch.ops import fused_rnn
+    from pynqs_tpu_torch.parallel import init_mesh, run_ranks
+
+    # the ranks below are other processes on this card: hand back what the
+    # earlier phases left in this process's allocator cache
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(18, f"this process holds {torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated, "
+            f"{torch.cuda.memory_reserved() / 2**30:.2f} GiB reserved")
+    # world 1 over NCCL: the collectives are identities, so the run is the
+    # one without a mesh bit for bit
+    fused_rnn.MMA_LAUNCHES.reset()
+    tmp = tempfile.mkdtemp(prefix="nccl1")
+    t0 = time.perf_counter()
+    try:
+        mesh1 = init_mesh("nccl", "file://" + os.path.join(tmp, "store"), 0, 1, dev)
+        try:
+            h1, p1 = dp_train(mesh1, dev)
+        finally:
+            dist.destroy_process_group()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    l1 = fused_rnn.MMA_LAUNCHES.n
+    h0, p0 = dp_train(None, dev)
+    dp_max = max(float((p1[k] - p0[k]).abs().max()) for k in p0)
+    log(18, f"world 1 over NCCL ({mesh1.backend}): energies {h1} vs without a mesh {h0}; max "
+            f"|Δ parameter| {dp_max:.3e} after {DP_STEPS} steps; kernel #1 launches {l1}; "
+            f"both runs {time.perf_counter() - t0:.1f} s")
+    check(h1 == h0 and dp_max == 0.0, "world 1 over NCCL differs from the run without a mesh")
+    check(l1 > 0, "world 1 launched no kernel #1")
+    # world 2 over gloo, both ranks on the one card
+    t0 = time.perf_counter()
+    ranks = run_ranks(dp_rank, 2, backend="gloo", device="cuda", args=(walkers,), timeout=600)
+    t_ranks = time.perf_counter() - t0
+    r0, r1 = ranks
+    rows = np.concatenate([r["rows"] for r in ranks])
+    disjoint = len(np.unique(rows, axis=0)) == rows.shape[0]
+    total = sum(r["count_sum"] for r in ranks) + r0["dropped"]
+    log(18, f"world 2 over gloo on one card ({t_ranks:.1f} s with the spawn): sharded tree "
+            f"n {DP_SAMPLER['n_sample']}, capacity {DP_SAMPLER['capacity']} "
+            f"({r0['rows_local']} rows per rank): live rows {[len(r['rows']) for r in ranks]}, "
+            f"disjoint {disjoint}, counts + dropped = {total} (dropped {r0['dropped']})")
+    check(disjoint and total == DP_SAMPLER["n_sample"] and r0["dropped"] == r1["dropped"],
+          "the ranks' rows overlap or lose count")
+    e_tol, g_tol = 1e-5, 1e-3
+    log(18, f"step 1 over 2 ranks vs one process on the gathered {2 * r0['rows_local']} rows "
+            f"with the same tail draws: eloc max|Δ| {r0['eloc_err']:.3e} (rank 0's rows), E "
+            f"{r0['e']:.8f} vs {r0['e1']:.8f} (tol {e_tol:g} relative), variance "
+            f"{r0['var']:.6e} vs {r0['var1']:.6e}, max|Δ gradient| / max|gradient| "
+            f"{r0['g_err']:.3e} (tol {g_tol:g})")
+    check(abs(r0["e"] - r0["e1"]) <= e_tol * max(1.0, abs(r0["e1"])) and r0["g_err"] <= g_tol
+          and r0["eloc_err"] <= 1e-5 * max(1.0, abs(r0["e1"])),
+          "the DP step's energy or gradient differs from one process on the same rows")
+    for r in ranks:
+        for i, s in enumerate(r["steps"]):
+            log(18, f"rank {r['rank']} ({r['device']}) step {i}: E {s['energy']:.6f} w_sum "
+                    f"{s['w_sum']:.6f} dropped_frac {s['dropped_frac']:.3e} n_unique "
+                    f"{s['n_unique']:.0f} wall {s['s']:.3f} s; parameters max|Δ| between "
+                    f"ranks {s['spread']:.1e}; generator in sync {s['sync']}; kernel #1 "
+                    f"launches so far {s['launches']}")
+        log(18, f"rank {r['rank']}: one step's stages (synchronized) "
+                + ", ".join(f"{k} {v:.1f} ms" for k, v in r["stages_ms"].items())
+                + f"; peak memory {r['peak_gib']:.3f} GiB; <S-S+> {r['ssp'][0]:.6f} ± "
+                  f"{r['ssp'][1]:.2e} in {r['ssp_ms']:.1f} ms, kernel #4 launches "
+                  f"{r['pair_launches']}; independent mode step E {r['ind_energy']:.6f} "
+                  f"w_sum {r['ind_w_sum']:.6f} n_unique {r['ind_n_unique']:.0f} in "
+                  f"{r['ind_ms']:.1f} ms; gpu {smi}")
+        check(all(s["spread"] == 0.0 and s["sync"] for s in r["steps"])
+              and r["spread_end"] == 0.0 and r["sync_end"],
+              "parameters differ between the ranks or the shared generator left sync")
+        check(all(np.isfinite(s["energy"]) and abs(s["w_sum"] - 1.0) <= 1e-5
+                  for s in r["steps"]), "non-finite DP energy or w_sum != 1")
+        check(r["launches"] > 0 and r["launches"] == r["all_launches"],
+              f"rank {r['rank']}: the DP steps did not launch the tensor-core kernel alone")
+        check(r["pair_launches"] > 0, f"rank {r['rank']}: <S-S+> did not launch kernel #4")
+        check(np.isfinite(r["ind_energy"]) and abs(r["ind_w_sum"] - 1.0) <= 1e-5
+              and np.isfinite(r["ssp"][0]), "non-finite independent-mode step or <S-S+>")
+    check([s["energy"] for s in r0["steps"]] == [s["energy"] for s in r1["steps"]],
+          "the ranks report different energies")
+    # GFMC over the two ranks against one process
+    model = chain48_model(dev)
+    g = torch.Generator(device=dev).manual_seed(13)
+    t_ref = time.perf_counter()
+    ref = gfmc_dp(None, dev, model, walkers).run(walkers, generator=g)
+    sync()
+    t_ref = (time.perf_counter() - t_ref) * 1e3 / DP_GFMC_ITERS
+    gerr = max(float(np.abs(r["gfmc"]["e_gen"] - ref["e_gen"]).max()) for r in ranks)
+    same_walkers = all(np.array_equal(r["gfmc"]["walkers"], ref["walkers"]) for r in ranks)
+    log(18, f"GFMC, {walkers.shape[0]} walkers, {DP_GFMC_ITERS} iterations (a branching every "
+            f"2): e_gen over 2 ranks {r0['gfmc']['e_gen'].tolist()} vs one process "
+            f"{ref['e_gen'].tolist()}, max|Δ| {gerr:.3e}; walkers equal {same_walkers}; "
+            f"{r0['gfmc_ms']:.1f} ms per iteration over 2 ranks on one card, {t_ref:.1f} ms in "
+            f"one process; gpu {smi}")
+    check(gerr <= 1e-9 * max(1.0, float(np.abs(ref["e_gen"]).max())) and same_walkers,
+          "GFMC over 2 ranks differs from one process")
+    if torch.cuda.device_count() >= 2:
+        t0 = time.perf_counter()
+        nccl = run_ranks(dp_rank, 2, backend="nccl", device="cuda", args=(walkers,),
+                         timeout=600)
+        check(all(all(s["spread"] == 0.0 for s in r["steps"]) and r["launches"] > 0
+                  for r in nccl), "world 2 over NCCL: parameters differ or no launch")
+        log(18, f"world 2 over NCCL, one card per rank: {time.perf_counter() - t0:.1f} s, "
+                f"step walls {[[round(s['s'], 3) for s in r['steps']] for r in nccl]} s")
+    else:
+        log(18, f"world 2 over NCCL with one card per rank: not run ("
+                f"{torch.cuda.device_count()} card)")
+    return {"launches": l1 + sum(r["launches"] for r in ranks),
+            "pair_launches": sum(r["pair_launches"] for r in ranks)}
+
+
+def profile_rank(mesh, profile_dir):
+    """Phase 19's profiled run: 5 iterations of the dcut-48 chain's step
+    (n 1e5, capacity 1024, REDUCE 256/64 segmax) over ``mesh`` with
+    ``profile_dir`` and profile_iters 3.  Returns its seconds."""
+    from pynqs_tpu_torch.optim.vmc import VMC, VMCConfig
+    from pynqs_tpu_torch.sampler.ar_sampler import ARSampler
+
+    cfg = VMCConfig(lr=1e-4, optimizer="adamw", eloc_method="reduce", eloc_k_det=K_DET,
+                    eloc_n_stoch=N_STOCH, eloc_topk="segmax", log_every=10**6,
+                    profile_dir=profile_dir, profile_iters=3)
+    sampler = ARSampler(SORB, NOA, NOB, n_sample=100_000, capacity=1024, mesh=mesh)
+    t0 = time.perf_counter()
+    VMC(chain48_model(mesh.device), standin_system(), sampler, cfg).run(
+        torch.Generator(device=mesh.device).manual_seed(19), 5)
+    return time.perf_counter() - t0
+
+
+def entry_phase(dev, smi):
+    """Phase 19: ``entry()`` and ``dryrun_multichip(1)`` on the card, a
+    profiled VMC run's trace, and ``pynqs_tpu_torch.bench.main`` in both
+    modes.  Returns kernel #1's launches from ``entry()``."""
+    import tempfile
+
+    from pynqs_tpu_torch import bench
+    from pynqs_tpu_torch.entry import dryrun_multichip, entry
+    from pynqs_tpu_torch.ops import fused_rnn
+    from pynqs_tpu_torch.parallel import run_ranks
+
+    fn, (model, bits) = entry()
+    fused_rnn.MMA_LAUNCHES.reset()
+    e = float(fn(model, bits))
+    sync()
+    n_entry = fused_rnn.MMA_LAUNCHES.n
+    fn_cpu, (model_cpu, bits_cpu) = entry(device="cpu")
+    model_cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    e_cpu = float(fn_cpu(model_cpu, bits_cpu))
+    log(19, f"entry(): E {e:.6f} (bf16 kernel #1, {n_entry} launch(es)); its plain version in "
+            f"f32 on the CPU {e_cpu:.6f}")
+    check(n_entry > 0 and np.isfinite(e) and abs(e - e_cpu) <= 1e-2 * max(1.0, abs(e_cpu)),
+          "entry() did not launch kernel #1 or disagrees with its plain version")
+    gc.collect()
+    torch.cuda.empty_cache()  # the dry run's rank is another process on this card
+    t0 = time.perf_counter()
+    dry = dryrun_multichip(1, timeout=300)
+    log(19, f"dryrun_multichip(1) over NCCL: history {dry[0]['history']}, kernel #1 launches "
+            f"{dry[0]['launches']}, {time.perf_counter() - t0:.1f} s with the spawn")
+    check(dry[0]["launches"] > 0, "the dry run did not launch kernel #1")
+    with tempfile.TemporaryDirectory() as tmp:
+        # in a fresh process: in this one the earlier phases' profiler
+        # sessions may leave the card's tracer recording nothing (as seen
+        # in phase 17)
+        t_run = run_ranks(profile_rank, 1, backend="gloo", device="cuda", args=(tmp,),
+                          timeout=300)[0]
+        path = os.path.join(tmp, "trace_rank0.json")
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+        names = [ev.get("name", "") for ev in events]
+        # each range once on the host's timeline (the card's copy is
+        # "gpu_user_annotation")
+        marks = [ev.get("name") for ev in events if ev.get("cat") == "user_annotation"]
+        ranges = {r: marks.count(r) for r in ("vmc.sample", "vmc.eloc", "vmc.grad", "vmc.update")}
+        kern = sum("fused_rnn_mma_kernel" in n for n in names)
+        log(19, f"profiled VMC run over one gloo rank, 5 iterations ({t_run:.1f} s), iterations "
+                f"2-4 traced to {os.path.basename(path)} ({os.path.getsize(path)} B): ranges "
+                f"{ranges}, fused_rnn_mma_kernel events {kern}")
+        check(all(v == 3 for v in ranges.values()) and kern > 0,
+              "the trace lacks a vmc.* range or kernel #1")
+    out = {}
+    for mode in ("flat", "prefix"):
+        os.environ["BENCH_MODE"] = mode
+        try:
+            res = bench.main()
+        finally:
+            del os.environ["BENCH_MODE"]
+        print(f"gpu: {smi}", flush=True)
+        check(res["mode"] == mode and res["value"] > 0, f"bench {mode}: no rate")
+        out[mode] = res
+        log(19, f"bench {mode}: {res['value']:.4e} terms/s, {res['seconds'] * 1e3:.2f} ms per "
+                f"call; gpu {smi}")
+    return {"launches": n_entry, "bench": out}
+
+
 def main():
     t_script = time.perf_counter()
     if not torch.cuda.is_available():
@@ -1837,14 +2232,12 @@ def main():
     from pynqs_tpu_torch.ops import fused_rnn_prefix as pre
     from pynqs_tpu_torch.ops.cplx import ratio_re_im
     from pynqs_tpu_torch.ops.hamiltonian import comb_hij, pair_indices
-    from pynqs_tpu_torch.ops.integrals import triangle_size
     from pynqs_tpu_torch.optim.vmc import VMC, VMCConfig
     from pynqs_tpu_torch.sampler.ar import ar_sampling_dfs, compact_by_count
     from pynqs_tpu_torch.sampler.ar_sampler import ARSampler
     from pynqs_tpu_torch.scripts import time_pair_select as tps
     from pynqs_tpu_torch.scripts.eval_fe2s2_final import evaluate
     from pynqs_tpu_torch.utils.flagship import flagship_model, load_flagship_params
-    from pynqs_tpu_torch.utils.system import System
 
     dev = torch.device(DEV)
     here = os.path.dirname(os.path.abspath(__file__))
@@ -1871,11 +2264,7 @@ def main():
            f"devices {torch.cuda.device_count()} | {sys.version.split()[0]}")
 
     # ---- system: bench.py's stand-in for the absent Fe2S2 integrals ----
-    irng = np.random.default_rng(0)
-    h1e = irng.standard_normal((SORB, SORB)) * 0.1
-    h1e = (h1e + h1e.T) / 2
-    h2e = irng.standard_normal(triangle_size(SORB)) * 0.01
-    system = System.from_integrals(h1e, h2e, SORB, NOA, NOB)
+    system = standin_system()
 
     # ---- 2. build ----
     t0 = time.perf_counter()
@@ -2773,6 +3162,20 @@ def main():
     f17 = a8_run(dev, smi, system, tol, timed, time_pairs, bound, flop_per_site, table_bytes)
     log(17, f"phase 17 in {time.perf_counter() - t17:.1f} s")
 
+    # ---- 18. data parallelism: the flagship step over torch.distributed ----
+    t18 = time.perf_counter()
+    wrng = np.random.default_rng(18)
+    wlive = (fw > 0).nonzero()[:, 0].cpu().numpy()
+    wp = fw[wlive].double().cpu().numpy()
+    walkers = fbits[wrng.choice(wlive, DP_WALKERS, p=wp / wp.sum())].cpu().numpy()
+    f18 = dp_phase(dev, smi, walkers)
+    log(18, f"phase 18 in {time.perf_counter() - t18:.1f} s")
+
+    # ---- 19. the entry points: entry(), dryrun_multichip(1), profiler, bench ----
+    t19 = time.perf_counter()
+    f19 = entry_phase(dev, smi)
+    log(19, f"phase 19 in {time.perf_counter() - t19:.1f} s")
+
     def entry(name, replaces, launches_n, err, times, bnd, source="fused_rnn.cu", lib=None,
               **extra):
         return {
@@ -2784,9 +3187,12 @@ def main():
 
     # kernel #1 in bf16: the tensor-core kernel; prev_ms is the CUDA-core
     # kernel's time in bf16 on the same rows in this run
+    # dp_launches: its launches on phase 18's data-parallel runs (world 1
+    # and both ranks of world 2); entry_launches: entry()'s (phase 19)
     summary = {"kernels": [
         entry("fused_rnn_forward_mma", "pynqs_tpu/ops/fused_rnn.py:197", launches,
-              t6[bf16][2], t6[bf16], b6[bf16], "fused_rnn_mma.cu", prev_ms=t6[bf16][3]),
+              t6[bf16][2], t6[bf16], b6[bf16], "fused_rnn_mma.cu", prev_ms=t6[bf16][3],
+              dp_launches=f18["launches"], entry_launches=f19["launches"]),
         entry("fused_rnn_forward_mma_tensor", "pynqs_tpu/ops/fused_rnn.py:254", launches7,
               t7[bf16][2], t7[bf16], b7[bf16], "fused_rnn_mma.cu", prev_ms=t7[bf16][3]),
         # kernels #2 and #3 in bf16: the tensor-core passes; prev_ms is the
@@ -2813,16 +3219,17 @@ def main():
         # lane: the evaluation's launches and chunk shape (phase 10);
         # rowrow: pair_select_w(variant="rowrow") at [2048, 435, 45] (phase
         # 9); prev_*: the earlier gather kernel on the same operands in
-        # this run
+        # this run; dp_launches: the lane variant's on phase 18's <S-S+>
+        # over two ranks
         *(entry(name, replaces, n, err[v], (m[v]["ms"], m[v]["plain_ms"]),
                 (m[v]["bound_ms"], "bytes"), "pair_select.cu", m[v]["library_ms"],
                 device_ms=m[v]["device_ms"], prev_ms=m[v]["prev_ms"],
-                prev_device_ms=m[v]["prev_device_ms"])
-          for name, replaces, n, v, m, err in (
+                prev_device_ms=m[v]["prev_device_ms"], **extra)
+          for name, replaces, n, v, m, err, extra in (
               ("pair_select_lane", "pynqs_tpu/ops/pallas_hij.py:48", l10["pair_select_lane"],
-               "lane", m10, err10),
+               "lane", m10, err10, {"dp_launches": f18["pair_launches"]}),
               ("pair_select_rowrow", "pynqs_tpu/ops/pallas_hij.py:82", l9["rowrow"], "rowrow",
-               m9, err9))),
+               m9, err9, {}))),
         # kernel #1 at the training script's default width (dcut 96, dp 96)
         # on one eloc chunk of phase 11's trained state; launches: the
         # training run's, both runs (phase 11); prev_ms: the CUDA-core

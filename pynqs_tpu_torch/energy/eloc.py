@@ -8,7 +8,10 @@ Counterpart of ``pynqs_tpu/energy/eloc.py`` (``local_energy_simple``,
 (log|ψ|, arg ψ) pairs.  The JAX package's one-hot block fetches
 (``_sample_tail_cdf_blkloc``, ``_onehot_fetch_i32``) are a TPU
 workaround for gathers; here the tail draw is ``torch.searchsorted`` on
-the cumulative sum and the selection is a plain gather.
+the cumulative sum and the selection is a plain gather.  Under a
+``mesh`` (``parallel/``) the REDUCE tail's uniforms are drawn for the
+rows of every rank and sliced (``parallel.rand_rows``), as the JAX
+program draws them for the global batch.
 """
 
 from __future__ import annotations
@@ -22,6 +25,7 @@ from pynqs_tpu_torch.ops import onv
 from pynqs_tpu_torch.ops.lut import row_keys
 from pynqs_tpu_torch.ops.excitation import ExcitationTable, excite_bits
 from pynqs_tpu_torch.ops.hamiltonian import comb_hij
+from pynqs_tpu_torch.parallel.mesh import rand_rows
 
 __all__ = ["local_energy_simple", "local_energy_simple_dedup", "local_energy_reduce",
            "local_energy_sample_space", "make_local_energy", "sample_tail_cdf", "unique_rows",
@@ -165,15 +169,17 @@ def make_local_energy(model, table: ExcitationTable, tables: tuple, *, method: s
 
 
 def sample_tail_cdf(
-    resid: torch.Tensor, n_stoch: int, generator: torch.Generator
+    resid: torch.Tensor, n_stoch: int, generator: torch.Generator, mesh=None
 ) -> torch.Tensor:
     """Stratified inverse-CDF draws [b, n_stoch] with P(j) ∝ resid[:, j].
 
     u_s = (s + ξ_s)/n · total; draw = #{j : cumsum_j < u_s}.  Every draw's
-    marginal is ∝ resid (unbiased), with less variance than iid draws."""
+    marginal is ∝ resid (unbiased), with less variance than iid draws.
+    Under a mesh ξ is this rank's block of the draw for every rank's b
+    rows."""
     b, n = resid.shape
     c = torch.cumsum(resid, dim=-1)
-    xi = torch.rand(b, n_stoch, generator=generator, dtype=c.dtype, device=c.device)
+    xi = rand_rows(mesh, b, n_stoch, generator=generator, dtype=c.dtype, device=c.device)
     u = (torch.arange(n_stoch, dtype=c.dtype, device=c.device)[None] + xi) / n_stoch * c[:, -1:]
     return torch.clamp(torch.searchsorted(c, u), max=n - 1)
 
@@ -193,6 +199,7 @@ def local_energy_reduce(
     topk: str = "exact",
     dedup_unique_max: int | None = None,
     prefix_fwd=None,
+    mesh=None,
 ) -> torch.Tensor:
     """Semi-stochastic screened E_loc (reference ElocMethod.REDUCE).
 
@@ -217,6 +224,10 @@ def local_energy_reduce(
     forward (``dedup_eval``, which raises when a chunk has more distinct
     rows than this); exclusive with ``prefix_fwd``.  The rows, the tail
     draws and the generator's use are the same as without it.
+
+    ``mesh``: the tail's uniforms of each chunk are drawn for that chunk's
+    rows on every rank (all ranks hold the same number of rows) and this
+    rank's block is kept; over one rank the draws are those without it.
     """
     if topk not in ("exact", "approx", "segmax"):
         raise ValueError(f"unknown topk {topk!r}")
@@ -253,7 +264,7 @@ def local_energy_reduce(
         det_bits = excite_bits(chunk, det_orbs, top_idx >= ns)
 
         s_tail = resid.sum(-1)
-        draw = sample_tail_cdf(resid, n_stoch, generator)
+        draw = sample_tail_cdf(resid, n_stoch, generator, mesh)
         st_h = torch.gather(hij_off, 1, draw)
         st_orbs = torch.gather(orbs_all, 1, draw[..., None].expand(b, n_stoch, 4))
         st_bits = excite_bits(chunk, st_orbs, draw >= ns)

@@ -1,8 +1,9 @@
 """Fixed-node Green's-function Monte Carlo on top of a trial wavefunction.
 
 Counterpart of ``pynqs_tpu/gfmc/walker.py`` (``GFMCConfig``, ``GFMC``,
-``ci_trial_log_psi``, ``mixed_energy``), on one card.  Walkers are a
-fixed [W, sorb] batch.  One iteration is two functions:
+``ci_trial_log_psi``, ``mixed_energy``).  Walkers are a fixed [W, sorb]
+batch, split over the ranks of a ``mesh`` (``parallel/``) where one is
+given.  One iteration is two functions:
 
   * ``GFMC.green_row``, deterministic: the connected determinants and
     matrix elements of every walker (``comb_hij``), the trial forward of
@@ -40,6 +41,13 @@ import torch
 from pynqs_tpu_torch.energy.eloc import dedup_eval
 from pynqs_tpu_torch.ops.hamiltonian import comb_hij
 from pynqs_tpu_torch.ops.lut import WavefunctionLUT
+from pynqs_tpu_torch.parallel.mesh import (
+    all_gather_rows,
+    all_reduce_max,
+    all_reduce_sum,
+    rand_rows,
+    shard_batch,
+)
 from pynqs_tpu_torch.utils.device import resolve_device
 
 __all__ = ["GFMC", "GFMCConfig", "GreenRow", "branch_indices", "ci_trial_log_psi",
@@ -111,14 +119,15 @@ def branch_indices(weights: torch.Tensor, u0) -> torch.Tensor:
 class GFMC:
     """``trial_log_psi``: rows [N, sorb] -> (log|ψ_T|, arg ψ_T) [N, 2].
     The Hamiltonian tables live on ``device`` (default the card) in the
-    system's dtype."""
+    system's dtype; ``mesh`` splits the walkers over its ranks."""
 
     def __init__(self, trial_log_psi, system, config: GFMCConfig | None = None, *,
-                 device=None):
+                 device=None, mesh=None):
         self.trial = trial_log_psi
         self.system = system
         self.cfg = config or GFMCConfig()
         self.device = resolve_device(device)
+        self.mesh = mesh
         tabs = system.tables(self.device)
         self._ops = tabs.astuple()
         self._hpair = tabs.hpair_best
@@ -145,7 +154,8 @@ class GFMC:
         g_off = torch.where(viol, cfg.gamma * t, -t)
         e_loc = hij[:, 0] + t.sum(-1)
         lam = (torch.as_tensor(cfg.tau_lambda, dtype=e_fn_diag.dtype, device=e_fn_diag.device)
-               if cfg.tau_lambda is not None else e_fn_diag.max() + 1.0)
+               if cfg.tau_lambda is not None
+               else all_reduce_max(self.mesh, e_fn_diag.max()) + 1.0)
         g_diag = lam - e_fn_diag
         return GreenRow(comb, e_loc, g_diag + g_off.sum(-1), g_diag, g_off, n_unique)
 
@@ -156,17 +166,20 @@ class GFMC:
         floored at 1e-30, as the JAX package's logits)."""
         g = torch.cat([row.g_diag[:, None], row.g_off], -1).clamp(min=1e-30).double()
         cdf = torch.cumsum(g, -1)
-        u = torch.rand(g.shape[0], 1, generator=generator, dtype=cdf.dtype,
-                       device=cdf.device) * cdf[:, -1:]
+        u = rand_rows(self.mesh, g.shape[0], 1, generator=generator, dtype=cdf.dtype,
+                      device=cdf.device) * cdf[:, -1:]
         choice = torch.searchsorted(cdf, u, right=True)[:, 0].clamp(max=g.shape[1] - 1)
         return row.comb[torch.arange(g.shape[0], device=g.device), choice]
 
     @torch.no_grad()
     def branch(self, walkers: torch.Tensor, weights: torch.Tensor, generator: torch.Generator):
-        """Comb resampling from one uniform draw: (walkers, equal weights)."""
+        """Comb resampling from one uniform draw: (walkers, equal weights);
+        under a mesh over the whole population, this rank's block."""
         u0 = torch.rand((), generator=generator, dtype=weights.dtype, device=weights.device)
-        idx = branch_indices(weights, u0)
-        return walkers[idx], (weights.sum() / weights.shape[0]).expand_as(weights).clone()
+        all_w = all_gather_rows(self.mesh, weights)
+        idx = shard_batch(self.mesh, branch_indices(all_w, u0))
+        return (all_gather_rows(self.mesh, walkers)[idx],
+                (all_w.sum() / all_w.shape[0]).expand_as(weights).clone())
 
     def _guard(self, it0: int, stats: np.ndarray) -> None:
         """Raise on a non-finite statistic or b, or on b ≤ 0 (check_lambda)."""
@@ -185,15 +198,16 @@ class GFMC:
     @torch.no_grad()
     def run(self, init_walkers, generator: torch.Generator | None = None,
             n_iter: int | None = None) -> dict:
-        """Run from ``init_walkers`` [W, sorb] (e.g. samples of |ψ_T|²).
+        """Run from ``init_walkers`` [W, sorb] (e.g. samples of |ψ_T|²; under
+        a mesh the same global walkers on every rank, which keeps its block).
 
         Per generation l: ē_l = Σ w e_loc / Σ w with the weights before the
         step, ē_l^b the same after it, and w̄_l = Σ w b / Σ w; the weights
         are then renormalized to mean 1 and every ``branch_interval``
         iterations resampled.  Returns {"e_gen", "e_gen_b", "wbar" [n_iter]
         (energies with ecore), "walkers", "weights", "n_unique" (per
-        iteration with dedup, else None)}; assemble depth-p estimates with
-        ``mixed_energy``."""
+        iteration with dedup, else None)}, the walkers and weights of every
+        rank; assemble depth-p estimates with ``mixed_energy``."""
         cfg = self.cfg
         n_iter = n_iter or cfg.n_iter
         dev = self.device
@@ -201,7 +215,7 @@ class GFMC:
                else torch.Generator(device=dev).manual_seed(cfg.seed))
         if not torch.is_tensor(init_walkers):
             init_walkers = torch.from_numpy(np.array(init_walkers))  # a copy: views may be read-only
-        walkers = init_walkers.to(device=dev, dtype=torch.int8)
+        walkers = shard_batch(self.mesh, init_walkers.to(device=dev, dtype=torch.int8))
         weights = torch.ones(walkers.shape[0], dtype=torch.float64, device=dev)
         sync = max(1, min(cfg.sync_interval, n_iter))
         stats, pending, n_unique = [], [], []
@@ -211,13 +225,17 @@ class GFMC:
             e_loc, b = row.e_loc.double(), row.b.double()
             w_pre = weights
             weights = weights * b
+            sums = all_reduce_sum(self.mesh, torch.stack([
+                (w_pre * e_loc).sum(), w_pre.sum(), (weights * e_loc).sum(), weights.sum()]))
             pending.append(torch.stack([
-                (w_pre * e_loc).sum() / w_pre.sum(),
-                (weights * e_loc).sum() / weights.sum(),
-                weights.sum() / w_pre.sum(),
-                b.min(),  # NaN where any b is (torch.min propagates NaN)
+                sums[0] / sums[1],
+                sums[2] / sums[3],
+                sums[3] / sums[1],
+                # NaN where any b is (torch.min propagates NaN)
+                -all_reduce_max(self.mesh, -b.min()),
             ]))
-            weights = weights / weights.mean().clamp(min=1e-30)
+            n_all = weights.shape[0] * (1 if self.mesh is None else self.mesh.size)
+            weights = weights / (sums[3] / n_all).clamp(min=1e-30)
             if cfg.branch_interval and (it + 1) % cfg.branch_interval == 0:
                 walkers, weights = self.branch(walkers, weights, gen)
             if row.n_unique is not None:
@@ -233,8 +251,8 @@ class GFMC:
             "e_gen": st[:, 0] + ecore,
             "e_gen_b": st[:, 1] + ecore,
             "wbar": st[:, 2],
-            "walkers": walkers.cpu().numpy(),
-            "weights": weights.cpu().numpy(),
+            "walkers": all_gather_rows(self.mesh, walkers).cpu().numpy(),
+            "weights": all_gather_rows(self.mesh, weights).cpu().numpy(),
             "n_unique": np.asarray(n_unique) if n_unique else None,
         }
 

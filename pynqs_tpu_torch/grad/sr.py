@@ -22,6 +22,15 @@ parameters (the JAX package's leaf names):
 SR always differentiates ``model.log_psi`` (the fused forward has no
 gradient) and runs where the model lives.  A ``torch.func`` transform
 that fails raises; there is no other route.
+
+Under a ``mesh`` (``parallel/``) each rank holds its rows, with weights
+normalized over all ranks.  CG all-reduces its centring sums (m_c and
+F, one collective) and, in every matvec, the Oᵀ(w ∘ O v) sums with the
+two w·(O v) channel sums (one collective per matvec); its iterates are
+then the same on every rank.  The dense and blocked solvers reduce S:
+the weighted mean of O is all-reduced, then each rank's S and F are
+summed in one collective, and every rank solves the same system (the
+[P, P] sum is P² numbers; gathering O's rows would move [B, 2, P]).
 """
 
 from __future__ import annotations
@@ -30,6 +39,7 @@ import torch
 from torch.func import functional_call, jacrev, jvp, vjp, vmap
 
 from pynqs_tpu_torch.grad.energy_grad import _centered
+from pynqs_tpu_torch.parallel.mesh import all_reduce_sum
 
 __all__ = ["sr_gradient", "sr_gradient_cg", "sr_gradient_blocked", "cg_residual"]
 
@@ -51,35 +61,39 @@ def _row_jacobian(model, params: dict, bits, jac_batch) -> dict:
     return {k: torch.cat([p[k] for p in parts]) for k in params}
 
 
-def _solve_block(O, weights, alive, cen, damping):
+def _solve_block(O, weights, alive, cen, damping, mesh=None):
     """dθ of one block from its per-row gradients O [B, 2, Pb]."""
     O = torch.where(alive[:, None, None], O, torch.zeros_like(O))
-    o_mean = torch.einsum("n,ncp->cp", weights, O)
+    o_mean = all_reduce_sum(mesh, torch.einsum("n,ncp->cp", weights, O))
     Oc = torch.where(alive[:, None, None], O - o_mean, torch.zeros_like(O))
     S = torch.einsum("n,ncp,ncq->pq", weights, Oc, Oc)
     F = 2.0 * torch.einsum("n,nc,ncp->p", weights, cen, Oc)
+    if mesh is not None:
+        SF = all_reduce_sum(mesh, torch.cat([S, F[None]], 0))
+        S, F = SF[:-1], SF[-1]
     A = S + damping * torch.eye(S.shape[0], dtype=S.dtype, device=S.device)
     L = torch.linalg.cholesky(A)
     return torch.cholesky_solve(F[:, None], L)[:, 0]
 
 
 def sr_gradient(model, bits, weights, eloc, damping: float = 1e-3,
-                jac_batch: int | None = None) -> dict:
+                jac_batch: int | None = None, mesh=None) -> dict:
     """The SR-preconditioned gradient by one dense solve.  bits [B, sorb];
     weights [B] (sum 1; 0 = dead row); eloc [B, 2]."""
     return sr_gradient_blocked(model, bits, weights, eloc, damping,
                                blocks={n: 0 for n, _ in model.named_parameters()},
-                               jac_batch=jac_batch)
+                               jac_batch=jac_batch, mesh=mesh)
 
 
 def sr_gradient_blocked(model, bits, weights, eloc, damping: float = 1e-3,
-                        blocks: dict | None = None, jac_batch: int | None = None) -> dict:
+                        blocks: dict | None = None, jac_batch: int | None = None,
+                        mesh=None) -> dict:
     """Block-diagonal SR (the K-FAC-family preconditioner): the
     cross-curvature between blocks is dropped and each block's Fisher
     block solved exactly, dθ_b = (Re S_bb + λI)⁻¹ · 2 Re F_b.  One block
     per parameter tensor by default; ``blocks`` maps name → label to
     merge tensors (one label for all gives ``sr_gradient``)."""
-    weights, alive, _, cen, _ = _centered(weights, eloc)
+    weights, alive, _, cen, _ = _centered(weights, eloc, mesh)
     params = _params(model)
     names = sorted(params)  # the JAX tree's leaf order
     jac = _row_jacobian(model, params, bits, jac_batch)
@@ -90,7 +104,7 @@ def sr_gradient_blocked(model, bits, weights, eloc, damping: float = 1e-3,
     out = {}
     for members in groups.values():
         O = torch.cat([jac[n].reshape(B, 2, -1) for n in members], -1)
-        d = _solve_block(O, weights, alive, cen, damping)
+        d = _solve_block(O, weights, alive, cen, damping, mesh)
         off = 0
         for n in members:
             sz = params[n].numel()
@@ -99,7 +113,8 @@ def sr_gradient_blocked(model, bits, weights, eloc, damping: float = 1e-3,
     return {n: out[n] for n in params}
 
 
-def _cg_system(model, bits, weights, eloc, damping: float, jac_batch: int | None):
+def _cg_system(model, bits, weights, eloc, damping: float, jac_batch: int | None,
+               mesh=None):
     """(matvec, F) of (Re S + λ)·δθ = 2 Re F over the parameter dicts.
 
     With m_c = Σ_n w_n O[n, c, :]:  S v = Σ_c [O_cᵀ (w ∘ O_c v) − m_c (m_cᵀ v)],
@@ -107,8 +122,9 @@ def _cg_system(model, bits, weights, eloc, damping: float, jac_batch: int | None
     F = Σ_c O_cᵀ (2 w ∘ cen_c) (the centering term vanishes since
     Σ_n w_n cen_n = 0).  Below B, ``jac_batch`` rows at a time: each
     chunk is linearized again inside every matvec, so the saved
-    activations scale with the chunk."""
-    weights, alive, _, cen, _ = _centered(weights, eloc)
+    activations scale with the chunk.  Under a mesh the sums over rows
+    are all-reduced (``_reduce_dicts``)."""
+    weights, alive, _, cen, _ = _centered(weights, eloc, mesh)
     params = _params(model)
     B = bits.shape[0]
     step = B if jac_batch is None or jac_batch >= B else jac_batch
@@ -135,16 +151,16 @@ def _cg_system(model, bits, weights, eloc, damping: float, jac_batch: int | None
         f = f_of(bits, alive)
         _, vjp_fn = vjp(f, params)
         e0, e1 = two(weights)
-        (m0,) = vjp_fn(e0)
-        (m1,) = vjp_fn(e1)
-        (F,) = vjp_fn(2.0 * weights[:, None] * cen)
+        m0, m1, F = _reduce_dicts(mesh, [vjp_fn(e0)[0], vjp_fn(e1)[0],
+                                         vjp_fn(2.0 * weights[:, None] * cen)[0]])
 
         def matvec(v):
             _, t = jvp(f, (params,), (v,))
             t = torch.where(alive[:, None], t, torch.zeros_like(t))
             (back,) = vjp_fn(weights[:, None] * t)
-            return combine(back, (weights * t[:, 0]).sum(), (weights * t[:, 1]).sum(),
-                           m0, m1, v)
+            back, mv = _reduce_dicts(mesh, [back, {"0": (weights * t[:, 0]).sum(),
+                                                   "1": (weights * t[:, 1]).sum()}])
+            return combine(back, mv["0"], mv["1"], m0, m1, v)
 
         return matvec, F
 
@@ -155,6 +171,7 @@ def _cg_system(model, bits, weights, eloc, damping: float, jac_batch: int | None
         m0 = add(m0, vjp_fn(e0)[0])
         m1 = add(m1, vjp_fn(e1)[0])
         F = add(F, vjp_fn(2.0 * w[:, None] * c)[0])
+    m0, m1, F = _reduce_dicts(mesh, [m0, m1, F])
 
     def matvec(v):
         back = None
@@ -166,9 +183,23 @@ def _cg_system(model, bits, weights, eloc, damping: float, jac_batch: int | None
             back = add(back, vjp_fn(w[:, None] * t)[0])
             mv0 = mv0 + (w * t[:, 0]).sum()
             mv1 = mv1 + (w * t[:, 1]).sum()
-        return combine(back, mv0, mv1, m0, m1, v)
+        back, mv = _reduce_dicts(mesh, [back, {"0": mv0, "1": mv1}])
+        return combine(back, mv["0"], mv["1"], m0, m1, v)
 
     return matvec, F
+
+
+def _reduce_dicts(mesh, dicts: list) -> list:
+    """The dicts of tensors summed over the ranks in one all-reduce (as
+    they are without a mesh)."""
+    if mesh is None:
+        return dicts
+    items = [(i, k, t) for i, d in enumerate(dicts) for k, t in d.items()]
+    flat = all_reduce_sum(mesh, torch.cat([t.reshape(-1) for _, _, t in items]))
+    out = [{} for _ in dicts]
+    for (i, k, t), part in zip(items, torch.split(flat, [t.numel() for _, _, t in items])):
+        out[i][k] = part.reshape(t.shape).to(t.dtype)
+    return out
 
 
 def _dot(a: dict, b: dict):
@@ -176,12 +207,12 @@ def _dot(a: dict, b: dict):
 
 
 def sr_gradient_cg(model, bits, weights, eloc, damping: float = 1e-3, n_cg: int = 50,
-                   jac_batch: int | None = None) -> dict:
+                   jac_batch: int | None = None, mesh=None) -> dict:
     """Matrix-free SR: (Re S + λ)·δθ = 2 Re F by plain conjugate gradients
     from zero, exactly ``n_cg`` iterations with no early exit, the
     denominators floored at 1e-30 (as the JAX ``fori_loop``); every scalar
     stays on the device."""
-    matvec, F = _cg_system(model, bits, weights, eloc, damping, jac_batch)
+    matvec, F = _cg_system(model, bits, weights, eloc, damping, jac_batch, mesh)
     x = {k: torch.zeros_like(v) for k, v in F.items()}
     r, p = F, F
     rs = _dot(r, r)
@@ -198,10 +229,10 @@ def sr_gradient_cg(model, bits, weights, eloc, damping: float = 1e-3, n_cg: int 
 
 
 def cg_residual(model, bits, weights, eloc, x: dict, damping: float = 1e-3,
-                jac_batch: int | None = None) -> torch.Tensor:
+                jac_batch: int | None = None, mesh=None) -> torch.Tensor:
     """‖(Re S + λ)·x − 2 Re F‖ / ‖2 Re F‖ (0-d tensor) by one more matvec: how
     far a CG solution ``x`` is from solving the system."""
-    matvec, F = _cg_system(model, bits, weights, eloc, damping, jac_batch)
+    matvec, F = _cg_system(model, bits, weights, eloc, damping, jac_batch, mesh)
     Ax = matvec(x)
     res = {k: Ax[k] - F[k] for k in F}
     return torch.sqrt(_dot(res, res) / torch.clamp(_dot(F, F), min=1e-300))

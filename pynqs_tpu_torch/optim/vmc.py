@@ -11,7 +11,19 @@ parameter EMA, the sample-count ramp, 3σ clipping, the MCMC
 thermalization, the run log and the resume checkpoints (the JAX
 package's file format, ``utils/checkpoint.py``), ``noise_tune`` the
 NoisyTune perturbation, and ``operator_expected`` measures any operator
-on the state.  Not ported yet (ROADMAP): profiling, the mesh.
+on the state.
+
+Data parallelism (``mesh``, ``parallel/``): one process per rank, each
+sampling and evaluating its rows (the sampler takes the same mesh); the
+weighted mean, the gradients (or SR's sums), the variance, w_sum and
+n_eff are all-reduced, so every rank applies the same update and the
+parameters stay replicated bit for bit.  The EMA, the ramp, the clipping
+and the clip schedule run alike on every rank; rank 0 alone writes the
+run log and the checkpoints.  ``profile_dir`` traces iterations
+[2, 2 + profile_iters) with ``torch.profiler`` into
+``profile_dir/trace_rank{r}.json``; every step marks its stages as the
+ranges ``vmc.sample``, ``vmc.eloc``, ``vmc.grad`` (or ``vmc.sr``) and
+``vmc.update``.
 
 Resuming keeps two behaviours of the JAX loop: the loop's iteration
 restarts at 0 (the clip schedule, the ramp, the 3σ window and the
@@ -23,6 +35,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import os
 import time
 from dataclasses import dataclass
 from functools import partial
@@ -30,6 +43,7 @@ from typing import Callable
 
 import numpy as np
 import torch
+from torch.profiler import ProfilerActivity, profile, record_function
 
 from pynqs_tpu_torch.energy.eloc import local_energy_reduce, local_energy_simple
 from pynqs_tpu_torch.grad.energy_grad import energy_and_grad, energy_stats
@@ -41,6 +55,7 @@ from pynqs_tpu_torch.ops.fused_rnn import (
 )
 from pynqs_tpu_torch.ops.fused_rnn_prefix import ReducePrefixForward, prefix_available
 from pynqs_tpu_torch.ops.integrals import precompute_hij_tables
+from pynqs_tpu_torch.parallel.mesh import all_reduce_sum
 from pynqs_tpu_torch.utils.checkpoint import (
     adam_state_tree,
     load_adam_state,
@@ -118,6 +133,10 @@ class VMCConfig:
     # freeze-and-sweep: iteration -> gradient mask {name: tensor}
     # (optim/sweep.site_freeze_mask); None = all trainable
     param_mask_fn: Callable[[int], dict] | None = None
+    # trace iterations [2, 2 + profile_iters) with torch.profiler (CPU,
+    # and CUDA for a model on the card) into profile_dir/trace_rank{r}.json
+    profile_dir: str | None = None
+    profile_iters: int = 3
 
 
 _OPTIMIZERS = ("adam", "adamw", "sgd")
@@ -132,10 +151,34 @@ def ema_update(ema: dict, params: dict, decay: float) -> dict:
     return {k: d * e + (1.0 - d) * params[k].to(e.dtype) for k, e in ema.items()}
 
 
-class VMC:
-    """Binds (model, system, sampler) into a training step and a loop."""
+class _NullLog:
+    """The run log of a rank other than 0: writes nothing."""
 
-    def __init__(self, model, system, sampler, config: VMCConfig | None = None):
+    def info(self, msg):
+        pass
+
+    def record(self, **kv):
+        pass
+
+    def close(self):
+        pass
+
+
+class VMC:
+    """Binds (model, system, sampler) into a training step and a loop.
+
+    ``mesh``: the data-parallel mesh (``parallel.Mesh``); by default the
+    sampler's.  A sampler without one is given it."""
+
+    def __init__(self, model, system, sampler, config: VMCConfig | None = None, mesh=None):
+        smesh = getattr(sampler, "mesh", None)
+        if mesh is not None and smesh is not None and smesh is not mesh:
+            raise ValueError("VMC and its sampler have different meshes")
+        self.mesh = mesh if mesh is not None else smesh
+        if self.mesh is not None and smesh is None:
+            if not hasattr(sampler, "mesh"):
+                raise ValueError(f"{type(sampler).__name__} takes no mesh")
+            sampler = dataclasses.replace(sampler, mesh=self.mesh)
         self.model = model
         self.system = system
         self.sampler = sampler
@@ -234,17 +277,18 @@ class VMC:
             return w
         f2 = torch.exp(2.0 * self.model.log_factor(bits)[..., 0]).to(w.dtype)
         w = w * torch.where(w > 0, f2, torch.zeros_like(f2))
-        return w / w.sum()
+        return w / all_reduce_sum(self.mesh, w.sum())
 
     def sr_gradient(self, bits, w, eloc) -> dict:
         """The SR-preconditioned gradient by ``cfg.sr_solver``."""
         cfg = self.cfg
         if cfg.sr_solver == "cg":
             return sr_gradient_cg(self.model, bits, w, eloc, damping=cfg.sr_damping,
-                                  n_cg=cfg.sr_n_cg, jac_batch=cfg.grad_batch)
+                                  n_cg=cfg.sr_n_cg, jac_batch=cfg.grad_batch, mesh=self.mesh)
         if cfg.sr_solver == "blocked":
-            return sr_gradient_blocked(self.model, bits, w, eloc, damping=cfg.sr_damping)
-        return sr_gradient(self.model, bits, w, eloc, damping=cfg.sr_damping)
+            return sr_gradient_blocked(self.model, bits, w, eloc, damping=cfg.sr_damping,
+                                       mesh=self.mesh)
+        return sr_gradient(self.model, bits, w, eloc, damping=cfg.sr_damping, mesh=self.mesh)
 
     def local_energy(self, bits, generator):
         """The step's local energies of ``bits`` by ``cfg.eloc_method``."""
@@ -255,7 +299,7 @@ class VMC:
                 k_det=self.cfg.eloc_k_det, n_stoch=self.cfg.eloc_n_stoch,
                 batch=self.cfg.eloc_batch, hpair=self._hpair,
                 topk=self.cfg.eloc_topk, dedup_unique_max=self.cfg.eloc_dedup_max,
-                prefix_fwd=self._eloc_prefix_fwd(),
+                prefix_fwd=self._eloc_prefix_fwd(), mesh=self.mesh,
             )
         return local_energy_simple(fwd, bits, self._ops, self._table,
                                    batch=self.cfg.eloc_batch, hpair=self._hpair)
@@ -266,32 +310,38 @@ class VMC:
         own; ``gmask`` multiplies the gradient, as ``cfg.param_mask_fn``'s
         masks in ``run``); returns a dict of 0-d tensors (energy without
         ecore, variance, w_sum, n_eff, gnorm, dropped_frac, n_unique) and
-        the update's lr."""
+        the update's lr.  Under a mesh every value is global, the same on
+        every rank."""
         smp = sampler or self.sampler
-        bits, w, diag = self._sample(smp, generator)
-        w = self.reweight(bits, w, smp)
-        eloc = self.local_energy(bits, generator)
+        with record_function("vmc.sample"):
+            bits, w, diag = self._sample(smp, generator)
+            w = self.reweight(bits, w, smp)
+        with record_function("vmc.eloc"):
+            eloc = self.local_energy(bits, generator)
         if self.cfg.use_sr:
-            # the plain gradient would be discarded: its backward is not run
-            e, var = energy_stats(w, eloc)
-            grads = self.sr_gradient(bits, w, eloc)
+            with record_function("vmc.sr"):
+                # the plain gradient would be discarded: its backward is not run
+                e, var = energy_stats(w, eloc, self.mesh)
+                grads = self.sr_gradient(bits, w, eloc)
         else:
-            e, grads, var = energy_and_grad(
-                self.model, bits, w, eloc, grad_batch=self.cfg.grad_batch
-            )
-        if gmask is not None:
-            grads = {k: g * gmask[k] for k, g in grads.items()}
-        gnorm = torch.sqrt(sum((g.double() ** 2).sum() for g in grads.values()))
-        scale = 1.0
-        if clip_val is not None:
-            scale = torch.clamp(clip_val / torch.clamp(gnorm, min=1e-30), max=1.0)
-        lr = self.apply_gradients(grads, scale)
+            with record_function("vmc.grad"):
+                e, grads, var = energy_and_grad(self.model, bits, w, eloc,
+                                                grad_batch=self.cfg.grad_batch, mesh=self.mesh)
+        with record_function("vmc.update"):
+            if gmask is not None:
+                grads = {k: g * gmask[k] for k, g in grads.items()}
+            gnorm = torch.sqrt(sum((g.double() ** 2).sum() for g in grads.values()))
+            scale = 1.0
+            if clip_val is not None:
+                scale = torch.clamp(clip_val / torch.clamp(gnorm, min=1e-30), max=1.0)
+            lr = self.apply_gradients(grads, scale)
+        w_sum, w2 = all_reduce_sum(self.mesh, torch.stack([w.sum(), (w**2).sum()]))
         return {
             "lr": lr,
             "energy": e[0],
             "var": var,
-            "w_sum": w.sum(),
-            "n_eff": 1.0 / torch.clamp((w**2).sum(), min=1e-30),
+            "w_sum": w_sum,
+            "n_eff": 1.0 / torch.clamp(w2, min=1e-30),
             "gnorm": gnorm,
             "dropped_frac": diag["dropped_frac"],
             "n_unique": diag["n_unique"],
@@ -327,6 +377,8 @@ class VMC:
         ops = tuple(put(x) for x in (t.h1e, t.h2e, t.diag1, t.K, t.J))
         hp = None if t.Hpair is None else put(t.Hpair)
         smp = sampler or self.sampler
+        if self.mesh is not None and getattr(smp, "mesh", None) is None:
+            smp = dataclasses.replace(smp, mesh=self.mesh)
         if getattr(smp, "stateful", False):  # fresh chains, as the JAX package
             bits, w = smp.sample(self.model, generator, smp.init_state(self.model, generator))[:2]
         else:
@@ -338,12 +390,12 @@ class VMC:
                 fwd, bits, ops, self._table, generator,
                 k_det=self.cfg.eloc_k_det, n_stoch=self.cfg.eloc_n_stoch,
                 batch=self.cfg.eloc_batch, hpair=hp, topk=self.cfg.eloc_topk,
-                prefix_fwd=self._eloc_prefix_fwd(),
+                prefix_fwd=self._eloc_prefix_fwd(), mesh=self.mesh,
             )
         else:
             oloc = local_energy_simple(fwd, bits, ops, self._table,
                                        batch=self.cfg.eloc_batch, hpair=hp)
-        return operator_stats(oloc[:, 0], w)
+        return operator_stats(oloc[:, 0], w, mesh=self.mesh)
 
     # ---------------- checkpoints ----------------
 
@@ -424,9 +476,13 @@ class VMC:
                                                     therm)[0]
         clip_on = cfg.clip_grad is not None or cfg.clip_schedule is not None
         ecore, e_ref = self.system.ecore, self.system.e_ref
-        log = RunLogger(cfg.log_path)
+        rank0 = self.mesh is None or self.mesh.rank == 0
+        log = RunLogger(cfg.log_path) if rank0 else _NullLog()
+        prof = None
         try:
             for it in range(n_iter):
+                if cfg.profile_dir is not None and it == 2:
+                    prof = self._start_profile()
                 t0 = time.perf_counter()
                 clip_val = cfg.clip_grad if cfg.clip_grad is not None else 0.0
                 if cfg.clip_schedule is not None:
@@ -461,11 +517,37 @@ class VMC:
                     callback(it, info)
                 if it % cfg.log_every == 0 or it == n_iter - 1:
                     self._log(log, it, out, e_tot, e_ref, dt)
-                if cfg.checkpoint_path is not None and (it + 1) % cfg.checkpoint_interval == 0:
+                if (rank0 and cfg.checkpoint_path is not None
+                        and (it + 1) % cfg.checkpoint_interval == 0):
                     self.save_checkpoint(cfg.checkpoint_path, it)
+                if prof is not None and it == 1 + cfg.profile_iters:
+                    self._stop_profile(prof)
+                    prof = None
         finally:
+            if prof is not None:
+                self._stop_profile(prof)
             log.close()
         return self.history
+
+    def _start_profile(self):
+        acts = [ProfilerActivity.CPU]
+        if model_device_dtype(self.model)[0].type == "cuda":
+            acts.append(ProfilerActivity.CUDA)
+        prof = profile(activities=acts)
+        prof.start()
+        return prof
+
+    def _stop_profile(self, prof) -> str:
+        """Stop the trace at the end of the traced iterations (after the
+        card has finished them) and write it; returns its path."""
+        if model_device_dtype(self.model)[0].type == "cuda":
+            torch.cuda.synchronize()
+        prof.stop()
+        os.makedirs(self.cfg.profile_dir, exist_ok=True)
+        path = os.path.join(self.cfg.profile_dir,
+                            f"trace_rank{0 if self.mesh is None else self.mesh.rank}.json")
+        prof.export_chrome_trace(path)
+        return path
 
     def _log(self, log, it: int, out: dict, e_tot: float, e_ref, dt: float) -> None:
         """The JAX loop's human line and ``@@`` record of one iteration."""

@@ -2,7 +2,8 @@
 
 Counterpart of ``pynqs_tpu/sampler/ar.py`` (``multinomial_partition``,
 ``ar_sampling`` with the ``exclude_sorted_keys`` final-step mask,
-``ar_sampling_slabbed``, ``ar_sampling_dfs``, ``dfs_depth_profile``,
+``ar_sampling_slabbed``, ``ar_sampling_dfs``, ``ar_sampling_sharded``,
+``dfs_depth_profile``,
 ``tune_dfs_split_depth``, ``ar_sampling_gumbel``,
 ``gumbel_importance_weights``, ``compact_by_count``).  A buffer
 of at most C branches is carried through the site loop; each step
@@ -28,6 +29,7 @@ from __future__ import annotations
 import torch
 
 from pynqs_tpu_torch.ops import lut, onv
+from pynqs_tpu_torch.parallel.mesh import all_reduce_sum, rank_generator
 from pynqs_tpu_torch.sampler.symmetry import (
     NEG_INF,
     apply_mask_logp,
@@ -41,6 +43,7 @@ __all__ = [
     "ar_sampling",
     "ar_sampling_slabbed",
     "ar_sampling_dfs",
+    "ar_sampling_sharded",
     "ar_sampling_gumbel",
     "gumbel_importance_weights",
     "dfs_depth_profile",
@@ -285,6 +288,40 @@ def ar_sampling_dfs(
     bits = torch.cat(out_bits, 0)
     counts = torch.cat(out_counts, 0)
     return bits, counts, n_sample - counts.sum()
+
+
+@torch.no_grad()
+def ar_sampling_sharded(model, n_sample: int, *, capacity: int, mesh, generator,
+                        tree_height: int | None = None):
+    """Tree-sharded exact AR sampling over the ranks of ``mesh`` (the
+    reference's "use_same_tree" multi-rank sampling).
+
+    Phase A: every rank expands the same tree from the shared
+    ``generator`` for ``tree_height`` steps at the full ``capacity``.
+    Each rank then takes the rows rank, rank + n, rank + 2n, ... of the
+    branch buffer (sorted by count, so the ranks get balanced shares) and
+    phase B finishes them at capacity/n from the rank's own generator
+    (``rank_generator``, salt 7919).  The ranks' rows are disjoint by
+    construction.  Returns this rank's (bits [capacity/n, sorb] int8,
+    counts [capacity/n] int64) and the dropped mass of the whole tree."""
+    n = mesh.size
+    if capacity % n:
+        raise ValueError(f"capacity {capacity} must divide by the mesh size {n}")
+    _, _, n_steps, _ = _layout(model)
+    c_local = capacity // n
+    if tree_height is None:
+        tree_height = max(1, min(n_steps // 2, (c_local - 1).bit_length()))
+    tree_height = min(tree_height, n_steps)
+    state = _ar_steps(model, _root_state(model, capacity, n_sample), 0, tree_height,
+                      generator, n_sample)
+    rows = mesh.rank + n * torch.arange(c_local, device=state[0].device)
+    bits, counts, used_a, used_b, prev, carry = state
+    state = (bits[rows], counts[rows], used_a[rows], used_b[rows], prev[rows],
+             _gather(carry, rows))
+    state = _ar_steps(model, state, tree_height, n_steps,
+                      rank_generator(mesh, generator, 7919), n_sample)
+    bits, counts = state[0], state[1]
+    return bits, counts, n_sample - all_reduce_sum(mesh, counts.sum())
 
 
 @torch.no_grad()

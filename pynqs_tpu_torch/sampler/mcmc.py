@@ -10,7 +10,10 @@ take an explicit ``torch.Generator``; the streams differ from
 
 A stateful sampler: ``init_state`` gives the chains, ``sample`` returns
 them updated (``VMC`` threads them through its steps and thermalizes
-them once with ``therm`` extra steps before its loop).
+them once with ``therm`` extra steps before its loop).  Under a ``mesh``
+(``parallel/``) each rank runs its contiguous block of the chains, and
+every draw is the global one sliced (``parallel.rand_rows``), so the
+ranks' chains are the single-process chains split.
 """
 
 from __future__ import annotations
@@ -20,6 +23,7 @@ from dataclasses import dataclass
 import torch
 
 from pynqs_tpu_torch.ops import onv
+from pynqs_tpu_torch.parallel.mesh import all_reduce_sum, rand_rows
 from pynqs_tpu_torch.utils.device import model_device_dtype
 
 __all__ = ["MCMCSampler", "exchange_proposal"]
@@ -62,32 +66,42 @@ class MCMCSampler:
     # probability of composing a second exchange into the proposal
     # (double excitations; both moves are symmetric)
     p_double: float = 0.25
+    mesh: object = None
 
     stateful = True
 
+    def __post_init__(self):
+        if self.mesh is not None and self.n_chain % self.mesh.size:
+            raise ValueError(f"{self.n_chain} chains do not split over {self.mesh.size} ranks")
+
+    @property
+    def n_local(self) -> int:
+        """The chains of this rank."""
+        return self.n_chain // (1 if self.mesh is None else self.mesh.size)
+
     def init_state(self, model, generator: torch.Generator) -> torch.Tensor:
-        """Chains [n_chain, sorb] int8 at uniformly random (noa, nob)
+        """Chains [n_local, sorb] int8 at uniformly random (noa, nob)
         determinants, on the model's device."""
         dev = model_device_dtype(model)[0]
-        norb = self.sorb // 2
+        norb, nc = self.sorb // 2, self.n_local
 
         def channel(n):
-            keys = torch.rand(self.n_chain, norb, generator=generator, device=dev)
-            occ = torch.zeros(self.n_chain, norb, dtype=torch.int8, device=dev)
+            keys = rand_rows(self.mesh, nc, norb, generator=generator, device=dev)
+            occ = torch.zeros(nc, norb, dtype=torch.int8, device=dev)
             return occ.scatter_(1, keys.argsort(-1)[:, :n], 1)
 
-        return torch.stack([channel(self.noa), channel(self.nob)], -1).reshape(
-            self.n_chain, self.sorb)
+        return torch.stack([channel(self.noa), channel(self.nob)], -1).reshape(nc, self.sorb)
 
     def _propose(self, bits, generator):
-        u = torch.rand(bits.shape[0], 3, generator=generator, device=bits.device,
-                       dtype=torch.float64)
+        u = rand_rows(self.mesh, bits.shape[0], 3, generator=generator, device=bits.device,
+                      dtype=torch.float64)
         return exchange_proposal(bits, u, self.noa, self.nob)
 
     @torch.no_grad()
     def run(self, model, generator: torch.Generator, bits, n_steps: int):
         """``n_steps`` Metropolis updates of the chains ``bits``; returns
-        (bits, log_psi [n_chain, 2], acceptance rate as a 0-d tensor)."""
+        (bits, log_psi [n_local, 2], acceptance rate over all chains as a
+        0-d tensor)."""
         lp = model.log_psi(bits)
         nc = bits.shape[0]
         acc_sum = torch.zeros((), dtype=lp.dtype, device=lp.device)
@@ -95,22 +109,25 @@ class MCMCSampler:
             nb = self._propose(bits, generator)
             if self.p_double > 0:
                 nb2 = self._propose(nb, generator)
-                dbl = torch.rand(nc, generator=generator, device=bits.device) < self.p_double
+                dbl = rand_rows(self.mesh, nc, generator=generator,
+                                device=bits.device) < self.p_double
                 nb = torch.where(dbl[:, None], nb2, nb)
             nlp = model.log_psi(nb)
-            u = torch.rand(nc, generator=generator, device=bits.device, dtype=lp.dtype)
+            u = rand_rows(self.mesh, nc, generator=generator, device=bits.device, dtype=lp.dtype)
             acc = torch.log(u) < 2 * (nlp[:, 0] - lp[:, 0])
             bits = torch.where(acc[:, None], nb, bits)
             lp = torch.where(acc[:, None], nlp, lp)
-            acc_sum = acc_sum + acc.to(lp.dtype).mean()
-        return bits, lp, acc_sum / max(n_steps, 1)
+            acc_sum = acc_sum + acc.to(lp.dtype).sum()
+        acc_sum = all_reduce_sum(self.mesh, acc_sum)
+        return bits, lp, acc_sum / (self.n_chain * max(n_steps, 1))
 
     def sample(self, model, generator: torch.Generator, state):
         """(bits, weights 1/n_chain, diagnostics, new state) after
         ``n_sweep`` steps from the chains ``state``; ``dropped_frac`` is
-        −1 (not measured), ``acc_rate`` the acceptance rate."""
+        −1 (not measured), ``n_unique`` the chain count, ``acc_rate`` the
+        acceptance rate."""
         bits, lp, acc = self.run(model, generator, state, self.n_sweep)
-        w = torch.full((self.n_chain,), 1.0 / self.n_chain, dtype=lp.dtype, device=lp.device)
+        w = torch.full((bits.shape[0],), 1.0 / self.n_chain, dtype=lp.dtype, device=lp.device)
         diag = {"dropped_frac": torch.tensor(-1.0, dtype=lp.dtype, device=lp.device),
-                "n_unique": (w > 0).sum(), "acc_rate": acc}
+                "n_unique": torch.tensor(self.n_chain, device=lp.device), "acc_rate": acc}
         return bits, w, diag, bits

@@ -2,7 +2,8 @@
 
 Counterpart of ``pynqs_tpu/utils/stats.py``.  The moments are reduced on
 the tensors' device; ``operator_stats`` hands them to the host as Python
-numbers.
+numbers.  Under a ``mesh`` (``parallel/``) the sums run over the rows of
+every rank (weights normalized over all of them).
 """
 
 from __future__ import annotations
@@ -10,6 +11,8 @@ from __future__ import annotations
 from dataclasses import dataclass
 
 import torch
+
+from pynqs_tpu_torch.parallel.mesh import all_reduce_sum
 
 __all__ = ["weighted_stats", "operator_stats", "OperatorStats"]
 
@@ -29,7 +32,7 @@ class OperatorStats:
 
 
 def weighted_stats(values: torch.Tensor, weights: torch.Tensor,
-                   n_sample: float | None = None):
+                   n_sample: float | None = None, mesh=None):
     """⟨O⟩, Var, standard error and effective sample size under
     probability weights, as 0-d tensors.
 
@@ -39,17 +42,18 @@ def weighted_stats(values: torch.Tensor, weights: torch.Tensor,
     1/Σw²."""
     alive = weights > 0
     v = torch.where(alive, values, torch.zeros_like(values))
-    mean = (weights * v).sum()
-    var = (weights * (v - mean).abs() ** 2).sum()
-    n_eff = 1.0 / torch.clamp((weights**2).sum(), min=1e-30)
+    mean = all_reduce_sum(mesh, (weights * v).sum())
+    var, w2 = all_reduce_sum(mesh, torch.stack([(weights * (v - mean).abs() ** 2).sum(),
+                                                (weights**2).sum()]))
+    n_eff = 1.0 / torch.clamp(w2, min=1e-30)
     n = n_eff if n_sample is None else n_eff.new_tensor(float(n_sample))
     se = torch.sqrt(var / torch.clamp(n, min=1.0))
     return mean, var, se, n_eff
 
 
 def operator_stats(values: torch.Tensor, weights: torch.Tensor,
-                   n_sample: float | None = None) -> OperatorStats:
-    mean, var, se, n_eff = weighted_stats(values, weights, n_sample)
+                   n_sample: float | None = None, mesh=None) -> OperatorStats:
+    mean, var, se, n_eff = weighted_stats(values, weights, n_sample, mesh)
     var = float(var)
     return OperatorStats(mean=complex(mean.item()), var=var, std=var**0.5,
                          se=float(se), n_eff=float(n_eff))

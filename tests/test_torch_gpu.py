@@ -6,7 +6,9 @@ kernel's rows in the same precision) and the doubles pair selection
 against their plain versions, and VMC steps (with the REDUCE forward
 dedup too, and with CG-SR) and the dense ``comb_hij`` that go through the
 kernels; the SR solvers against each other in f64 and ``safe_atan2``'s
-forward mode on the card; the dp-128 forward under ``hold_rows``.
+forward mode on the card; the dp-128 forward under ``hold_rows``; the
+data-parallel step over one NCCL rank (bit for bit the step without a
+mesh) and two gloo ranks on one card, and ``entry()``.
 
 They import neither JAX nor the JAX package, so they also run where only
 PyTorch for CUDA is installed.  On a machine with a card:
@@ -913,3 +915,64 @@ def test_a8_sampling_on_card(kind, dev):
             _, ua, ub = ar._place(model, k, r.clone(), ua, ub, v)
             prev = v
         assert (tot - 2 * model.log_psi(rows)[:, 0]).abs().max() < 1e-10
+
+
+def _dp_vmc(mesh, dev):
+    """Two REDUCE steps of a small chain (kernel #1 in bf16) with the AR
+    sampler over ``mesh`` (none: one process)."""
+    system = System.hubbard_1d(4, 2, 2, u=4.0)
+    model = GraphMPSRNN(8, 2, 2, dcut=4, phase_mode="arg", norm_mode="mpsrnn",
+                        dtype=torch.float32, device=dev,
+                        generator=torch.Generator().manual_seed(0))
+    sampler = ARSampler(8, 2, 2, n_sample=10_000, capacity=64, mesh=mesh)
+    vmc = VMC(model, system, sampler,
+              VMCConfig(lr=1e-2, optimizer="adamw", eloc_method="reduce", eloc_k_det=4,
+                        eloc_n_stoch=4, log_every=10**6))
+    fused_rnn.MMA_LAUNCHES.reset()
+    hist = vmc.run(torch.Generator(device=dev).manual_seed(3), 2)
+    return hist, {k: p.detach().cpu().numpy() for k, p in model.named_parameters()}
+
+
+def _gloo_rank(mesh):
+    from pynqs_tpu_torch.parallel import replicated_check
+
+    hist, params = _dp_vmc(mesh, mesh.device)
+    spread = replicated_check(mesh, {k: torch.as_tensor(v) for k, v in params.items()})
+    return {"history": hist, "launches": fused_rnn.MMA_LAUNCHES.n, "spread": spread}
+
+
+def test_world_one_nccl_step_equals_the_step_without_a_mesh(dev, tmp_path):
+    import torch.distributed as dist
+
+    from pynqs_tpu_torch.parallel import init_mesh
+
+    mesh = init_mesh("nccl", f"file://{tmp_path / 'store'}", 0, 1, dev)
+    try:
+        h1, p1 = _dp_vmc(mesh, dev)
+        l1 = fused_rnn.MMA_LAUNCHES.n
+    finally:
+        dist.destroy_process_group()
+    h0, p0 = _dp_vmc(None, dev)
+    assert l1 > 0 and h1 == h0
+    for k in p0:
+        np.testing.assert_array_equal(p1[k], p0[k], err_msg=k)
+
+
+def test_two_gloo_ranks_on_one_card_keep_their_parameters_equal(dev, tmp_path):
+    from pynqs_tpu_torch.parallel import run_ranks
+
+    out = run_ranks(_gloo_rank, 2, backend="gloo", device="cuda", timeout=300,
+                    rendezvous_dir=str(tmp_path))
+    assert out[0]["history"] == out[1]["history"]
+    assert all(r["spread"] == 0.0 and r["launches"] > 0 for r in out)
+    assert all(math.isfinite(e) for e in out[0]["history"])
+
+
+def test_entry_launches_kernel_1(dev):
+    from pynqs_tpu_torch.entry import entry
+
+    fn, args = entry()
+    fused_rnn.MMA_LAUNCHES.reset()
+    e = float(fn(*args))
+    torch.cuda.synchronize()
+    assert fused_rnn.MMA_LAUNCHES.n > 0 and math.isfinite(e)

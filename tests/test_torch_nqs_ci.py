@@ -9,9 +9,11 @@ integrals, the 6 heaviest determinants as D, and ``ci_chunk`` /
 once.  The same draw (the port sampler's rows and weights) and the same
 eigenvector go through the JAX package's ``_eloc_eval``, ``_hcn_eval``
 and ``_grad_step`` and through the port's pieces: the local energies,
-h_nn, H_cn and the heff eigenvalue to 1e-10, the parameters after one
-update to 1e-12, and after two iterations of ``run`` (the draw fixed on
-both sides) for strategies 0/1/2, with the warm-up floor on, to 1e-10."""
+h_nn, H_cn and the heff eigenvalue to 1e-10, and the parameters after
+two iterations of ``run`` (the draw fixed on both sides) for strategies
+0/1/2, with the warm-up floor on, to 1e-10.  One update per strategy is
+in ``tests/test_torch_nqs_ci_step.py``, the script in
+``tests/test_torch_nqs_ci_main.py``."""
 
 from functools import lru_cache
 
@@ -28,14 +30,9 @@ from pynqs_tpu.models.graph_mps_rnn import GraphMPSRNN as JModel
 from pynqs_tpu.utils import System as JSystem
 
 from pynqs_tpu_torch.ci.nqs_ci import NqsCi, NqsCiConfig
-from pynqs_tpu_torch.ci.solve import save_ci
-from pynqs_tpu_torch.ci.wavefunction import CIWavefunction
 from pynqs_tpu_torch.models.graph_mps_rnn import GraphMPSRNN
 from pynqs_tpu_torch.ops.integrals import triangle_size
-from pynqs_tpu_torch.scripts import fe2s2_nqsci_train
 from pynqs_tpu_torch.utils import fci
-from pynqs_tpu_torch.utils.checkpoint import load_params, save_params
-from pynqs_tpu_torch.utils.flagship import flagship_model
 from pynqs_tpu_torch.utils.system import System
 
 SORB, NOA, NOB, M = 8, 2, 2, 6
@@ -138,18 +135,6 @@ def test_pieces_equal_jax():
 
 
 @pytest.mark.parametrize("strategy", list(STRATEGIES))
-def test_grad_step_equals_jax(strategy):
-    """One update from the same draw, eigenvector and scale: every
-    parameter to 1e-12 (the H_cn backward chunked, the ‖φ'‖ term
-    differentiated)."""
-    ref = _jax(strategy)
-    tm, nc, (bits, w) = _port(strategy)
-    eloc, h_nn = nc.eloc_eval(bits, w)
-    nc.grad_step(bits, w, eloc, h_nn, ref["c"], 1.7)
-    assert _max_param_diff(tm, ref["stepped"]) < 1e-12
-
-
-@pytest.mark.parametrize("strategy", list(STRATEGIES))
 def test_run_equals_jax(strategy):
     """Two iterations of ``run`` on the fixed draw: the history (e_tot +
     ecore) and the parameters to 1e-10, the last eigenvector's |c_m|; the
@@ -165,66 +150,3 @@ def test_run_equals_jax(strategy):
     floor = nc.warmup_scale(0, c)
     assert floor > 1.5 if strategy in (0, 1) else floor == 1.0
     assert nc.warmup_scale(2, c) == 1.0  # start_iter 2: off from iteration 2
-
-
-def test_chunked_gradient_equals_one_chunk():
-    """The chunked H_cn and sampled-row backward against one chunk each
-    (1e-12), for the coupled strategy."""
-    ref = _jax(1)
-    grads = []
-    for chunk in (7, None):
-        tm, nc, (bits, w) = _port(1)
-        nc.cfg.ci_chunk = chunk
-        eloc, h_nn = nc.eloc_eval(bits, w)
-        grads.append(nc.gradients(bits, w, eloc, h_nn, ref["c"], 0.3))
-    assert max(float((a - b).abs().max()) for a, b in zip(*grads)) < 1e-12
-    assert max(float(g.abs().max()) for g in grads[0]) > 1e-3
-
-
-def test_draw_zeroes_the_ci_set():
-    """The port's draw: weights sum to 1 outside D and are 0 on D and on
-    dead slots."""
-    _, nc, _ = _port(1)
-    bits, w = nc.draw(torch.Generator().manual_seed(0))
-    assert abs(float(w.sum()) - 1.0) < 1e-12
-    assert (w[nc._in_d(bits)] == 0).all() and bool((w > 0).any())
-    with pytest.raises(ValueError, match="grad_strategy"):
-        NqsCi(_port_model(), _common()[0], _common()[4], NqsCiConfig(grad_strategy=3))
-
-
-@pytest.mark.parametrize("route", ["ci-file", "capture"])
-def test_nqsci_train_main_on_the_cpu(route, tmp_path, capsys):
-    """The script on a 16-orbital stand-in (the DAG with tensor coupling,
-    dcut 4), through ``--ci-file`` and through capture + selected CI: every
-    e_tot and |c_m| finite, the parameters changed and saved in the JAX
-    format under ``root``."""
-    rng = np.random.default_rng(5)
-    sorb = 16
-    h1e = rng.standard_normal((sorb, sorb)) * 0.1
-    h1e = (h1e + h1e.T) / 2
-    system = System.from_integrals(h1e, rng.standard_normal(triangle_size(sorb)) * 0.02,
-                                   sorb, 2, 2, ecore=1.5)
-    m = flagship_model(system, 4, use_tensor=True, max_preds=2, device="cpu",
-                       generator=torch.Generator().manual_seed(2))
-    ck = str(tmp_path / "s.pkl")
-    save_params(ck, dict(m.named_parameters()))
-    argv = [ck, "--dcut", "4", "--use-tensor", "--max-preds", "2", "--iters", "2",
-            "--n-sample", "20000", "--capacity", "64", "--ci-chunk", "512",
-            "--eloc-batch", "16", "--lr", "1e-2", "--tag", "t"]
-    if route == "ci-file":
-        space = fci.fci_bits(sorb, 2, 2)[::60][:12]
-        save_ci(str(tmp_path / "d.npz"), CIWavefunction(np.ones(len(space)), space), e_var=-1.0)
-        argv += ["--ci-file", str(tmp_path / "d.npz")]
-    else:
-        argv += ["--m", "10", "--seed-dets", "4", "--eps1", "1e-3"]
-    out = fe2s2_nqsci_train.main(argv, system=system, device="cpu", root=str(tmp_path))
-    text = capsys.readouterr().out
-    assert "NqsCi 2 iters" in text and "[nqsci] iter" in text
-    assert out["m"] == (12 if route == "ci-file" else 10)
-    assert len(out["history"]) == 2 and np.isfinite(out["history"]).all()
-    assert all(np.isfinite(s["c_m"]) and 0.0 < s["ci_mass"] < 1.0 for s in out["stats"])
-    saved = load_params(out["path"])
-    assert out["path"] == str(tmp_path / "checkpoints" / "fe2s2_r5_t.pkl")
-    before = dict(m.named_parameters())
-    assert set(saved) == set(before)
-    assert any(not np.allclose(saved[k], before[k].detach().numpy()) for k in saved)

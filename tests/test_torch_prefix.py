@@ -1,6 +1,7 @@
-"""The prefix-sharing forward: the port's plain version against the JAX
-package's (Pallas kernels in interpret mode) and against the port's flat
-forward, REDUCE with ``prefix_fwd`` against JAX's, and the VMC switch.
+"""The prefix-sharing forward: the t_min helpers against the JAX package,
+the port's plain version against the port's flat forward, and the VMC
+switch (against the JAX package's plain version and REDUCE: in
+``tests/test_torch_prefix_jax.py`` and ``tests/test_torch_prefix_reduce.py``).
 
 Tolerances: f32 mode 1e-5 on log|ψ| and 1e-4 on the unit-circle phase
 (both sides are f32 with the same rounding points; sums differ in
@@ -9,22 +10,17 @@ difference of one ulp can move h across a bf16 boundary).  The CUDA
 kernels are held against the plain version on the card in
 tests/test_torch_gpu.py and chip_smoke.py."""
 
-from functools import partial
-
 import numpy as np
 import jax
 import jax.numpy as jnp
 import pytest
 import torch
 
-from pynqs_tpu.energy.eloc import local_energy_reduce as jreduce
 from pynqs_tpu.models.graph_mps_rnn import GraphMPSRNN as JModel
 from pynqs_tpu.ops import fused_rnn_prefix as jpre
-from pynqs_tpu.ops.fused_rnn import graph_mpsrnn_logpsi_fused as jfused
 from pynqs_tpu.utils import System as JSystem
 from pynqs_tpu.utils import fci
 
-from pynqs_tpu_torch.energy.eloc import local_energy_reduce
 from pynqs_tpu_torch.models.graph_mps_rnn import GraphMPSRNN, grid_snake_graph
 from pynqs_tpu_torch.ops import fused_rnn
 from pynqs_tpu_torch.ops import fused_rnn_prefix as pre
@@ -101,26 +97,6 @@ def test_t_min_helpers_match_jax():
 
 
 @pytest.mark.parametrize("mm", ["f32", "bf16"])
-@pytest.mark.parametrize("modes", [("arg", "mpsrnn"), ("linear", "unit")])
-def test_prefix_plain_matches_jax_prefix(modes, mm):
-    jm, params, tm = _pair(10, 1, phase_mode=modes[0], norm_mode=modes[1])
-    parents, kids = _family(6, 20, 2)
-    tmin = jpre.t_min_process_order(jm, jnp.asarray(parents), jnp.asarray(kids))
-    assert (np.asarray(tmin) == 0).any() and (np.asarray(tmin) == tm.norb).any()
-    jp, jc = jpre.graph_mpsrnn_logpsi_fused_prefix(
-        jm, params, jnp.asarray(parents), jnp.asarray(kids), tmin, child_block=8,
-        parent_block=8, interpret=True,
-        matmul_dtype=jnp.float32 if mm == "f32" else jnp.bfloat16)
-    tp, tc = pre.graph_mpsrnn_logpsi_fused_prefix(
-        tm, torch.as_tensor(parents), torch.as_tensor(kids),
-        torch.as_tensor(np.array(tmin)),
-        matmul_dtype=torch.float32 if mm == "f32" else torch.bfloat16)
-    assert tp.shape == (6, 2) and tc.shape == (6, 20, 2)
-    _close(tp.numpy(), jp, TOL[mm])
-    _close(tc.numpy(), jc, TOL[mm])
-
-
-@pytest.mark.parametrize("mm", ["f32", "bf16"])
 def test_prefix_plain_matches_flat_plain(mm):
     """The same rows through the port's flat plain version; no launch is
     counted for CPU rows."""
@@ -147,32 +123,6 @@ def _systems(seed=0):
     h2e = rng.standard_normal(triangle_size(SORB)) * 0.02
     return (JSystem.from_integrals(h1e, h2e, SORB, N_EL, N_EL, dtype=np.float64),
             System.from_integrals(h1e, h2e, SORB, N_EL, N_EL))
-
-
-@pytest.mark.parametrize("topk", ["exact", "segmax"])
-def test_reduce_prefix_matches_jax(topk):
-    """k_det = n_sd: no tail, so both are deterministic.  The port's
-    REDUCE with its ReducePrefixForward against JAX's REDUCE with its own
-    (interpret mode), f32 forwards: 2e-5 (the JAX test's bound)."""
-    js, ts = _systems()
-    jm, params, tm = _pair(8, 11, phase_mode="arg", norm_mode="mpsrnn")
-    rows = BITS[np.random.default_rng(1).integers(0, len(BITS), size=10)]
-    n_sd = ts.excitation.n_sd
-    jops = tuple(jnp.asarray(np.asarray(x), jnp.float32) for x in js.tables.astuple())
-    jpf = jpre.ReducePrefixForward(jm, params, child_block=8, parent_block=8,
-                                   matmul_dtype=jnp.float32, interpret=True)
-    jflat = partial(jfused, jm, params, interpret=True, matmul_dtype=jnp.float32)
-    want = np.asarray(jreduce(
-        jflat, jnp.asarray(rows), jops, js.excitation, jax.random.PRNGKey(3), k_det=n_sd,
-        n_stoch=8, hpair=jnp.asarray(np.asarray(js.tables.hpair), jnp.float32), topk=topk,
-        prefix_fwd=jpf))
-    tt = ts.tables("cpu", torch.float32)
-    pf = pre.ReducePrefixForward(tm, matmul_dtype=torch.float32)
-    got = local_energy_reduce(
-        None, torch.as_tensor(rows), tt.astuple(), ts.excitation,
-        torch.Generator().manual_seed(3), k_det=n_sd, n_stoch=8, batch=4,
-        hpair=tt.hpair_sect, topk=topk, prefix_fwd=pf)
-    np.testing.assert_allclose(got.numpy(), want, atol=2e-5, rtol=0)
 
 
 def _vmc(model, ts, prefix, mm="f32"):
