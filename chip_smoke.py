@@ -13,9 +13,10 @@ Phases, one line each (and a few detail lines):
      csrc/pair_select.cu: the doubles pair selection), with the
      compiler's register report of every instantiation and the shared
      memory of each fused launch, the tensor-core kernel's at the chain,
-     r5g64, r5g64-at-dcut_cmpr-12 and dp-96 shapes in both modes (hidden
-     slots and coupling slot) and the prefix passes' at the step's row
-     counts in both modes;
+     r5g64, r5g64-at-dcut_cmpr-12, dp-96, dp-192 and dp-256 shapes in
+     both modes (hidden slots, coupling slot and, above dp 128, the pass
+     scratch) and the prefix passes' at the step's row counts in both
+     modes;
   3. the fused forward against its plain torch version on the card (bf16
      and f32 through the tensor-core kernel, f32 as three TF32 products,
      each launch counted in its mode; in f32 the CUDA-core kernel's error
@@ -201,7 +202,33 @@ Phases, one line each (and a few detail lines):
      rank) whose trace holds the four ``vmc.*`` ranges of iterations 2-4
      and kernel #1 by name, and
      ``pynqs_tpu_torch.bench.main()`` with BENCH_MODE flat and prefix,
-     each JSON line beside the card's name and power limit.
+     each JSON line beside the card's name and power limit;
+ 20. the last modules (``last_modules_run``): kernel #1 above dcut 128
+     (dp 256 in 4 passes of 128 outputs, dp 192 in 3) on chains
+     warm-started through ``utils.focus_ctns.load_focus_ctns_mpsrnn``
+     from raw FOCUS CTNS binaries the script writes (20 sites, bond
+     dimension 256 and 160, seeded block-sparse sectors), held by
+     ``hold_rows`` to its plain version on 65,536 random rows in bf16
+     and f32 (one launch each, counted in its mode); VMC steps in the
+     DMRG script's configuration (AR n 1e5, capacity 1024, REDUCE 512 /
+     128, eloc batch 256, AdamW 2e-4, clip 0.1; ``C4_STEPS``) at both
+     widths, the eloc forwards in bf16 and in f32 through kernel #1
+     alone, finite with w_sum 1; kernel #1 timed at both widths in both
+     modes on the eloc rows of one step beside its bound and the plain
+     version; at dp 192 the prefix passes on ``N_PREFIX`` random parents
+     and their single excitations held to their plain versions and bit
+     for bit the flat kernel's, timed; the peak memory; then
+     ``fe2s2_train_from_dmrg.main`` (``DMRG_ARGS``) from a dcut-20 state
+     the script writes and converts, its eloc forwards through kernel
+     #1, ``validate_fe2s2_import.main``, the example
+     ``examples/fe2s2_graph_mps_rnn.main`` (``EXAMPLE_ARGS``; the DAG
+     path at dp 32), ``spin_subspace_eval.main`` on the r5g64 state
+     (``SPIN_ARGS``), ``kdet_rebalance_check.main`` (``KDET_ARGS``),
+     ``measure_unique_chunks.main`` (``UNIQUE_ARGS``) and
+     ``measure_dfs_r3.main``, each on the stand-in integrals and
+     finite; ``fci_bits`` through the native enumerator (built with g++
+     into build/, its call counted); ``memory.auto_eloc_batch`` within
+     the memory ``mem_get_info`` leaves.
 
 The last two lines are the kernels' JSON summary and the result JSON.
 Any failed check raises, so the script exits non-zero with no result.
@@ -396,15 +423,17 @@ def ptxas_report(text):
         m = re.search(r"Compiling entry function '(\S+)'", ln)
         if m:
             t = re.search(r"ILi(\d+)ELi(\d+)ELb([01])E", m.group(1))
-            w = re.search(r"fused_rnn_mma_kernelILi(\d+)ELi(\d+)ELi(\d+)ELi(\d+)EE",
+            w = re.search(r"fused_rnn_mma_kernelILi(\d+)ELi(\d+)ELi(\d+)ELi(\d+)ELb([01])EE",
                           m.group(1))
             u = re.search(r"pair_select_(band|gather)I([fd])([il])Lb([01])E", m.group(1))
             if w:
                 mode = ("flat forward", "prefix parent", "prefix child")[int(w.group(3))]
                 warps = (f"{w.group(2)} warps of 16 rows" if w.group(2) != "0"
                          else "warps of 16 rows set at launch")
-                name = (f"tensor cores {('bf16', 'f32')[int(w.group(4))]}, {mode}, O "
-                        f"{16 * int(w.group(1))} outputs (dp {8 * int(w.group(1))}), {warps}")
+                width = (f"O {16 * int(w.group(1))} outputs (dp {8 * int(w.group(1))})"
+                         if w.group(5) == "0" else
+                         f"passes of {16 * int(w.group(1))} outputs (dp > 128)")
+                name = f"tensor cores {('bf16', 'f32')[int(w.group(4))]}, {mode}, {width}, {warps}"
             elif t:
                 name = (f"rows/warp {t.group(1)}, outputs/lane {t.group(2)}, "
                         f"W {'bf16' if t.group(3) == '1' else 'f32'}")
@@ -2216,6 +2245,405 @@ def entry_phase(dev, smi):
     return {"launches": n_entry, "bench": out}
 
 
+FOCUS_SECTOR = (8, 33)  # phase 20: sector sizes of the written FOCUS states, [lo, hi)
+C4_DCUTS = (256, 160)  # phase 20: the warm starts' bond dimensions (dp 256 and 192)
+C4_STEPS = {256: {"bf16": 2, "f32": 1}, 160: {"bf16": 1, "f32": 1}}  # phase 20's VMC steps
+N_PREFIX = (256, 16)  # phase 20: parents and single-excitation children per parent at dp 192
+DMRG_ARGS = ["--iters", "3"]  # of fe2s2_train_from_dmrg's 200
+EXAMPLE_ARGS = ["--iters", "5"]  # of the example's 1000
+SPIN_ARGS = [os.path.join("checkpoints", "fe2s2_r3_dcut64_r5g64.pkl"), "--dcut", "64",
+             "--use-tensor", "--max-preds", "2"]
+KDET_ARGS = ["--n-keys", "2"]
+UNIQUE_ARGS = [os.path.join("checkpoints", "fe2s2_r2_dcut96_final.pkl")]
+
+
+def write_focus_state(path, norb, bond, seed):
+    """A seeded stand-in for a DMRG state as a raw FOCUS CTNS binary: bonds
+    min(4^t, 4^(norb - t), bond), each cut into sectors of ``FOCUS_SECTOR``
+    states, the physical index into its 4 one-state sectors, a third of
+    the blocks zero.  Returns the bonds."""
+    from pynqs_tpu_torch.utils.focus_ctns import write_ctns_sites
+
+    rng = np.random.default_rng(seed)
+    D = [min(4 ** t, 4 ** (norb - t), bond) for t in range(norb + 1)]
+
+    def cut(n):
+        out = []
+        while n:
+            out.append(min(n, int(rng.integers(*FOCUS_SECTOR))))
+            n -= out[-1]
+        return out
+
+    parts = [cut(d) for d in D]
+    sites = []
+    for t in range(norb):
+        keep = rng.random((len(parts[t]), 4, len(parts[t + 1]))) >= 1 / 3
+        keep = np.repeat(np.repeat(keep, parts[t], 0), parts[t + 1], 2)
+        sites.append(rng.standard_normal((D[t], 4, D[t + 1])) / np.sqrt(D[t]) * keep)
+    write_ctns_sites(path, sites, [(parts[t], parts[t + 1], [1, 1, 1, 1]) for t in range(norb)])
+    return D
+
+
+def single_excitations(bits, per_row, seed):
+    """``per_row`` children of each row [B, sorb] (numpy int8), each one
+    electron moved to an empty orbital of the same spin: [B, per_row, sorb]."""
+    rng = np.random.default_rng(seed)
+    B, sorb = bits.shape
+    kids = np.repeat(bits[:, None], per_row, 1).copy()
+    for i in range(B):
+        for c in range(per_row):
+            s = int(rng.integers(2))
+            row = kids[i, c, s::2]
+            o, e = rng.choice(np.flatnonzero(row == 1)), rng.choice(np.flatnonzero(row == 0))
+            row[o], row[e] = 0, 1
+    return kids
+
+
+def last_modules_run(dev, smi, here, bound, flop_per_site, table_bytes, tol, timed):
+    """Phase 20: (a) kernel #1 at dcut > 128 (C4) on states warm-started
+    from raw FOCUS CTNS binaries the script writes (20 sites, bond
+    dimension 256 and 160: dp 256 in 4 passes of 128 outputs, dp 192 in
+    3), held by ``hold_rows`` on ``N_CMP`` random rows in bf16 and f32;
+    ``C4_STEPS`` VMC steps at each width in the DMRG script's
+    configuration, their eloc forwards through kernel #1 alone; kernel #1
+    timed on the eloc rows of the dp-256 run's last step at both widths in
+    both modes; at dp 192 the prefix passes held to their plain versions
+    and bit for bit the flat kernel's.  (b) the last ported scripts
+    through their ``main``s on the stand-in integrals and on state files
+    written here; ``fci_bits`` through the native library;
+    ``memory.auto_eloc_batch`` against the device's memory.  Writes only
+    in a temporary directory."""
+    import shutil
+    import tempfile
+
+    from pynqs_tpu_torch import native
+    from pynqs_tpu_torch.energy.eloc import local_energy_reduce
+    from pynqs_tpu_torch.examples import fe2s2_graph_mps_rnn
+    from pynqs_tpu_torch.models.graph_mps_rnn import GraphMPSRNN
+    from pynqs_tpu_torch.ops import fused_rnn
+    from pynqs_tpu_torch.ops import fused_rnn_prefix as pre
+    from pynqs_tpu_torch.optim.vmc import VMC, VMCConfig
+    from pynqs_tpu_torch.sampler.ar_sampler import ARSampler
+    from pynqs_tpu_torch.scripts import (
+        fe2s2_train_from_dmrg,
+        kdet_rebalance_check,
+        measure_dfs_r3,
+        measure_unique_chunks,
+        spin_subspace_eval,
+        validate_fe2s2_import,
+    )
+    from pynqs_tpu_torch.utils import fci, memory
+    from pynqs_tpu_torch.utils.focus_ctns import (
+        ctns_state_dict,
+        load_focus_ctns_mpsrnn,
+        read_ctns_sites,
+    )
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    norb = SORB // 2
+    system = standin_system()
+    counters = {"fused": fused_rnn.LAUNCHES, "bf16": fused_rnn.MMA_LAUNCHES,
+                "f32": fused_rnn.F32_MMA_LAUNCHES, "parent": pre.MMA_PARENT_LAUNCHES,
+                "child": pre.MMA_CHILD_LAUNCHES}
+
+    def reset():
+        for c in counters.values():
+            c.reset()
+
+    def counts():
+        return {k: c.n for k, c in counters.items()}
+
+    def eloc_rows(v, bits):
+        """The rows the eloc forward of ``bits`` hands the kernel."""
+        seen = []
+
+        def fwd(b):
+            seen.append(b)
+            return torch.zeros(b.shape[0], 2, device=b.device)
+
+        local_energy_reduce(fwd, bits, v._ops, v._table, torch.Generator(device=dev).manual_seed(20),
+                            k_det=v.cfg.eloc_k_det, n_stoch=v.cfg.eloc_n_stoch,
+                            batch=v.cfg.eloc_batch, hpair=v._hpair)
+        return torch.cat(seen)
+
+    work = tempfile.mkdtemp(prefix="chip_smoke_c4_")
+    out = {"held": {}, "times": {}, "launches": {}}
+    try:
+        reset_peak()
+        # ---- (a) the warm starts at dcut 256 and 160 ----
+        models = {}
+        for dcut in C4_DCUTS:
+            path = os.path.join(work, f"rcanon_isweep_d{dcut}.bin")
+            D, ms_w = timed(lambda: write_focus_state(path, norb, dcut, 20 + dcut))
+            m = GraphMPSRNN(SORB, NOA, NOB, dcut=dcut, phase_mode="arg", norm_mode="mpsrnn",
+                            dtype=f32, device=dev)
+            tree, ms_l = timed(lambda: load_focus_ctns_mpsrnn(path, m))
+            m.load_numpy_params(tree)
+            models[dcut] = m
+            dp = fused_rnn.mma_width(dcut)
+            log(20, f"FOCUS CTNS binary, {norb} sites, bonds {D}, "
+                    f"{os.path.getsize(path) / 2**20:.1f} MiB, written in {ms_w:.0f} ms; "
+                    f"load_focus_ctns_mpsrnn into a dcut-{dcut} chain in {ms_l:.0f} ms: dp {dp}, "
+                    f"{fused_rnn.mma_passes(dp)} passes of 128 outputs")
+            check(max(D) == dcut and len(read_ctns_sites(path)) == norb,
+                  f"the dcut-{dcut} FOCUS binary does not read back")
+        rows = torch.as_tensor(rand_dets(np.random.default_rng(20), N_CMP, SORB, NOA, NOB),
+                               device=dev)
+        for dcut, m in models.items():
+            T = fused_rnn.pack_tables(m)
+            T64 = {k: t.double() for k, t in T.items()}
+            for mm in (bf16, f32):
+                reset()
+                k_out = fused_rnn.graph_mpsrnn_logpsi_fused(m, rows, matmul_dtype=mm, tables=T)
+                sync()
+                lc = counts()
+                p_out = fused_rnn.graph_mpsrnn_logpsi_fused_plain(m, rows, matmul_dtype=mm,
+                                                                  tables=T)
+                q_out = fused_rnn.graph_mpsrnn_logpsi_fused_plain(m, rows, matmul_dtype=mm,
+                                                                  tables=T64)
+                ok, held, st = hold_rows(k_out, p_out, q_out, tol[mm])
+                sh = fused_rnn.mma_launch_shape(m, matmul_dtype=mm)
+                log(20, f"kernel #1 {str(mm).split('.')[-1]} dp {fused_rnn.mma_width(dcut)} vs "
+                        f"plain on {N_CMP} random rows: max|dlog|psi|| {st['max_a']:.3e} (tol "
+                        f"{tol[mm][0]:g}), max phase distance {st['max_p']:.3e}, median row "
+                        f"{st['med_a']:.3e} / {st['med_p']:.3e}, plain with f64 sums "
+                        f"{st['q_max_p']:.3e}; rows over the phase tolerance {st['over']} (plain "
+                        f"with f64 sums: {st['q_over']}); held: {held}; launches {lc}; "
+                        f"{sh['warps']} warps, "
+                        f"slots in {sh['slots']} memory, {sh['smem_bytes']} B shared")
+                check(ok, f"kernel #1 at dcut {dcut} ({mm}) disagrees with its plain version")
+                check(lc["fused"] == 1 and lc["bf16" if mm == bf16 else "f32"] == 1,
+                      f"kernel #1 at dcut {dcut} ({mm}) was not launched once in its mode: {lc}")
+                out["held"][(dcut, mm)] = st["max_a"]
+                del k_out, p_out, q_out
+        del rows
+
+        # ---- (a) VMC steps in the DMRG script's configuration ----
+        last = {}
+        for (dcut, m), mode in itertools.product(models.items(), ("bf16", "f32")):
+            cfg = VMCConfig(lr=2e-4, optimizer="adamw", clip_grad=0.1, eloc_method="reduce",
+                            eloc_k_det=512, eloc_n_stoch=128, eloc_batch=256,
+                            fused_matmul_dtype=mode)
+            sampler = ARSampler(SORB, NOA, NOB, n_sample=100_000, capacity=1024)
+            v = VMC(m, system, sampler, cfg)
+            g = torch.Generator(device=dev).manual_seed(dcut)
+            reset()
+            for i in range(C4_STEPS[dcut][mode]):
+                r, ms = timed(lambda: v.step(g, cfg.clip_grad))
+                log(20, f"dcut {dcut} {mode} step {i}: E {float(r['energy']):.6f} w_sum "
+                        f"{float(r['w_sum']):.8f} live {int(r['n_unique'])} gnorm "
+                        f"{float(r['gnorm']):.3e}; {ms / 1e3:.3f} s")
+                check(np.isfinite(float(r["energy"])) and abs(float(r["w_sum"]) - 1) <= 1e-5,
+                      f"dcut {dcut}: non-finite energy or w_sum != 1")
+            lc = counts()
+            log(20, f"dcut {dcut}: {C4_STEPS[dcut][mode]} step(s) with the eloc forwards in "
+                    f"{mode}, launches {lc}; max_memory_allocated {peak_gib():.3f} GiB")
+            check(lc[mode] > 0 and lc["fused"] == lc[mode],
+                  f"dcut {dcut}: the eloc forwards did not all go through kernel #1 in {mode}: "
+                  f"{lc}")
+            out["launches"][(dcut, bf16 if mode == "bf16" else f32)] = lc[mode]
+            last[dcut] = v
+        # the eloc rows of the dp-256 run's last step's samples
+        v = last[C4_DCUTS[0]]
+        bits, _, _ = v.sampler.sample(v.model, torch.Generator(device=dev).manual_seed(21))
+        trows = eloc_rows(v, bits)
+        n_rows = trows.shape[0]
+        CH = 1 << 16
+        for dcut, m in models.items():
+            T = fused_rnn.pack_tables(m)
+            fl = n_rows * norb * flop_per_site(dcut, 1)
+            nbytes = n_rows * SORB + n_rows * 2 * 4
+            for mm in (bf16, f32):
+                def plain(m=m, mm=mm, T=T):
+                    return torch.cat([fused_rnn.graph_mpsrnn_logpsi_fused_plain(
+                        m, trows[i:i + CH], matmul_dtype=mm, tables=T)
+                        for i in range(0, n_rows, CH)])
+
+                def kern(m=m, mm=mm, T=T):
+                    return fused_rnn.graph_mpsrnn_logpsi_fused(m, trows, matmul_dtype=mm,
+                                                               tables=T)
+
+                kern()
+                p1, k1, k2, p2 = cuda_ms(plain, 1), cuda_ms(kern, 2), cuda_ms(kern, 2), \
+                    cuda_ms(plain, 1)
+                k_ms, p_ms = (k1 + k2) / 2, (p1 + p2) / 2
+                b = bound(fl, nbytes + table_bytes(T, mm), bf16 if mm == bf16 else F32X3)
+                b_cc = bound(fl, nbytes + table_bytes(T, mm), f32) if mm == f32 else None
+                out["times"][(dcut, mm)] = (k_ms, p_ms, b, b_cc)
+                log(20, f"kernel #1 {str(mm).split('.')[-1]} dp {fused_rnn.mma_width(dcut)} on "
+                        f"the {n_rows} eloc rows of one step: {k_ms:.3f} ms "
+                        f"({fl / k_ms / 1e9:.2f} TFLOP/s), plain {p_ms:.3f} ms (in chunks of "
+                        f"{CH}), bound {b[0]:.3f} ms ({b[1]}"
+                        + (f", 3xTF32; {b_cc[0]:.3f} ms on the CUDA cores" if b_cc else "")
+                        + f"); gpu {smi}")
+        out["rows"] = n_rows
+        del trows
+
+        # ---- (a) the prefix passes at dp 192, bit for bit the flat kernel ----
+        # random parents and their single excitations, as phase 8 and the
+        # card tests take them.  (On this warm start's sampled rows the
+        # phase is a sign, arg of a real sum at the last site, and at 256
+        # parents x 16 the bf16 kernel and the plain version with f64 sums
+        # each put a few rows in 4352 past the phase tolerance, the same
+        # ill-conditioning as hold_rows' allowance of 1 in 1000 measures.)
+        m = models[160]
+        Bp, C = N_PREFIX
+        par = torch.as_tensor(rand_dets(np.random.default_rng(22), Bp, SORB, NOA, NOB), device=dev)
+        kids = torch.as_tensor(single_excitations(par.cpu().numpy(), C, 20), device=dev)
+        t_min = pre.t_min_process_order(m, par, kids)
+        T = fused_rnn.pack_tables(m)
+        T64 = {k: t.double() for k, t in T.items()}
+        par_idx = torch.arange(Bp, device=dev).repeat_interleave(C)
+        t_flat = t_min.reshape(-1)
+        kids_flat = kids.reshape(-1, SORB)
+        need = int((norb - t_flat.clamp(max=norb)).sum())
+        out["prefix"] = {}
+        for mm in (bf16, f32):
+            kw = dict(matmul_dtype=mm, tables=T)
+            reset()
+            lp, lk = pre.graph_mpsrnn_logpsi_fused_prefix(m, par, kids, t_min, **kw)
+            sync()
+            lc = counts()
+            pp, pk = pre.graph_mpsrnn_logpsi_fused_prefix_plain(m, par, kids, t_min, **kw)
+            # the same rows through the flat plain version with f64 sums
+            q = fused_rnn.graph_mpsrnn_logpsi_fused_plain(m, torch.cat([par, kids_flat]),
+                                                          matmul_dtype=mm, tables=T64)
+            ok, held, st = hold_rows(torch.cat([lp, lk.reshape(-1, 2)]),
+                                     torch.cat([pp, pk.reshape(-1, 2)]), q, tol[mm])
+            fp = fused_rnn.graph_mpsrnn_logpsi_fused(m, par, **kw)
+            fk = fused_rnn.graph_mpsrnn_logpsi_fused(m, kids_flat, **kw)
+            same = torch.equal(lp, fp) and torch.equal(lk.reshape(-1, 2), fk)
+            _, hh, sh = pre.prefix_parent(m, par, **kw)
+            passes = {
+                "parent": (lambda: pre.prefix_parent_plain(m, par, **kw),
+                           lambda: pre.prefix_parent(m, par, **kw)),
+                "child": (lambda: pre.prefix_child_plain(m, kids_flat, par_idx, t_flat, hh, sh,
+                                                         **kw),
+                          lambda: pre.prefix_child(m, kids_flat, par_idx, t_flat, hh, sh, **kw)),
+            }
+            hist = Bp * norb * (2 * 160 + pre.NSTATE) * 4
+            fl = flop_per_site(160, 1)
+            tb = table_bytes(T, mm)
+            peak_mm = bf16 if mm == bf16 else F32X3
+            bnd = {"parent": bound(Bp * norb * fl, Bp * SORB + Bp * 16 + hist + tb, peak_mm),
+                   "child": bound(need * fl, Bp * C * (SORB + 4 + 4 + 16) + hist + tb, peak_mm)}
+            res = {}
+            for what, (plain, kern) in passes.items():
+                kern()
+                p1, k1, k2, p2 = cuda_ms(plain, 1), cuda_ms(kern, 5), cuda_ms(kern, 5), \
+                    cuda_ms(plain, 1)
+                res[what] = ((k1 + k2) / 2, (p1 + p2) / 2, bnd[what])
+            log(20, f"prefix passes {str(mm).split('.')[-1]} dp 192, {Bp} parents x {C} single "
+                    f"excitations (t_min {int(t_flat.min())}..{int(t_flat.max())}, {need} "
+                    f"child site-steps): vs plain max|dlog|psi|| {st['max_a']:.3e}, max phase "
+                    f"distance {st['max_p']:.3e}, median row {st['med_a']:.3e} / "
+                    f"{st['med_p']:.3e}, rows over the phase tolerance {st['over']} (the plain "
+                    f"version with f64 sums: {st['q_over']}), held: {held}; bit for bit the flat kernel: "
+                    f"{same}; launches {lc}; "
+                    + "; ".join(f"{w} {k:.3f} ms, plain {p:.3f} ms, bound {b[0]:.4f} ms ({b[1]})"
+                                for w, (k, p, b) in res.items()) + f"; gpu {smi}")
+            check(ok, f"the dp-192 prefix passes ({mm}) disagree with their plain versions")
+            check(same, f"the dp-192 prefix passes ({mm}) differ from the flat kernel")
+            check(lc["parent"] == 1 and lc["child"] == 1,
+                  f"the dp-192 prefix passes ({mm}) were not launched once each: {lc}")
+            out["prefix"][mm] = {"err": st["max_a"], "launches": (lc["parent"], lc["child"]),
+                                 **res}
+            del hh, sh
+        log(20, f"(a) max_memory_allocated {peak_gib():.3f} GiB")
+        del models, last, v, m
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # ---- (b) the scripts through their mains ----
+        reset_peak()
+        path20 = os.path.join(work, "rcanon_isweep_d20.bin")
+        write_focus_state(path20, norb, 20, 40)
+        sd = ctns_state_dict(read_ctns_sites(path20))
+        focus = os.path.join(work, "fe2s2-standin-dcut-20-focus.pth")
+        torch.save({"params_M.all_sites": [torch.as_tensor(x) for x in sd["params_M.all_sites"]],
+                    "params_w.all_sites": torch.as_tensor(sd["params_w.all_sites"]),
+                    "params_c.all_sites": torch.as_tensor(sd["params_c.all_sites"])}, focus)
+        reset()
+        r, ms = timed(lambda: fe2s2_train_from_dmrg.main(DMRG_ARGS + ["--focus", focus],
+                                                         system=system, device=dev, root=work))
+        lc = counts()
+        log(20, f"fe2s2_train_from_dmrg.main({' '.join(DMRG_ARGS)}) from the dcut-20 state: "
+                f"history {[round(e, 6) for e in r['history']]}, {ms / 1e3:.2f} s with set-up; "
+                f"launches {lc}")
+        check(len(r["history"]) == 3 and np.isfinite(r["history"]).all(),
+              "fe2s2_train_from_dmrg: non-finite energies")
+        check(lc["bf16"] > 0 and lc["fused"] == lc["bf16"],
+              f"fe2s2_train_from_dmrg: the eloc forwards did not go through kernel #1: {lc}")
+        out["launches"]["dmrg"] = lc["bf16"]
+        r, ms = timed(lambda: validate_fe2s2_import.main(["--focus", focus], system=system,
+                                                         device=dev))
+        log(20, f"validate_fe2s2_import.main(): E(import) REDUCE {r['e_reduce']:.6f}, SIMPLE "
+                f"{r['e_simple']:.6f} ({(r['e_reduce'] - r['e_simple']) * 1e3:+.3f} mHa), "
+                f"{r['n_unique']} unique, kept {r['kept']}; {ms / 1e3:.2f} s")
+        check(np.isfinite(r["e_reduce"]) and np.isfinite(r["e_simple"]),
+              "validate_fe2s2_import: non-finite energies")
+        reset()
+        r, ms = timed(lambda: fe2s2_graph_mps_rnn.main(EXAMPLE_ARGS, system=system, device=dev))
+        lc = counts()
+        log(20, f"examples/fe2s2_graph_mps_rnn.main({' '.join(EXAMPLE_ARGS)}): dp "
+                f"{fused_rnn.mma_width(r['vmc'].model.dcut)} DAG of "
+                f"{r['vmc'].model.maxp} predecessors, history "
+                f"{[round(e, 6) for e in r['history']]}, {ms / 1e3:.2f} s; launches {lc}")
+        check(len(r["history"]) == 5 and np.isfinite(r["history"]).all() and lc["bf16"] > 0,
+              f"the example: non-finite energies or no kernel #1 launch ({lc})")
+        r, ms = timed(lambda: spin_subspace_eval.main(SPIN_ARGS, system=system, device=dev))
+        rws = r["rows"]
+        log(20, f"spin_subspace_eval.main(r5g64 state): {r['n_set']} determinants captured "
+                f"(dropped {r['dropped']:.3%}); " + ", ".join(
+                    f"{k} E {e:.6f} <S-S+> {ss:.4f}" for k, (e, ss) in rws.items())
+                + f"; {ms / 1e3:.2f} s")
+        check(all(np.isfinite(x) for e_ss in rws.values() for x in e_ss)
+              and rws["optimum"][0] <= min(e for e, _ in rws.values()) + 1e-6,
+              "spin_subspace_eval: non-finite, or the subspace optimum above a vector in it")
+        r, ms = timed(lambda: kdet_rebalance_check.main(KDET_ARGS, system=system, device=dev,
+                                                        root=here))
+        log(20, f"kdet_rebalance_check.main({' '.join(KDET_ARGS)}): " + "; ".join(
+            f"{c}: bias {s['bias'] * 1e3:+.4f} mHa, rms {s['rms'] * 1e3:.3f} mHa, spread "
+            f"{s['espread'] * 1e3:.4f} mHa" for c, s in r.items()) + f"; {ms / 1e3:.2f} s")
+        check(all(np.isfinite(x) for s in r.values() for x in s.values()),
+              "kdet_rebalance_check: non-finite")
+        r, ms = timed(lambda: measure_unique_chunks.main(UNIQUE_ARGS, system=system, device=dev,
+                                                         root=here))
+        log(20, f"measure_unique_chunks.main: live {r['live']}, dropped {r['dropped']:.4%}, "
+                f"unique rows per chunk {r['unique']} of {r['rows']}; {ms / 1e3:.2f} s")
+        check(all(0 < n <= r["rows"] for n in r["unique"]), "measure_unique_chunks: bad counts")
+        r, ms = timed(lambda: measure_dfs_r3.main(system=system, device=dev, root=here))
+        log(20, f"measure_dfs_r3.main: live per depth {r['live_per_depth']}; " + "; ".join(
+            f"n {x['n']:.0e} root {x['root']} depth {x['depth']} G {x['groups']}: dropped "
+            f"{x['dropped']:.4%}, live {x['live']}, {x['seconds']:.2f} s" for x in r["runs"])
+            + f"; {ms / 1e3:.2f} s")
+        check(all(0 < x["live"] <= x["groups"] * x["capacity"] for x in r["runs"]),
+              "measure_dfs_r3: bad live counts")
+        native.CALLS.reset()
+        fb, ms = timed(lambda: fci.fci_bits(20, 4, 4))
+        log(20, f"fci_bits(20, 4, 4): {fb.shape[0]} determinants through the native library "
+                f"({os.path.relpath(native.build(), here)}, {native.CALLS.n} call) in {ms:.1f} ms")
+        check(native.available() and native.CALLS.n == 1 and fb.shape == (44100, 20)
+              and np.array_equal(fb, fci.python_fci_bits(20, 4, 4)),
+              "fci_bits did not go through the native library")
+        stats = memory.device_memory_stats(dev)
+        free, total = torch.cuda.mem_get_info(dev)
+        n_sd = system.excitation.n_sd
+        chunk = memory.auto_eloc_batch(1 << 24, n_sd, SORB, device=dev)
+        per = (1 + n_sd) * (SORB + 5 * 4)
+        budget = 0.6 * (stats["bytes_limit"] - stats["bytes_in_use"])
+        log(20, f"memory: allocated {stats['bytes_in_use'] / 2**30:.2f} GiB, limit (free + "
+                f"reserved) {stats['bytes_limit'] / 2**30:.2f} GiB, mem_get_info free "
+                f"{free / 2**30:.2f} of {total / 2**30:.2f} GiB; auto_eloc_batch at n_sd {n_sd}: "
+                f"{chunk} samples ({chunk * per / 2**30:.2f} GiB of a {budget / 2**30:.2f} GiB "
+                f"budget); (b) max_memory_allocated {peak_gib():.3f} GiB")
+        check(stats["bytes_limit"] >= free and chunk * per <= budget < 2 * chunk * per,
+              "auto_eloc_batch does not fit the device's free memory")
+        return out
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
 def main():
     t_script = time.perf_counter()
     if not torch.cuda.is_available():
@@ -2285,14 +2713,18 @@ def main():
             ("r5g64 (dcut 64, tensor coupling, stand-in graph)",
              flagship_model(system, DCUT_R5, use_tensor=True, max_preds=MAXP_R5, device=dev)),
             (f"r5g64 graph at dcut_cmpr {DCMP_C3}", r5_graph_model(system, DCMP_C3, dev)),
-            ("chain dcut 96", GraphMPSRNN(SORB, NOA, NOB, dcut=96, device=dev))), (bf16, f32)):
+            ("chain dcut 96", GraphMPSRNN(SORB, NOA, NOB, dcut=96, device=dev)),
+            ("chain dcut 160", GraphMPSRNN(SORB, NOA, NOB, dcut=160, device=dev)),
+            ("chain dcut 256", GraphMPSRNN(SORB, NOA, NOB, dcut=256, device=dev))), (bf16, f32)):
         sh = fused_rnn.mma_launch_shape(m, matmul_dtype=mm)
         cs = 4 * fused_rnn.coupling_ksteps(m, mm) * 512
-        log(2, f"  tensor-core kernel {mmname(mm)} at {what}: dp {fused_rnn.mma_width(m.dcut)}, "
+        log(2, f"  tensor-core kernel {mmname(mm)} at {what}: dp {fused_rnn.mma_width(m.dcut)} "
+               f"({fused_rnn.mma_passes(fused_rnn.mma_width(m.dcut))} pass(es) of up to 128 "
+               f"outputs per value), "
                f"{sh['warps']} warps = {16 * sh['warps']} rows per CTA, {sh['nslots']} hidden "
                f"slot(s) and a coupling slot of {cs} B per warp in {sh['slots']} memory, dynamic "
                f"shared memory {sh['smem_bytes']} B per CTA (3 weight stages of 24,576 B + the "
-               f"slots)")
+               f"slots; above dp 128 also a scratch of 8 KB per pass per warp)")
     n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
     chain_m = GraphMPSRNN(SORB, NOA, NOB, dcut=DCUT, device=dev)
     for (what, n), mm in itertools.product((("parent", B), ("child", B * (K_DET + N_STOCH))),
@@ -3176,6 +3608,11 @@ def main():
     f19 = entry_phase(dev, smi)
     log(19, f"phase 19 in {time.perf_counter() - t19:.1f} s")
 
+    # ---- 20. the last modules: kernel #1 at dcut > 128 (C4), the DMRG warm starts, the scripts ----
+    t20 = time.perf_counter()
+    f20 = last_modules_run(dev, smi, here, bound, flop_per_site, table_bytes, tol, timed)
+    log(20, f"phase 20 in {time.perf_counter() - t20:.1f} s")
+
     def entry(name, replaces, launches_n, err, times, bnd, source="fused_rnn.cu", lib=None,
               **extra):
         return {
@@ -3300,6 +3737,30 @@ def main():
         entry("fused_rnn_forward_mma_hubbard2d", "pynqs_tpu/ops/fused_rnn.py:197",
               f17["hub"]["launches"], f17["hub"]["err"], f17["hub"]["times"], f17["hub"]["bound"],
               "fused_rnn_mma.cu", rows=f17["hub"]["rows"]),
+        # kernel #1 at dcut > 128 (C4, phase 20): dp 256 and 192 in each
+        # mode; launches: phase 20's VMC steps in the DMRG script's
+        # configuration with the eloc forwards in that mode (bf16 at dp
+        # 256: the 2 steps); max_abs_err: hold_rows on N_CMP random rows;
+        # times on the eloc rows of one step (rows); f32: bound_ms in
+        # 3xTF32, bound_f32_ms on the CUDA cores
+        *(entry(f"fused_rnn_forward_mma_dp{fused_rnn.mma_width(dc)}" + ("_f32" if mm == f32 else ""),
+                "pynqs_tpu/ops/fused_rnn.py:" + ("197" if mm == bf16 else "247"),
+                f20["launches"][(dc, mm)], f20["held"][(dc, mm)], f20["times"][(dc, mm)][:2],
+                f20["times"][(dc, mm)][2], "fused_rnn_mma.cu", rows=f20["rows"],
+                passes=fused_rnn.mma_passes(fused_rnn.mma_width(dc)),
+                **({"bound_f32_ms": f20["times"][(dc, mm)][3][0]} if mm == f32 else {}))
+          for dc, mm in itertools.product(C4_DCUTS, (bf16, f32))),
+        # kernels #2 and #3 at dp 192 (phase 20): N_PREFIX parents and their
+        # single excitations; launches: that check's, bf16; f32_*: the f32
+        # mode (3xTF32) on the same rows
+        *(entry(f"fused_rnn_prefix_{what}_dp192", f"pynqs_tpu/ops/fused_rnn_prefix.py:{line}",
+                f20["prefix"][bf16]["launches"][i], f20["prefix"][bf16]["err"],
+                f20["prefix"][bf16][what][:2], f20["prefix"][bf16][what][2], "fused_rnn_mma.cu",
+                f32_launches=f20["prefix"][f32]["launches"][i],
+                f32_max_abs_err=f20["prefix"][f32]["err"], f32_ms=f20["prefix"][f32][what][0],
+                f32_plain_ms=f20["prefix"][f32][what][1],
+                f32_bound_ms=f20["prefix"][f32][what][2][0])
+          for i, (what, line) in enumerate((("parent", 226), ("child", 264)))),
     ]}
     log("end", f"chip_smoke.py in {time.perf_counter() - t_script:.1f} s; gpu {smi}")
     print(json.dumps(summary))

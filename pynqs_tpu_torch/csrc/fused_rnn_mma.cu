@@ -150,6 +150,22 @@
 //    launch shape (warps per CTA, a runtime value in the prefix modes) is
 //    chosen by the host from the row count: the parent's 2048 rows run in
 //    CTAs of one warp, 128 CTAs, so that they spread over the SMs.
+//  * Any dcut (the JAX kernel pads dp to a multiple of 64 above 48).  Up
+//    to dp 128 a value's O outputs and the selected value's block stay in
+//    registers (NP up to 16).  Above, dp is a multiple of 64 and a value's
+//    O = 2 dp outputs are computed in npass = dp / 64 passes of 16 n8
+//    tiles (128 outputs, NP 8): each pass has its own accumulators over the
+//    same A fragments (the hidden's dp / 8 k16 or dp / 4 k8 steps, read
+//    from the slot as before) and its own run of the weight stream (the
+//    host packs W and KW pass by pass); the eta-weighted and plain quad
+//    sums are carried across the passes, and the selected value's z of
+//    each pass goes to a lane-private scratch [pass][n-tile][lane] of
+//    float4 beside the hidden slots (8 KB per warp and pass).  Once every
+//    pass of every value is done the row is normalized and h written to
+//    its slot pass by pass (pass q is k-steps 8q.. in bf16, 16q.. in f32).
+//    The pass count is a runtime argument of one instantiation per (mode,
+//    precision) (WIDE), whose registers are dp 64's accumulators without
+//    its register-held block.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -185,6 +201,7 @@ struct Args {
   // parent in hh [B, norb, 2d] and sh [B, norb, NSTATE]
   const int *site_chunk, *s0, *parent;
   float *hh, *sh;
+  int npass;  // passes of 128 outputs per value (dp > 128), else 1
 };
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
@@ -351,16 +368,27 @@ __device__ __forceinline__ int hidden_index(int col, int d) {
   return e < d ? half * d + e : -1;
 }
 
+// The same for a column of the whole O = 2 dp outputs at a runtime dp
+// (the passes of a wide value).
+__device__ __forceinline__ int hidden_index_dp(int col, int d, int dp) {
+  const int half = col >= dp, e = col - half * dp;
+  return e < d ? half * d + e : -1;
+}
+
 // NP = O / 16 pairs of n-tiles; WARPS warps of 16 rows per CTA (0: as
 // many as the launch gives, a runtime value); MODE: the flat forward,
 // the prefix parent or the prefix child pass (chains only); PREC: bf16,
-// or f32 as three TF32 products.
-template <int NP, int WARPS, int MODE, int PREC>
+// or f32 as three TF32 products; WIDE: NP (8) is one pass's, and each
+// value's outputs take a.npass passes (dp > 128).
+template <int NP, int WARPS, int MODE, int PREC, bool WIDE = false>
 __global__ void __launch_bounds__(WARPS ? WARPS * 32 : 256) fused_rnn_mma_kernel(const Args a) {
   constexpr bool F32 = PREC == PREC_F32X3;
-  constexpr int NT = 2 * NP;  // n8 tiles of one value's outputs
+  constexpr int NT = 2 * NP;  // n8 tiles of one value's outputs (WIDE: of one pass)
   constexpr int O = 16 * NP;
-  constexpr int KS = F32 ? NT : NP;  // k-steps of one hidden: k16 (bf16) or k8 (f32)
+  constexpr int KSP = F32 ? NT : NP;  // k-steps of O hidden entries: k16 (bf16) or k8 (f32)
+  const int npass = WIDE ? a.npass : 1;
+  const int KS = WIDE ? KSP * npass : KSP;  // k-steps of one hidden
+  const int OF = WIDE ? O * npass : O;      // one value's outputs, 2 dp
   const int nwarps = WARPS ? WARPS : (int)(blockDim.x >> 5);
   const int THREADS = nwarps * 32;
   extern __shared__ __align__(16) uint4 smem[];
@@ -373,11 +401,14 @@ __global__ void __launch_bounds__(WARPS ? WARPS * 32 : 256) fused_rnn_mma_kernel
   // of UW (1 or 2); nkw k-steps of KW_x
   const int cb = min(a.dcp, 8), ntu = cb / 4, uw_ksz = cb * 16;
   const int nkw = coupling_ksteps(a.use_tensor, a.dcp, PREC);
-  // one warp's file: its hidden slots, then its coupling slot [x][k-step][lane]
-  const size_t warp_u4 = a.nslots * slot_u4 + (size_t)4 * nkw * 32;
+  // one warp's file: its hidden slots, then its coupling slot
+  // [x][k-step][lane], then (WIDE) the selected z [pass][n-tile][lane]
+  const size_t warp_u4 =
+      a.nslots * slot_u4 + (size_t)4 * nkw * 32 + (WIDE ? (size_t)npass * NT * 32 : 0);
   uint4* slots = a.gslots ? a.gslots + ((size_t)blockIdx.x * nwarps + warp) * warp_u4
                           : smem + STAGES * STAGE_U4 + (size_t)warp * warp_u4;
   uint4* cslot = slots + a.nslots * slot_u4;
+  float4* zscr = reinterpret_cast<float4*>(cslot + 4 * nkw * 32) + lane;
 
   // the CTA's first position: 0, or (child) the smallest s0 of its rows;
   // the whole CTA starts there, and the weight stream at its first chunk
@@ -424,17 +455,21 @@ __global__ void __launch_bounds__(WARPS ? WARPS * 32 : 256) fused_rnn_mma_kernel
       const int sw = a.slot_w[t_begin - 1];
       if (sw >= 0) {
         const int d2 = 2 * a.d;
-        float h[NT][4];  // this lane's C fragments: [n-tile][row][column pair]
+        for (int pass = 0; pass < npass; ++pass) {  // WIDE: k-steps pass KSP..
+          float h[NT][4];  // this lane's C fragments: [n-tile][row][column pair]
 #pragma unroll
-        for (int n = 0; n < NT; ++n)
+          for (int n = 0; n < NT; ++n)
 #pragma unroll
-          for (int j = 0; j < 2; ++j) {
-            const int hi = hidden_index<NP>(n * 8 + 2 * cq + j, a.d);
+            for (int j = 0; j < 2; ++j) {
+              const int col = n * 8 + 2 * cq + j;
+              const int hi = WIDE ? hidden_index_dp(pass * O + col, a.d, OF / 2)
+                                  : hidden_index<NP>(col, a.d);
 #pragma unroll
-            for (int r = 0; r < 2; ++r)
-              h[n][2 * r + j] = (hi >= 0 && rows[r] < N) ? a.hh[src[r] * d2 + hi] : 0.f;
-          }
-        store_hidden<NP, F32>(slots + sw * slot_u4, lane, h);
+              for (int r = 0; r < 2; ++r)
+                h[n][2 * r + j] = (hi >= 0 && rows[r] < N) ? a.hh[src[r] * d2 + hi] : 0.f;
+            }
+          store_hidden<NP, F32>(slots + sw * slot_u4 + pass * KSP * 32, lane, h);
+        }
       }
     }
   }
@@ -546,79 +581,98 @@ __global__ void __launch_bounds__(WARPS ? WARPS * 32 : 256) fused_rnn_mma_kernel
     const int nks = np * KS + (tensor ? nkw : 0);
 #pragma unroll
     for (int x = 0; x < 4; ++x) {
-      float acc[NT][4];
+      if constexpr (WIDE) ws[0][x] = ws[1][x] = 0.f;
+      for (int pass = 0; pass < npass; ++pass) {  // WIDE: outputs pass O..
+        float acc[NT][4];
 #pragma unroll
-      for (int n = 0; n < NT; ++n)
+        for (int n = 0; n < NT; ++n)
 #pragma unroll
-        for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
-      walk(pipe, THREADS, nks, NP * 32, [&](int ks, const uint4* tile) {
-        uint4 A;
-        // (the bf16 prefix passes drop the coupling's test at compile time;
-        // in f32 that made ptxas schedule the prefix walk a third slower
-        // on an H100, so the f32 passes keep it: a measured choice)
-        if ((MODE != MODE_FLAT && !F32) || ks < np * KS) {
-          const int j = ks / KS, kl = ks - j * KS;
-          A = slots[(sr[j] * KS + kl) * 32 + lane];
-        } else {  // the last k-steps of a coupled site: pr_x @ KW_x
-          A = cslot[(x * nkw + ks - np * KS) * 32 + lane];
+          for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+        walk(pipe, THREADS, nks, NP * 32, [&](int ks, const uint4* tile) {
+          uint4 A;
+          // (the bf16 prefix passes drop the coupling's test at compile time;
+          // in f32 that made ptxas schedule the prefix walk a third slower
+          // on an H100, so the f32 passes keep it: a measured choice)
+          if ((MODE != MODE_FLAT && !F32) || ks < np * KS) {
+            const int j = ks / KS, kl = ks - j * KS;
+            A = slots[(sr[j] * KS + kl) * 32 + lane];
+          } else {  // the last k-steps of a coupled site: pr_x @ KW_x
+            A = cslot[(x * nkw + ks - np * KS) * 32 + lane];
+          }
+          if constexpr (F32) {
+            uint32_t ah[4], al[4];
+            split_a(A, ah, al);
+#pragma unroll
+            for (int p = 0; p < NP; ++p) {
+              const uint4 B = tile[p * 32 + lane];
+              mma3(acc[2 * p], ah, al, B.x, B.y);
+              mma3(acc[2 * p + 1], ah, al, B.z, B.w);
+            }
+          } else {
+#pragma unroll
+            for (int p = 0; p < NP; ++p) {
+              const uint4 B = tile[p * 32 + lane];
+              mma(acc[2 * p], A, B.x, B.y);
+              mma(acc[2 * p + 1], A, B.z, B.w);
+            }
+          }
+        });
+        // bias, square sums, keep the row's block
+        const float* vb = a.vcat + (size_t)(t * 4 + x) * OF + pass * O;
+        const float* eb = a.E + (size_t)(t * 4 + x) * OF + pass * O;
+        float pe0 = 0.f, ps0 = 0.f, pe1 = 0.f, ps1 = 0.f;
+#pragma unroll
+        for (int n = 0; n < NT; ++n) {
+          const int col = n * 8 + 2 * cq;
+          const float2 v = __ldg(reinterpret_cast<const float2*>(vb + col));
+          const float2 w = __ldg(reinterpret_cast<const float2*>(eb + col));
+          acc[n][0] += v.x;
+          acc[n][1] += v.y;
+          acc[n][2] += v.x;
+          acc[n][3] += v.y;
+          const float q0 = acc[n][0] * acc[n][0], q1 = acc[n][1] * acc[n][1];
+          const float q2 = acc[n][2] * acc[n][2], q3 = acc[n][3] * acc[n][3];
+          pe0 = fmaf(w.x, q0, fmaf(w.y, q1, pe0));
+          pe1 = fmaf(w.x, q2, fmaf(w.y, q3, pe1));
+          ps0 += q0 + q1;
+          ps1 += q2 + q3;
         }
-        if constexpr (F32) {
-          uint32_t ah[4], al[4];
-          split_a(A, ah, al);
+        pe0 = quad_sum(pe0);
+        ps0 = quad_sum(ps0);
+        pe1 = quad_sum(pe1);
+        ps1 = quad_sum(ps1);
+        if constexpr (WIDE) {  // sums carried across the passes, the block to scratch
+          ws[0][x] += pe0;
+          ws[1][x] += pe1;
+          ssq[0] += ps0;
+          ssq[1] += ps1;
+          if (xr[0] == x) selsq[0] += ps0;
+          if (xr[1] == x) selsq[1] += ps1;
+          float4* zq = zscr + pass * NT * 32;
 #pragma unroll
-          for (int p = 0; p < NP; ++p) {
-            const uint4 B = tile[p * 32 + lane];
-            mma3(acc[2 * p], ah, al, B.x, B.y);
-            mma3(acc[2 * p + 1], ah, al, B.z, B.w);
+          for (int n = 0; n < NT; ++n) {
+            float2* zp = reinterpret_cast<float2*>(zq + n * 32);
+            if (xr[0] == x) zp[0] = make_float2(acc[n][0], acc[n][1]);
+            if (xr[1] == x) zp[1] = make_float2(acc[n][2], acc[n][3]);
           }
         } else {
+          ws[0][x] = pe0;
+          ws[1][x] = pe1;
+          ssq[0] += ps0;
+          ssq[1] += ps1;
+          if (xr[0] == x) selsq[0] = ps0;
+          if (xr[1] == x) selsq[1] = ps1;
 #pragma unroll
-          for (int p = 0; p < NP; ++p) {
-            const uint4 B = tile[p * 32 + lane];
-            mma(acc[2 * p], A, B.x, B.y);
-            mma(acc[2 * p + 1], A, B.z, B.w);
+          for (int n = 0; n < NT; ++n) {
+            if (xr[0] == x) {
+              zsel[n][0] = acc[n][0];
+              zsel[n][1] = acc[n][1];
+            }
+            if (xr[1] == x) {
+              zsel[n][2] = acc[n][2];
+              zsel[n][3] = acc[n][3];
+            }
           }
-        }
-      });
-      // bias, square sums, keep the row's block
-      const float* vb = a.vcat + (size_t)(t * 4 + x) * O;
-      const float* eb = a.E + (size_t)(t * 4 + x) * O;
-      float pe0 = 0.f, ps0 = 0.f, pe1 = 0.f, ps1 = 0.f;
-#pragma unroll
-      for (int n = 0; n < NT; ++n) {
-        const int col = n * 8 + 2 * cq;
-        const float2 v = __ldg(reinterpret_cast<const float2*>(vb + col));
-        const float2 w = __ldg(reinterpret_cast<const float2*>(eb + col));
-        acc[n][0] += v.x;
-        acc[n][1] += v.y;
-        acc[n][2] += v.x;
-        acc[n][3] += v.y;
-        const float q0 = acc[n][0] * acc[n][0], q1 = acc[n][1] * acc[n][1];
-        const float q2 = acc[n][2] * acc[n][2], q3 = acc[n][3] * acc[n][3];
-        pe0 = fmaf(w.x, q0, fmaf(w.y, q1, pe0));
-        pe1 = fmaf(w.x, q2, fmaf(w.y, q3, pe1));
-        ps0 += q0 + q1;
-        ps1 += q2 + q3;
-      }
-      pe0 = quad_sum(pe0);
-      ps0 = quad_sum(ps0);
-      pe1 = quad_sum(pe1);
-      ps1 = quad_sum(ps1);
-      ws[0][x] = pe0;
-      ws[1][x] = pe1;
-      ssq[0] += ps0;
-      ssq[1] += ps1;
-      if (xr[0] == x) selsq[0] = ps0;
-      if (xr[1] == x) selsq[1] = ps1;
-#pragma unroll
-      for (int n = 0; n < NT; ++n) {
-        if (xr[0] == x) {
-          zsel[n][0] = acc[n][0];
-          zsel[n][1] = acc[n][1];
-        }
-        if (xr[1] == x) {
-          zsel[n][2] = acc[n][2];
-          zsel[n][3] = acc[n][3];
         }
       }
     }
@@ -644,46 +698,60 @@ __global__ void __launch_bounds__(WARPS ? WARPS * 32 : 256) fused_rnn_mma_kernel
       nrm[r] = a.norm_mpsrnn ? rsqrtf(fmaxf(ssq[r] / (float)(4 * a.d), 1e-30f))
                              : rsqrtf(fmaxf(selsq[r], 1e-30f));
     }
-    const float* pw0[2] = {a.PW + (size_t)(t * 4 + (a.phase_arg ? 0 : xr[0])) * O,
-                           a.PW + (size_t)(t * 4 + (a.phase_arg ? 0 : xr[1])) * O};
-    const float* pw1 = a.PW + (size_t)(t * 4 + 1) * O;
     float pa[2] = {0.f, 0.f}, pb[2] = {0.f, 0.f};
     const int sw = a.slot_w[t];
+    for (int pass = 0; pass < npass; ++pass) {  // WIDE: the pass's block from the scratch
+      const float* pw0[2] = {a.PW + (size_t)(t * 4 + (a.phase_arg ? 0 : xr[0])) * OF + pass * O,
+                             a.PW + (size_t)(t * 4 + (a.phase_arg ? 0 : xr[1])) * OF + pass * O};
+      const float* pw1 = a.PW + (size_t)(t * 4 + 1) * OF + pass * O;
+      if constexpr (WIDE) {
 #pragma unroll
-    for (int n = 0; n < NT; ++n) {
-      const int col = n * 8 + 2 * cq;
-      const float h0 = zsel[n][0] * nrm[0], h1 = zsel[n][1] * nrm[0];
-      const float h2 = zsel[n][2] * nrm[1], h3 = zsel[n][3] * nrm[1];
-      const float2 p0 = __ldg(reinterpret_cast<const float2*>(pw0[0] + col));
-      const float2 p1 = __ldg(reinterpret_cast<const float2*>(pw0[1] + col));
-      pa[0] = fmaf(h0, p0.x, fmaf(h1, p0.y, pa[0]));
-      pa[1] = fmaf(h2, p1.x, fmaf(h3, p1.y, pa[1]));
-      if (a.phase_arg) {
-        const float2 q = __ldg(reinterpret_cast<const float2*>(pw1 + col));
-        pb[0] = fmaf(h0, q.x, fmaf(h1, q.y, pb[0]));
-        pb[1] = fmaf(h2, q.x, fmaf(h3, q.y, pb[1]));
+        for (int n = 0; n < NT; ++n) {
+          const float4 v = zscr[(pass * NT + n) * 32];
+          zsel[n][0] = v.x;
+          zsel[n][1] = v.y;
+          zsel[n][2] = v.z;
+          zsel[n][3] = v.w;
+        }
       }
-      zsel[n][0] = h0;
-      zsel[n][1] = h1;
-      zsel[n][2] = h2;
-      zsel[n][3] = h3;
-    }
-    // the hidden into its slot, for the sites that take it as a
-    // predecessor
-    if (sw >= 0) store_hidden<NP, F32>(slots + sw * slot_u4, lane, zsel);
-    if constexpr (MODE == MODE_PARENT) {  // the f32 hidden, unpadded, into hh
-      const int rows[2] = {rg, rh};
 #pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        if (rows[r] < N) {
-          float* dst = a.hh + ((size_t)rows[r] * norb + t) * (2 * a.d);
+      for (int n = 0; n < NT; ++n) {
+        const int col = n * 8 + 2 * cq;
+        const float h0 = zsel[n][0] * nrm[0], h1 = zsel[n][1] * nrm[0];
+        const float h2 = zsel[n][2] * nrm[1], h3 = zsel[n][3] * nrm[1];
+        const float2 p0 = __ldg(reinterpret_cast<const float2*>(pw0[0] + col));
+        const float2 p1 = __ldg(reinterpret_cast<const float2*>(pw0[1] + col));
+        pa[0] = fmaf(h0, p0.x, fmaf(h1, p0.y, pa[0]));
+        pa[1] = fmaf(h2, p1.x, fmaf(h3, p1.y, pa[1]));
+        if (a.phase_arg) {
+          const float2 q = __ldg(reinterpret_cast<const float2*>(pw1 + col));
+          pb[0] = fmaf(h0, q.x, fmaf(h1, q.y, pb[0]));
+          pb[1] = fmaf(h2, q.x, fmaf(h3, q.y, pb[1]));
+        }
+        zsel[n][0] = h0;
+        zsel[n][1] = h1;
+        zsel[n][2] = h2;
+        zsel[n][3] = h3;
+      }
+      // the hidden into its slot, for the sites that take it as a
+      // predecessor
+      if (sw >= 0) store_hidden<NP, F32>(slots + sw * slot_u4 + pass * KSP * 32, lane, zsel);
+      if constexpr (MODE == MODE_PARENT) {  // the f32 hidden, unpadded, into hh
+        const int rows[2] = {rg, rh};
 #pragma unroll
-          for (int n = 0; n < NT; ++n)
+        for (int r = 0; r < 2; ++r) {
+          if (rows[r] < N) {
+            float* dst = a.hh + ((size_t)rows[r] * norb + t) * (2 * a.d);
 #pragma unroll
-            for (int j = 0; j < 2; ++j) {
-              const int hi = hidden_index<NP>(n * 8 + 2 * cq + j, a.d);
-              if (hi >= 0) dst[hi] = zsel[n][2 * r + j];
-            }
+            for (int n = 0; n < NT; ++n)
+#pragma unroll
+              for (int j = 0; j < 2; ++j) {
+                const int col = n * 8 + 2 * cq + j;
+                const int hi = WIDE ? hidden_index_dp(pass * O + col, a.d, OF / 2)
+                                    : hidden_index<NP>(col, a.d);
+                if (hi >= 0) dst[hi] = zsel[n][2 * r + j];
+              }
+          }
         }
       }
     }
@@ -740,25 +808,27 @@ __global__ void __launch_bounds__(WARPS ? WARPS * 32 : 256) fused_rnn_mma_kernel
 }
 
 // Whether a launch shape is one the kernel takes: warps of 16 rows per
-// CTA (4 or 8 for the flat forward, 1, 2, 4 or 8 for the prefix passes),
-// the slots in shared memory (slots_shared) or in global memory, and
-// smem bytes of dynamic shared memory that hold the stages and the slots
-// (each warp's nslots hidden slots and its coupling slot of ncs k-steps).
-// The host (pynqs_tpu_torch/ops/fused_rnn.py::mma_launch_shape) chooses
-// the shape.
-bool shape_ok(int mode, int prec, int NP, int nslots, int ncs, int warps, int slots_shared,
-              int smem) {
-  const bool w_ok = mode == MODE_FLAT ? (warps == 4 || warps == 8)
+// CTA (4 or 8 for the flat forward, 4 above dp 128; 1, 2, 4 or 8 for the
+// prefix passes), the slots in shared memory (slots_shared) or in global
+// memory, and smem bytes of dynamic shared memory that hold the stages
+// and the slots (each warp's nslots hidden slots of dp / 8 x 512 bytes,
+// twice that in f32, its coupling slot of ncs k-steps and, in npass > 1
+// passes, its scratch of npass x 16 n-tiles).  The host
+// (pynqs_tpu_torch/ops/fused_rnn.py::mma_launch_shape) chooses the shape.
+bool shape_ok(int mode, int prec, int dp, int npass, int nslots, int ncs, int warps,
+              int slots_shared, int smem) {
+  const bool w_ok = mode == MODE_FLAT ? (warps == 4 || (warps == 8 && npass == 1))
                                       : (warps == 1 || warps == 2 || warps == 4 || warps == 8);
-  const long slot = (long)NP * 512 * (prec == PREC_F32X3 ? 2 : 1);  // one slot of one warp
-  const long file = (long)nslots * slot + (long)ncs * 512;          // one warp's slots
+  const long slot = (long)dp / 8 * 512 * (prec == PREC_F32X3 ? 2 : 1);  // one slot of one warp
+  const long file = (long)nslots * slot + (long)ncs * 512 +
+                    (npass > 1 ? (long)npass * 16 * 512 : 0);  // one warp's slots
   const long need = (long)STAGES * STAGE_U4 * 16 + (slots_shared ? warps * file : 0);
   return w_ok && nslots >= 1 && smem >= need && smem <= SMEM_LIMIT;
 }
 
-template <int NP, int WARPS, int MODE, int PREC>
+template <int NP, int WARPS, int MODE, int PREC, bool WIDE>
 cudaError_t launch(const Args& a, int warps, int smem, cudaStream_t stream) {
-  auto kern = fused_rnn_mma_kernel<NP, WARPS, MODE, PREC>;
+  auto kern = fused_rnn_mma_kernel<NP, WARPS, MODE, PREC, WIDE>;
   cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   const int rows = warps * 16;
@@ -766,28 +836,37 @@ cudaError_t launch(const Args& a, int warps, int smem, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-// the flat forward's warp count is a template argument, the prefix
-// passes' a runtime value
-template <int NP, int MODE, int PREC>
+// the flat forward's warp count is a template argument (4 above dp 128),
+// the prefix passes' a runtime value
+template <int NP, int MODE, int PREC, bool WIDE = false>
 cudaError_t launch_np(const Args& a, int warps, int smem, cudaStream_t stream) {
-  if constexpr (MODE == MODE_FLAT)
-    return warps == 8 ? launch<NP, 8, MODE, PREC>(a, warps, smem, stream)
-                      : launch<NP, 4, MODE, PREC>(a, warps, smem, stream);
+  if constexpr (MODE == MODE_FLAT && WIDE)
+    return launch<NP, 4, MODE, PREC, WIDE>(a, warps, smem, stream);
+  else if constexpr (MODE == MODE_FLAT)
+    return warps == 8 ? launch<NP, 8, MODE, PREC, WIDE>(a, warps, smem, stream)
+                      : launch<NP, 4, MODE, PREC, WIDE>(a, warps, smem, stream);
   else
-    return launch<NP, 0, MODE, PREC>(a, warps, smem, stream);
+    return launch<NP, 0, MODE, PREC, WIDE>(a, warps, smem, stream);
 }
 
+// dp 16, 32, 48, 64, 96 or 128 in registers, or a multiple of 64 above
+// 128 in dp / 64 passes of 128 outputs
 template <int MODE, int PREC>
-int run(const Args& a, int dp, int warps, int slots_shared, int smem, void* stream) {
-  if (dp != 16 && dp != 32 && dp != 48 && dp != 64 && dp != 96 && dp != 128)
+int run(const Args& args, int dp, int warps, int slots_shared, int smem, void* stream) {
+  const bool wide = dp > 128;
+  if (wide ? dp % 64 != 0
+           : (dp != 16 && dp != 32 && dp != 48 && dp != 64 && dp != 96 && dp != 128))
     return (int)cudaErrorInvalidValue;
+  Args a = args;
+  a.npass = wide ? dp / 64 : 1;
   if (a.use_tensor && a.dcp != 4 && (a.dcp <= 0 || a.dcp % 8 != 0))
     return (int)cudaErrorInvalidValue;
   const int ncs = 4 * coupling_ksteps(a.use_tensor, a.dcp, PREC);
-  if (!shape_ok(MODE, PREC, dp / 8, a.nslots, ncs, warps, slots_shared, smem))
+  if (!shape_ok(MODE, PREC, dp, a.npass, a.nslots, ncs, warps, slots_shared, smem))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t e;
+  if (wide) return (int)launch_np<8, MODE, PREC, true>(a, warps, smem, s);
   switch (dp / 8) {
     case 2: e = launch_np<2, MODE, PREC>(a, warps, smem, s); break;
     case 4: e = launch_np<4, MODE, PREC>(a, warps, smem, s); break;
@@ -894,7 +973,8 @@ int prefix_child(FORWARD_PARAMS, int warps, int slots_shared, int smem, void* gs
 // that in f32, + the coupling slot's 4 * nkw * 512)), else ignored.  Each
 // launches on ``stream`` and returns cudaGetLastError() of the launch, or
 // cudaErrorInvalidValue for a width or shape the kernel does not take
-// (dcp, the padded dcut_cmpr, must be 4 or a multiple of 8).
+// (dp as mma_width gives it: 16, 32, 48, 64, 96, 128 or a multiple of 64
+// above; dcp, the padded dcut_cmpr, must be 4 or a multiple of 8).
 // The flat forward (kernel #1): a DAG of up to mp predecessors per site,
 // with the tensor coupling where use_tensor.
 extern "C" int fused_rnn_forward_mma(FORWARD_PARAMS, int mp, int use_tensor, int dcp, int warps,

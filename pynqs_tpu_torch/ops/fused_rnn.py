@@ -25,7 +25,8 @@ prefix-sharing entry points.)  The earlier CUDA-core kernel
 (``csrc/fused_rnn.cu``) is reached only to time and check it beside the
 tensor-core kernel (``_launch_simt`` in bf16, ``_launch_f32_cuda_cores``
 in f32; the prefix passes' ``_launch_prefix_simt``).  The tensor-core
-kernel takes dcut <= 128 (``MMA_WIDTHS``) and any dcut_cmpr.
+kernel takes any dcut (``mma_width``: dp up to 128 in registers, above
+in passes of 128 outputs, ``mma_passes``) and any dcut_cmpr.
 """
 
 from __future__ import annotations
@@ -59,7 +60,7 @@ _NEG = -1e30
 LAUNCHES = Counter()  # every launch of the fused forward (any kernel, any mode)
 MMA_LAUNCHES = Counter()  # launches of the tensor-core kernel in bf16
 F32_MMA_LAUNCHES = Counter()  # launches of the tensor-core kernel in f32 (3xTF32)
-MMA_WIDTHS = (16, 32, 48, 64, 96, 128)  # padded d (dp) the tensor-core kernel takes
+MMA_WIDTHS = (16, 32, 48, 64, 96, 128)  # padded d (dp) held in registers; above, multiples of 64
 STAGE_U4 = 24576 // 16  # one weight stage of the tensor-core kernel, in 16-byte units
 STAGES = 3  # weight stages of the tensor-core kernel
 SMEM_LIMIT = 232448  # dynamic shared memory one CTA may use on sm_90, bytes
@@ -158,12 +159,19 @@ def hidden_slots(model) -> tuple:
 
 def mma_width(d: int) -> int:
     """The padded d (dp) of the tensor-core kernel: O = 2 dp outputs make
-    whole pairs of n8 tiles and whole k16 steps."""
+    whole pairs of n8 tiles and whole k16 steps; above 128 a multiple of
+    64, as the JAX kernel pads it, so that O is whole passes of 128."""
     for dp in MMA_WIDTHS:
         if d <= dp:
             return dp
-    raise ValueError(f"the tensor-core kernel takes dcut <= {MMA_WIDTHS[-1]}, not {d} (wider "
-                     f"sites need their outputs in passes: ROADMAP.md Queue C, C4)")
+    return -(-d // 64) * 64
+
+
+def mma_passes(dp: int) -> int:
+    """The passes of 128 outputs (16 n8 tiles) in which the kernel
+    computes a value's O = 2 dp outputs: 1 up to dp 128 (all in
+    registers), dp / 64 above."""
+    return 1 if dp <= MMA_WIDTHS[-1] else dp // 64
 
 
 def coupling_width(model) -> int:
@@ -222,7 +230,8 @@ def pack_mma_tables(model, tables=None, matmul_dtype=torch.bfloat16) -> dict:
     """Operands of the tensor-core kernel in ``matmul_dtype`` (bf16, or
     f32 for its 3xTF32 mode), from ``pack_tables``' f32 tables
     (``tables``, or the model's own).  With dp = ``mma_width(d)``, O =
-    2 dp, NP = O / 16, dcp = ``coupling_width`` (4 or a multiple of 8),
+    2 dp, NP = O / 16, npass = ``mma_passes(dp)`` passes of O / npass
+    columns each, dcp = ``coupling_width`` (4 or a multiple of 8),
     its blocks of cb = min(dcp, 8) c's, nkw = ``coupling_ksteps``, KS the
     k-steps of one hidden (NP of k16 in bf16, 2 NP of k8 in f32) and
     ``frag`` = ``_frag`` (bf16) or ``_frag_tf32`` (f32):
@@ -234,11 +243,12 @@ def pack_mma_tables(model, tables=None, matmul_dtype=torch.bfloat16) -> dict:
                   predecessor j, KS k-steps of ``frag`` of B_jb [2 dp,
                   8 cb], rows (re|im, e < dp) of predecessor j's hidden,
                   columns (x, c in block b, re|im) of u_{j,x,c};
-                per value x: np * KS k-steps of ``frag`` of W[t, x]
-                  [2 dp · mp, O] (rows (j, re|im, e), columns (re|im,
-                  dd)), then (coupled) the nkw k-steps of KW_x, rows
-                  (c, re|im) of the product, zero past 2 dcp: [16, O]
-                  per block of 8 c's (bf16), [8, O] per 4 c's (f32);
+                per value x and pass q: np * KS k-steps of ``frag`` of
+                  pass q's columns of W[t, x] [2 dp · mp, O] (rows (j,
+                  re|im, e), columns (re|im, dd)), then (coupled) the nkw
+                  k-steps of pass q's columns of KW_x, rows (c, re|im) of
+                  the product, zero past 2 dcp: [16, O] per block of 8
+                  c's (bf16), [8, O] per 4 c's (f32);
       chunks  int32 [n, 2] (offset, length) in 16-byte units: each run of
               k-steps above cut into chunks of at most STAGE_U4 units;
       site_chunk  int32 [norb + 1]: the index in ``chunks`` of each
@@ -246,7 +256,7 @@ def pack_mma_tables(model, tables=None, matmul_dtype=torch.bfloat16) -> dict:
               stream there), len(chunks) at norb;
       vcat, E, PW  f32 [norb, 4, O], d padded to dp in each half; SC;
       slot_w, slot_r, nslots  ``hidden_slots``; order, npred int32;
-      dp, dcp, nkw, NP, KS.
+      dp, dcp, nkw, NP, KS, npass.
 
     Cached per model and type, while ``tables`` (or the model's
     parameters) are the same tensors at the same version: an optimizer
@@ -269,14 +279,18 @@ def pack_mma_tables(model, tables=None, matmul_dtype=torch.bfloat16) -> dict:
 def _pack_mma(model, T, mmdt) -> dict:
     norb, d, mp = model.norb, model.dcut, model.maxp
     dp = mma_width(d)
-    O, NP = 2 * dp, dp // 8
+    O, NP, npass = 2 * dp, dp // 8, mma_passes(dp)
     dev, f = T["W"].device, torch.float32
     f32 = mmdt == torch.float32
     frag, KS = (_frag_tf32, 2 * NP) if f32 else (_frag, NP)
+
+    def by_pass(B):  # [..., K, O] -> [..., npass, K, O / npass]
+        return B.reshape(*B.shape[:-1], npass, O // npass).movedim(-2, -3)
+
     pad_d = lambda v: F.pad(v.reshape(*v.shape[:-1], 2, d), (0, dp - d)).reshape(  # noqa: E731
         *v.shape[:-1], O)
     W = F.pad(T["W"].reshape(norb, 4, mp, 2, d, 2, d), (0, dp - d, 0, 0, 0, dp - d))
-    Wf = frag(W.reshape(norb, 4, mp * O, O).to(mmdt))  # [norb, 4, mp KS, 16 O or 8 O]
+    Wf = frag(by_pass(W.reshape(norb, 4, mp * O, O)).to(mmdt))  # [norb, 4, npass, mp KS, .]
     coupled = [model.use_tensor and len(ps) >= 2 for ps in model.preds]
     dcp, nkw = coupling_width(model), coupling_ksteps(model, mmdt)
     if model.use_tensor:
@@ -299,7 +313,7 @@ def _pack_mma(model, T, mmdt) -> dict:
         KW[:, :, :dc, 0, 1, :d] = Ki
         KW[:, :, :dc, 1, 0, :d] = -Ki
         KW[:, :, :dc, 1, 1, :d] = Kr
-        KWf = frag(KW.reshape(norb, 4, -1, O).to(mmdt))  # [norb, 4, nkw, ...]
+        KWf = frag(by_pass(KW.reshape(norb, 4, -1, O)).to(mmdt))  # [norb, 4, npass, nkw, .]
     pieces, chunks, off = [], [], 0
 
     def segment(ks):  # ks [n k-steps, ksz 16-byte units]
@@ -320,8 +334,9 @@ def _pack_mma(model, T, mmdt) -> dict:
             for b in range(UWf.shape[2]):  # a segment per block of c's
                 segment(UWf[t, :npd, b].reshape(npd * KS, -1))
         for x in range(4):
-            ks = Wf[t, x, : npd * KS]
-            segment(torch.cat([ks, KWf[t, x]]) if coupled[t] else ks)
+            for q in range(npass):
+                ks = Wf[t, x, q, : npd * KS]
+                segment(torch.cat([ks, KWf[t, x, q]]) if coupled[t] else ks)
     site_chunk.append(len(chunks))
     slot_w, slot_r, nslots = hidden_slots(model)
     i32 = dict(dtype=torch.int32, device=dev)
@@ -335,7 +350,7 @@ def _pack_mma(model, T, mmdt) -> dict:
         "nslots": nslots,
         "order": torch.tensor(model.site_order, **i32),
         "npred": torch.tensor([len(p) for p in model.preds], **i32),
-        "dp": dp, "dcp": dcp, "nkw": nkw, "NP": NP, "KS": KS,
+        "dp": dp, "dcp": dcp, "nkw": nkw, "NP": NP, "KS": KS, "npass": npass,
     }
 
 
@@ -625,22 +640,27 @@ def mma_launch_shape(model, n_rows=None, n_sm=None, matmul_dtype=torch.bfloat16)
     memory of one CTA in bytes.  A slot of one warp holds 16 rows' hidden,
     dp / 8 x 512 bytes in bf16, twice that in f32; with the tensor
     coupling each warp also has a coupling slot of 4 nkw x 512 bytes
-    (``coupling_ksteps``), which lives with the hidden slots.
+    (``coupling_ksteps``), and above dp 128 a scratch for the selected
+    value's outputs of npass x 8 KB (``mma_passes``; f32 in either
+    precision), both beside the hidden slots.
 
     The flat forward (``n_rows`` None) takes 8 warps where the slots fit
     in shared memory beside the weight stages, else 4, else 4 with the
-    slots in global memory.  The prefix passes give their row count and
+    slots in global memory (above dp 128 the kernel takes 4 only).  The prefix passes give their row count and
     the card's SM count ``n_sm``: from that start the warps are halved,
     down to 1, while the CTAs would not fill ``n_sm`` SMs, since every CTA
     streams all of W whatever its rows (2048 rows: 1 warp, 128 CTAs;
     large N keeps 8).  Then "ctas" is the grid too."""
     dp = mma_width(model.dcut)
+    npass = mma_passes(dp)
     nslots = hidden_slots(model)[2]
     slot = dp // 8 * 512 * (2 if matmul_dtype == torch.float32 else 1)
-    file = nslots * slot + 4 * coupling_ksteps(model, matmul_dtype) * 512  # one warp's slots
+    scratch = npass * 16 * 512 if npass > 1 else 0
+    file = (nslots * slot + 4 * coupling_ksteps(model, matmul_dtype) * 512
+            + scratch)  # one warp's slots
     stages = STAGES * STAGE_U4 * 16
     warps, shared = 4, False
-    for w in (8, 4):
+    for w in (8, 4) if npass == 1 else (4,):
         if stages + w * file <= SMEM_LIMIT:
             warps, shared = w, True
             break
@@ -675,8 +695,10 @@ def mma_operands(model, tables, dev, N, shape, matmul_dtype=torch.bfloat16) -> t
     if P["tab"].device != dev:
         raise ValueError(f"the model's tables must be on {dev}")
     rows = 16 * shape["warps"]
-    # one row's hidden slots and its share of its warp's coupling slot
-    row_bytes = P["nslots"] * 2 * P["dp"] * P["tab"].element_size() + 4 * P["nkw"] * 512 // 16
+    # one row's hidden slots and its share of its warp's coupling slot and
+    # (above dp 128) of its scratch
+    row_bytes = (P["nslots"] * 2 * P["dp"] * P["tab"].element_size() + 4 * P["nkw"] * 512 // 16
+                 + (P["npass"] * 16 * 512 // 16 if P["npass"] > 1 else 0))
     n_gslot = 0 if shape["slots"] == "shared" else -(-N // rows) * rows * row_bytes
     gslots = torch.empty(n_gslot, dtype=torch.uint8, device=dev)  # the hidden file
     head = (

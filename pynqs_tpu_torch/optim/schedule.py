@@ -13,17 +13,19 @@ import math
 __all__ = ["exponential_decay", "ref_schedule"]
 
 
-def exponential_decay(init_value: float, transition_steps: int, decay_rate: float):
-    """``optax.exponential_decay`` without staircase, begin or end value:
-    init · rate^(count / steps), and init at count ≤ 0; constant, as
-    optax's, for steps ≤ 0 or rate 0."""
+def exponential_decay(init_value: float, transition_steps: int, decay_rate: float,
+                      end_value: float | None = None):
+    """``optax.exponential_decay`` without staircase or begin: init ·
+    rate^(count / steps), and init at count ≤ 0; constant, as optax's,
+    for steps ≤ 0 or rate 0.  ``end_value`` bounds it, as optax's: from
+    below for a rate under 1, from above otherwise."""
     if transition_steps <= 0 or decay_rate == 0:
         return lambda count: float(init_value)
+    clip = max if decay_rate < 1 else min
 
     def schedule(count: int) -> float:
-        if count <= 0:
-            return float(init_value)
-        return init_value * decay_rate ** (count / transition_steps)
+        v = float(init_value) if count <= 0 else init_value * decay_rate ** (count / transition_steps)
+        return v if end_value is None else clip(v, float(end_value))
 
     return schedule
 

@@ -1,22 +1,38 @@
 """Host-side determinant spaces (numpy).
 
 Counterpart of ``pynqs_tpu/utils/fci.py`` (``fci_bits``, ``fock_bits``,
-``hf_index``; the native C++ enumerator for large spaces is not ported).
+``hf_index``).  Above 4096 determinants ``fci_bits`` enumerates through
+the native C++ library (``pynqs_tpu_torch/native``), as the JAX function
+does, where it can be built; the order is the same either way.
 """
 
 from __future__ import annotations
 
 from itertools import combinations
+from math import comb
 
 import numpy as np
 
-__all__ = ["fci_bits", "fock_bits", "hf_index"]
+__all__ = ["fci_bits", "fock_bits", "hf_index", "python_fci_bits"]
 
 
 def fci_bits(sorb: int, noa: int, nob: int) -> np.ndarray:
     """All (noa, nob) determinants as unpacked bits [n_fci, sorb] int8,
     even bits alpha and odd bits beta, ascending by the packed
-    little-endian integer value (the JAX package's order)."""
+    little-endian integer value (the JAX package's order); through the
+    native enumerator above 4096 determinants (up to 64 spatial
+    orbitals) where it is available."""
+    norb = sorb // 2
+    if comb(norb, noa) * comb(norb, nob) > 4096 and norb <= 64:
+        from pynqs_tpu_torch import native
+
+        if native.available():
+            return native.fci_space_bits(sorb, noa, nob)
+    return python_fci_bits(sorb, noa, nob)
+
+
+def python_fci_bits(sorb: int, noa: int, nob: int) -> np.ndarray:
+    """``fci_bits`` enumerated in Python."""
     norb = sorb // 2
     dets = []
     for occ_a in combinations(range(norb), noa):

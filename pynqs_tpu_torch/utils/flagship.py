@@ -22,7 +22,7 @@ from pynqs_tpu_torch.utils.checkpoint import load_params
 from pynqs_tpu_torch.utils.graph import dag_from_order, exchange_matrix
 from pynqs_tpu_torch.utils.system import System
 
-__all__ = ["FE2S2_PTH", "fe2s2_system", "flagship_graph", "flagship_model",
+__all__ = ["FE2S2_PTH", "FE2S2_FOCUS_PTH", "fe2s2_system", "flagship_graph", "flagship_model",
            "load_flagship_params"]
 
 # the Fe2S2 integrals of the reference PyNQS checkout, expected beside
@@ -30,6 +30,10 @@ __all__ = ["FE2S2_PTH", "fe2s2_system", "flagship_graph", "flagship_model",
 FE2S2_PTH = os.environ.get("PYNQS_FE2S2_PTH", os.path.join(
     os.path.dirname(os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))),
     "reference", "example", "Fe2S2", "fe2s2-OO.pth"))
+# the converted FOCUS DMRG state (dcut 20) beside the integrals, or
+# wherever PYNQS_FE2S2_FOCUS_PTH points
+FE2S2_FOCUS_PTH = os.environ.get("PYNQS_FE2S2_FOCUS_PTH", os.path.join(
+    os.path.dirname(FE2S2_PTH), "fe2s2-OO-dcut-20-focus-1e-8.pth"))
 
 
 def fe2s2_system(dtype=np.float32) -> System:

@@ -3,7 +3,8 @@ structure, and from a converted FOCUS MPS file.
 
 Counterpart of ``pynqs_tpu/utils/mps_import.py`` (``grow_dcut``,
 ``structural_warm_start``, ``load_focus_mpsrnn``,
-``mpsrnn_params_from_state_dict``) on numpy parameter trees with the
+``mpsrnn_params_from_state_dict``, ``load_renormalizer_mpsrnn``; the raw
+FOCUS binaries are ``utils/focus_ctns.py``'s) on numpy parameter trees with the
 ``GraphMPSRNN`` key names.  Where the JAX functions draw a fresh init
 from the target model (``model.init(key)``), these take the port
 model's own init rule (``GraphMPSRNN.init_params``) with a seeded
@@ -23,6 +24,7 @@ __all__ = [
     "structural_warm_start",
     "load_focus_mpsrnn",
     "mpsrnn_params_from_state_dict",
+    "load_renormalizer_mpsrnn",
 ]
 
 
@@ -158,3 +160,26 @@ def mpsrnn_params_from_state_dict(sd: dict, model) -> dict:
         "eta": np.ones((norb, 4, d)), "global_phase": np.zeros(()),
     })
     return {k: np.asarray(v, dt) for k, v in params.items()}
+
+
+def load_renormalizer_mpsrnn(path_or_tensors, model) -> dict:
+    """Renormalizer DMRG warm start: a torch-saved list of 1-site tensors
+    [l, 2, r] over spin orbitals (read with ``safe_torch_load``), or the
+    list itself.  Spin-orbital pairs contract to 2-site tensors [l, 4,
+    r], whose tensor-product order [0, 1, 2, 3] becomes the model's x =
+    n_alpha + 2 n_beta by [0, 2, 1, 3]; then the converted-file
+    structure as ``focus_ctns.ctns_state_dict`` with the identity
+    physical order."""
+    from pynqs_tpu_torch.utils.focus_ctns import ctns_state_dict
+
+    src = safe_torch_load(path_or_tensors) if isinstance(path_or_tensors, str) else path_or_tensors
+    ts = [np.asarray(t.numpy() if isinstance(t, torch.Tensor) else t) for t in src]
+    if len(ts) % 2:
+        raise ValueError("expected an even number of 1-site tensors "
+                         "(two spin orbitals per spatial site)")
+    sites = []
+    for i in range(0, len(ts), 2):
+        m1, m2 = ts[i], ts[i + 1]
+        m = np.einsum("iak,kbj->iabj", m1, m2).reshape(m1.shape[0], 4, m2.shape[-1])
+        sites.append(np.ascontiguousarray(m[:, [0, 2, 1, 3], :]))
+    return mpsrnn_params_from_state_dict(ctns_state_dict(sites, phys=np.arange(4)), model)

@@ -159,8 +159,9 @@ def _unpack(model, P, prec="bf16", t0=0):
     (columns (x, c, re|im)), "KW": [4, 16 per 8 c's (bf16) or 2 dcp (f32),
     O]} (the last two where coupled), as the kernel reads them from chunk
     ``site_chunk[t0]`` on: UW a run per block of cb = min(dcp, 8) c's,
-    then per value W and KW; the read ends at the last chunk."""
-    dcp, NP, KS = P["dcp"], P["NP"], P["KS"]
+    then per value and per pass (above dp 128) W and KW of the pass's
+    O / npass columns; the read ends at the last chunk."""
+    dcp, NP, KS, npass = P["dcp"], P["NP"], P["KS"], P["npass"]
     O = 16 * NP
     cb = min(dcp, 8)
     st, sites = _Stream(P), []
@@ -176,9 +177,15 @@ def _unpack(model, P, prec="bf16", t0=0):
         nkw = (-(-dcp // 8) if prec == "bf16" else dcp // 4) if "UW" in site else 0
         W, KW = [], []
         for _ in range(4):
-            B = [_unfrag(k, O, prec) for k in st.run(npd * KS + nkw, 32 * NP)]
-            W.append(torch.cat(B[: npd * KS]) if npd else torch.zeros(0, O, dtype=f64))
-            KW.append(torch.cat(B[npd * KS:]) if nkw else None)
+            Wq, KWq = [], []
+            for _ in range(npass):
+                B = [_unfrag(k, O // npass, prec)
+                     for k in st.run(npd * KS + nkw, 32 * NP // npass)]
+                Wq.append(torch.cat(B[: npd * KS]) if npd
+                          else torch.zeros(0, O // npass, dtype=f64))
+                KWq.append(torch.cat(B[npd * KS:]) if nkw else None)
+            W.append(torch.cat(Wq, -1))
+            KW.append(torch.cat(KWq, -1) if nkw else None)
         site["W"] = torch.stack(W)
         if "UW" in site:
             site["KW"] = torch.stack(KW)
@@ -509,13 +516,15 @@ def test_f32_launch_shape():
 
 
 def test_mma_widths():
-    """dp tiers up to 128 (wider raises and names the ROADMAP item); any
-    dcut_cmpr, padded to 4 or to a multiple of 8 as the JAX kernel pads
-    it, with its KW k-steps and the coupling slot's bytes per warp."""
+    """dp tiers up to 128, above them a multiple of 64 as the JAX kernel
+    pads it, in dp / 64 passes; any dcut_cmpr, padded to 4 or to a
+    multiple of 8 as the JAX kernel pads it, with its KW k-steps and the
+    coupling slot's bytes per warp."""
     assert [fused_rnn.mma_width(d) for d in (1, 10, 16, 17, 48, 50, 64, 100, 128)] == [
         16, 16, 16, 32, 48, 64, 64, 128, 128]
-    with pytest.raises(ValueError, match="dcut <= 128.*C4"):
-        fused_rnn.mma_width(129)
+    assert [fused_rnn.mma_width(d) for d in (129, 192, 193, 256, 257)] == [
+        192, 192, 256, 256, 320]
+    assert [fused_rnn.mma_passes(dp) for dp in (16, 128, 192, 256, 320)] == [1, 1, 3, 4, 5]
     stages = fused_rnn.STAGES * fused_rnn.STAGE_U4 * 16
     for dc, dcp, nkw in ((1, 4, (1, 1)), (4, 4, (1, 1)), (5, 8, (1, 2)), (9, 16, (2, 4)),
                          (12, 16, (2, 4)), (17, 24, (3, 6))):

@@ -7,6 +7,7 @@ against their plain versions, and VMC steps (with the REDUCE forward
 dedup too, and with CG-SR) and the dense ``comb_hij`` that go through the
 kernels; the SR solvers against each other in f64 and ``safe_atan2``'s
 forward mode on the card; the dp-128 forward under ``hold_rows``; the
+forward and the prefix passes above dp 128 (in passes of 128 outputs); the
 data-parallel step over one NCCL rank (bit for bit the step without a
 mesh) and two gloo ranks on one card, and ``entry()``.
 
@@ -216,6 +217,44 @@ def test_mma_kernel_global_hidden_slots(mm, dev):
     k = fused_rnn.graph_mpsrnn_logpsi_fused(model, bits, matmul_dtype=dt)
     p = fused_rnn.graph_mpsrnn_logpsi_fused_plain(model, bits, matmul_dtype=dt)
     _agree(k, p, mm)
+
+
+@pytest.mark.parametrize("mm", ["f32", "bf16"])
+@pytest.mark.parametrize("case", ["chain-d160", "chain-d256", "dag-tensor-d140"])
+def test_mma_kernel_above_dp_128(case, mm, dev):
+    """Kernel #1 above dp 128 (dp / 64 passes of 128 outputs; ROADMAP C4):
+    chains at dcut 160 (dp 192, slots in shared memory in bf16) and 256
+    (dp 256, the global file), a tensor-coupled DAG at dcut 140, one launch
+    in its mode, the plain version's values; ragged rows (a partial CTA)."""
+    g = torch.Generator().manual_seed(3)
+    if case == "dag-tensor-d140":
+        model = GraphMPSRNN(40, 15, 15, dcut=140, graph=grid_snake_graph(4, 5), use_tensor=True,
+                            dcut_cmpr=6, phase_mode="linear", norm_mode="unit", device=dev,
+                            generator=g)
+    else:
+        model = GraphMPSRNN(40, 15, 15, dcut=int(case[7:]), phase_mode="arg",
+                            norm_mode="mpsrnn", device=dev, generator=g)
+    dt = {"f32": torch.float32, "bf16": torch.bfloat16}[mm]
+    assert fused_rnn.mma_passes(fused_rnn.mma_width(model.dcut)) > 1
+    bits = torch.as_tensor(_rand_dets(1000, 40, 15, 15, 7), device=dev)
+    counter = fused_rnn.F32_MMA_LAUNCHES if mm == "f32" else fused_rnn.MMA_LAUNCHES
+    n0 = counter.n
+    k = fused_rnn.graph_mpsrnn_logpsi_fused(model, bits, matmul_dtype=dt)
+    torch.cuda.synchronize()
+    assert counter.n == n0 + 1
+    _agree(k, fused_rnn.graph_mpsrnn_logpsi_fused_plain(model, bits, matmul_dtype=dt), mm)
+
+
+@pytest.mark.parametrize("mm", ["f32", "bf16"])
+def test_mma_prefix_above_dp_128(mm, dev):
+    """The prefix passes of a dcut-160 chain (dp 192, 3 passes): the
+    plain version's values, and bit for bit the flat kernel's rows."""
+    model = GraphMPSRNN(40, 15, 15, dcut=160, phase_mode="arg", norm_mode="mpsrnn", device=dev,
+                        generator=torch.Generator().manual_seed(4))
+    par = _rand_dets(40, 40, 15, 15, 8)
+    parents = torch.as_tensor(par, device=dev)
+    kids = torch.as_tensor(_excitations(par, 12, 9), device=dev)
+    _hold_prefix(model, parents, kids, pre.t_min_process_order(model, parents, kids), mm)
 
 
 def _never_plain_or_cuda_cores(dev, monkeypatch, dt):
