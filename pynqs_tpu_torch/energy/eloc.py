@@ -19,6 +19,7 @@ from __future__ import annotations
 from typing import Callable
 
 import torch
+from torch.profiler import record_function
 
 from pynqs_tpu_torch.ops import cplx
 from pynqs_tpu_torch.ops import onv
@@ -228,6 +229,10 @@ def local_energy_reduce(
     ``mesh``: the tail's uniforms of each chunk are drawn for that chunk's
     rows on every rank (all ranks hold the same number of rows) and this
     rank's block is kept; over one rank the draws are those without it.
+
+    Each chunk's split into deterministic and tail children, from the
+    matrix elements to the children's rows, is the ``torch.profiler``
+    range ``eloc.select``.
     """
     if topk not in ("exact", "approx", "segmax"):
         raise ValueError(f"unknown topk {topk!r}")
@@ -242,32 +247,33 @@ def local_energy_reduce(
         b, sorb = chunk.shape
         n_off = hij.shape[1] - 1
         kd = min(k_det, n_off)
-        hij_off = hij[:, 1:]
-        absh = hij_off.abs()
-        orbs_all = onv.merged_orbital_list(chunk, table.noa, table.nob)[:, pos]
+        with record_function("eloc.select"):
+            hij_off = hij[:, 1:]
+            absh = hij_off.abs()
+            orbs_all = onv.merged_orbital_list(chunk, table.noa, table.nob)[:, pos]
 
-        if topk == "segmax":
-            # element j belongs to segment j % kd; the deterministic set
-            # is each segment's first maximum (any deterministic set keeps
-            # the estimator unbiased: the tail covers what remains)
-            L = -(-n_off // kd)
-            a2 = torch.nn.functional.pad(absh, (0, kd * L - n_off)).reshape(b, L, kd)
-            loc = torch.argmax(a2, dim=1)  # first maximum along the stride
-            top_idx = torch.clamp(
-                loc * kd + torch.arange(kd, device=bits.device)[None], max=n_off - 1
-            )
-        else:
-            top_idx = torch.topk(absh, kd, dim=1).indices
-        resid = absh.scatter(1, top_idx, 0.0)
-        det_h = torch.gather(hij_off, 1, top_idx)
-        det_orbs = torch.gather(orbs_all, 1, top_idx[..., None].expand(b, kd, 4))
-        det_bits = excite_bits(chunk, det_orbs, top_idx >= ns)
+            if topk == "segmax":
+                # element j belongs to segment j % kd; the deterministic set
+                # is each segment's first maximum (any deterministic set keeps
+                # the estimator unbiased: the tail covers what remains)
+                L = -(-n_off // kd)
+                a2 = torch.nn.functional.pad(absh, (0, kd * L - n_off)).reshape(b, L, kd)
+                loc = torch.argmax(a2, dim=1)  # first maximum along the stride
+                top_idx = torch.clamp(
+                    loc * kd + torch.arange(kd, device=bits.device)[None], max=n_off - 1
+                )
+            else:
+                top_idx = torch.topk(absh, kd, dim=1).indices
+            resid = absh.scatter(1, top_idx, 0.0)
+            det_h = torch.gather(hij_off, 1, top_idx)
+            det_orbs = torch.gather(orbs_all, 1, top_idx[..., None].expand(b, kd, 4))
+            det_bits = excite_bits(chunk, det_orbs, top_idx >= ns)
 
-        s_tail = resid.sum(-1)
-        draw = sample_tail_cdf(resid, n_stoch, generator, mesh)
-        st_h = torch.gather(hij_off, 1, draw)
-        st_orbs = torch.gather(orbs_all, 1, draw[..., None].expand(b, n_stoch, 4))
-        st_bits = excite_bits(chunk, st_orbs, draw >= ns)
+            s_tail = resid.sum(-1)
+            draw = sample_tail_cdf(resid, n_stoch, generator, mesh)
+            st_h = torch.gather(hij_off, 1, draw)
+            st_orbs = torch.gather(orbs_all, 1, draw[..., None].expand(b, n_stoch, 4))
+            st_bits = excite_bits(chunk, st_orbs, draw >= ns)
 
         if prefix_fwd is not None:
             kids = torch.cat([det_bits, st_bits], 1)

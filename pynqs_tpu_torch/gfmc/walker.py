@@ -27,7 +27,10 @@ generation's statistics on the device and reads the statistics back
 once per ``sync_interval`` iterations; it raises when b ≤ 0 for a
 walker (``check_lambda``) and whenever b or a generation statistic is
 NaN or infinite (the JAX package's guard ``(b <= 0).any()`` lets NaN
-through).
+through).  ``green_row``, ``transition`` and ``branch`` are the
+``torch.profiler`` ranges ``gfmc.green_row``, ``gfmc.transition`` and
+``gfmc.branch``; ``run``'s reads of the statistics, walkers and weights
+back to the host are ``gfmc.readback``.
 """
 
 from __future__ import annotations
@@ -37,6 +40,7 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from pynqs_tpu_torch.energy.eloc import dedup_eval
 from pynqs_tpu_torch.ops.hamiltonian import comb_hij
@@ -136,50 +140,53 @@ class GFMC:
     @torch.no_grad()
     def green_row(self, walkers: torch.Tensor) -> GreenRow:
         """The Green row of ``walkers`` [W, sorb]."""
-        cfg = self.cfg
-        comb, hij = comb_hij(walkers, *self._ops, self._hpair, table=self._table,
-                             with_comb=True)
-        W, M, sorb = comb.shape
-        flat = comb.reshape(W * M, sorb)
-        if cfg.dedup_unique_max:
-            lp, n_unique = dedup_eval(self.trial, flat, cfg.dedup_unique_max)
-        else:
-            lp, n_unique = self.trial(flat), None
-        lp = lp.reshape(W, M, 2)
-        ratio = torch.exp(lp[..., 0] - lp[:, :1, 0]) * torch.cos(lp[..., 1] - lp[:, :1, 1])
-        t = hij[:, 1:] * ratio[:, 1:]
-        viol = t > 0
-        v_sf = torch.where(viol, t, 0.0).sum(-1)
-        e_fn_diag = hij[:, 0] + (1.0 + cfg.gamma) * v_sf
-        g_off = torch.where(viol, cfg.gamma * t, -t)
-        e_loc = hij[:, 0] + t.sum(-1)
-        lam = (torch.as_tensor(cfg.tau_lambda, dtype=e_fn_diag.dtype, device=e_fn_diag.device)
-               if cfg.tau_lambda is not None
-               else all_reduce_max(self.mesh, e_fn_diag.max()) + 1.0)
-        g_diag = lam - e_fn_diag
-        return GreenRow(comb, e_loc, g_diag + g_off.sum(-1), g_diag, g_off, n_unique)
+        with record_function("gfmc.green_row"):
+            cfg = self.cfg
+            comb, hij = comb_hij(walkers, *self._ops, self._hpair, table=self._table,
+                                 with_comb=True)
+            W, M, sorb = comb.shape
+            flat = comb.reshape(W * M, sorb)
+            if cfg.dedup_unique_max:
+                lp, n_unique = dedup_eval(self.trial, flat, cfg.dedup_unique_max)
+            else:
+                lp, n_unique = self.trial(flat), None
+            lp = lp.reshape(W, M, 2)
+            ratio = torch.exp(lp[..., 0] - lp[:, :1, 0]) * torch.cos(lp[..., 1] - lp[:, :1, 1])
+            t = hij[:, 1:] * ratio[:, 1:]
+            viol = t > 0
+            v_sf = torch.where(viol, t, 0.0).sum(-1)
+            e_fn_diag = hij[:, 0] + (1.0 + cfg.gamma) * v_sf
+            g_off = torch.where(viol, cfg.gamma * t, -t)
+            e_loc = hij[:, 0] + t.sum(-1)
+            lam = (torch.as_tensor(cfg.tau_lambda, dtype=e_fn_diag.dtype, device=e_fn_diag.device)
+                   if cfg.tau_lambda is not None
+                   else all_reduce_max(self.mesh, e_fn_diag.max()) + 1.0)
+            g_diag = lam - e_fn_diag
+            return GreenRow(comb, e_loc, g_diag + g_off.sum(-1), g_diag, g_off, n_unique)
 
     @torch.no_grad()
     def transition(self, row: GreenRow, generator: torch.Generator) -> torch.Tensor:
         """The next walkers [W, sorb]: each stays with weight g_diag or moves
         to its m-th connected determinant with weight g_off[m] (weights
         floored at 1e-30, as the JAX package's logits)."""
-        g = torch.cat([row.g_diag[:, None], row.g_off], -1).clamp(min=1e-30).double()
-        cdf = torch.cumsum(g, -1)
-        u = rand_rows(self.mesh, g.shape[0], 1, generator=generator, dtype=cdf.dtype,
-                      device=cdf.device) * cdf[:, -1:]
-        choice = torch.searchsorted(cdf, u, right=True)[:, 0].clamp(max=g.shape[1] - 1)
-        return row.comb[torch.arange(g.shape[0], device=g.device), choice]
+        with record_function("gfmc.transition"):
+            g = torch.cat([row.g_diag[:, None], row.g_off], -1).clamp(min=1e-30).double()
+            cdf = torch.cumsum(g, -1)
+            u = rand_rows(self.mesh, g.shape[0], 1, generator=generator, dtype=cdf.dtype,
+                          device=cdf.device) * cdf[:, -1:]
+            choice = torch.searchsorted(cdf, u, right=True)[:, 0].clamp(max=g.shape[1] - 1)
+            return row.comb[torch.arange(g.shape[0], device=g.device), choice]
 
     @torch.no_grad()
     def branch(self, walkers: torch.Tensor, weights: torch.Tensor, generator: torch.Generator):
         """Comb resampling from one uniform draw: (walkers, equal weights);
         under a mesh over the whole population, this rank's block."""
-        u0 = torch.rand((), generator=generator, dtype=weights.dtype, device=weights.device)
-        all_w = all_gather_rows(self.mesh, weights)
-        idx = shard_batch(self.mesh, branch_indices(all_w, u0))
-        return (all_gather_rows(self.mesh, walkers)[idx],
-                (all_w.sum() / all_w.shape[0]).expand_as(weights).clone())
+        with record_function("gfmc.branch"):
+            u0 = torch.rand((), generator=generator, dtype=weights.dtype, device=weights.device)
+            all_w = all_gather_rows(self.mesh, weights)
+            idx = shard_batch(self.mesh, branch_indices(all_w, u0))
+            return (all_gather_rows(self.mesh, walkers)[idx],
+                    (all_w.sum() / all_w.shape[0]).expand_as(weights).clone())
 
     def _guard(self, it0: int, stats: np.ndarray) -> None:
         """Raise on a non-finite statistic or b, or on b ≤ 0 (check_lambda)."""
@@ -241,18 +248,22 @@ class GFMC:
             if row.n_unique is not None:
                 n_unique.append(row.n_unique)
             if len(pending) == sync or it == n_iter - 1:
-                chunk = torch.stack(pending).cpu().numpy()
+                with record_function("gfmc.readback"):
+                    chunk = torch.stack(pending).cpu().numpy()
                 self._guard(it + 1 - len(pending), chunk)
                 stats.append(chunk)
                 pending = []
         st = np.concatenate(stats)
         ecore = self.system.ecore
+        with record_function("gfmc.readback"):
+            walkers = all_gather_rows(self.mesh, walkers).cpu().numpy()
+            weights = all_gather_rows(self.mesh, weights).cpu().numpy()
         return {
             "e_gen": st[:, 0] + ecore,
             "e_gen_b": st[:, 1] + ecore,
             "wbar": st[:, 2],
-            "walkers": all_gather_rows(self.mesh, walkers).cpu().numpy(),
-            "weights": all_gather_rows(self.mesh, weights).cpu().numpy(),
+            "walkers": walkers,
+            "weights": weights,
             "n_unique": np.asarray(n_unique) if n_unique else None,
         }
 

@@ -14,11 +14,20 @@ normalized over all ranks: the weighted mean is all-reduced before the
 centring (one collective), and the gradients and the variance are
 summed over the ranks in one more, so every rank gets the global
 values.
+
+Each row chunk's forward and loss are the ``torch.profiler`` range
+``grad.forward``, its backward and accumulation ``grad.backward``.  A
+range's device span covers only the work launched in it on its own
+thread and not in a nested range: ``grad.backward`` spans the autograd
+thread's kernels from the seed of ``torch.autograd.grad`` to the
+accumulation, and the variance, computed after the chunks, ends the
+caller's range (``vmc.grad``) on work of its own.
 """
 
 from __future__ import annotations
 
 import torch
+from torch.profiler import record_function
 
 from pynqs_tpu_torch.parallel.mesh import all_reduce_sum
 
@@ -26,8 +35,7 @@ __all__ = ["energy_and_grad", "energy_stats"]
 
 
 def _centered(weights, eloc, mesh=None):
-    """(weights, alive, e_mean, cen, var) with e_mean global and var this
-    rank's share of the variance (the whole of it without a mesh)."""
+    """(weights, alive, e_mean, cen) with e_mean global."""
     weights = weights.detach()
     eloc = eloc.detach().to(weights.dtype)
     alive = weights > 0
@@ -35,14 +43,18 @@ def _centered(weights, eloc, mesh=None):
     eloc = torch.where(alive[:, None], eloc, torch.zeros_like(eloc))
     e_mean = all_reduce_sum(mesh, weights @ eloc)
     cen = torch.where(alive[:, None], eloc - e_mean, torch.zeros_like(eloc))
-    var = (weights * (cen**2).sum(-1)).sum()
-    return weights, alive, e_mean, cen, var
+    return weights, alive, e_mean, cen
+
+
+def _variance(weights, cen):
+    """This rank's share of the variance (the whole of it without a mesh)."""
+    return (weights * (cen**2).sum(-1)).sum()
 
 
 def energy_stats(weights, eloc, mesh=None):
     """(e_mean [2], variance) of ``energy_and_grad`` without its backward."""
-    _, _, e_mean, _, var = _centered(weights, eloc, mesh)
-    return e_mean, all_reduce_sum(mesh, var)
+    weights, _, e_mean, cen = _centered(weights, eloc, mesh)
+    return e_mean, all_reduce_sum(mesh, _variance(weights, cen))
 
 
 def energy_and_grad(model, bits, weights, eloc, *, grad_batch=None, mesh=None):
@@ -50,7 +62,7 @@ def energy_and_grad(model, bits, weights, eloc, *, grad_batch=None, mesh=None):
 
     bits [B, sorb]; weights [B] (sum 1 over all ranks; 0 = dead row);
     eloc [B, 2]; under a mesh the rank's rows, and the results global."""
-    weights, alive, e_mean, cen, var = _centered(weights, eloc, mesh)
+    weights, alive, e_mean, cen = _centered(weights, eloc, mesh)
 
     names, params = zip(*[(n, p) for n, p in model.named_parameters() if p.requires_grad])
     grads = [torch.zeros_like(p) for p in params]
@@ -58,12 +70,15 @@ def energy_and_grad(model, bits, weights, eloc, *, grad_batch=None, mesh=None):
     step = B if grad_batch is None or grad_batch >= B else grad_batch
     for s in range(0, B, step):
         e = min(s + step, B)
-        lp = model.log_psi(bits[s:e])
-        lp = torch.where(alive[s:e, None], lp, torch.zeros_like(lp))
-        loss = 2.0 * (weights[s:e] * (cen[s:e] * lp).sum(-1)).sum()
-        for acc, g in zip(grads, torch.autograd.grad(loss, params, allow_unused=True)):
-            if g is not None:
-                acc += g
+        with record_function("grad.forward"):
+            lp = model.log_psi(bits[s:e])
+            lp = torch.where(alive[s:e, None], lp, torch.zeros_like(lp))
+            loss = 2.0 * (weights[s:e] * (cen[s:e] * lp).sum(-1)).sum()
+        with record_function("grad.backward"):
+            for acc, g in zip(grads, torch.autograd.grad(loss, params, allow_unused=True)):
+                if g is not None:
+                    acc += g
+    var = _variance(weights, cen)
     if mesh is not None:
         flat = all_reduce_sum(mesh, torch.cat([g.reshape(-1) for g in grads]
                                               + [var.reshape(1).to(grads[0].dtype)]))

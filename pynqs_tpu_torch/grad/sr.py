@@ -93,7 +93,7 @@ def sr_gradient_blocked(model, bits, weights, eloc, damping: float = 1e-3,
     block solved exactly, dθ_b = (Re S_bb + λI)⁻¹ · 2 Re F_b.  One block
     per parameter tensor by default; ``blocks`` maps name → label to
     merge tensors (one label for all gives ``sr_gradient``)."""
-    weights, alive, _, cen, _ = _centered(weights, eloc, mesh)
+    weights, alive, _, cen = _centered(weights, eloc, mesh)
     params = _params(model)
     names = sorted(params)  # the JAX tree's leaf order
     jac = _row_jacobian(model, params, bits, jac_batch)
@@ -124,7 +124,7 @@ def _cg_system(model, bits, weights, eloc, damping: float, jac_batch: int | None
     chunk is linearized again inside every matvec, so the saved
     activations scale with the chunk.  Under a mesh the sums over rows
     are all-reduced (``_reduce_dicts``)."""
-    weights, alive, _, cen, _ = _centered(weights, eloc, mesh)
+    weights, alive, _, cen = _centered(weights, eloc, mesh)
     params = _params(model)
     B = bits.shape[0]
     step = B if jac_batch is None or jac_batch >= B else jac_batch

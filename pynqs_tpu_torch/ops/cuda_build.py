@@ -28,7 +28,11 @@ _LIBS: dict = {}
 
 
 class Counter:
-    """Kernel launch count: one per launch of the CUDA kernel, nowhere else."""
+    """A running count the program keeps beside its work: the launches of
+    one CUDA kernel (one per launch, nowhere else), or rows a function
+    was handed.  ``n`` is a Python int, or a 0-d tensor where the count is
+    summed on the device; ``int(counter.n)`` reads either (the tensor
+    waits for the device)."""
 
     def __init__(self):
         self.n = 0

@@ -20,8 +20,13 @@ from ``pack_mma_tables`` and ``hidden_slots``, launch shape from
 in f32 mode its f32 one, each product as three TF32 products.
 ``LAUNCHES`` counts every launch of the fused forward, ``MMA_LAUNCHES``
 those of the bf16 tensor-core kernel, ``F32_MMA_LAUNCHES`` those of the
-f32 one.  (``ops/fused_rnn_prefix.py`` launches the same library's
-prefix-sharing entry points.)  The earlier CUDA-core kernel
+f32 one.  Each call is the ``torch.profiler`` range ``fused_rnn.forward``;
+while a profiler records, each call also adds its rows to ``ROWS`` and
+the distinct rows among them (``count_distinct``, in the range
+``fused_rnn.count_distinct`` after the forward's) to ``DISTINCT``: the
+share that dedup at the caller's batching would keep.
+(``ops/fused_rnn_prefix.py`` launches the same library's prefix-sharing
+entry points.)  The earlier CUDA-core kernel
 (``csrc/fused_rnn.cu``) is reached only to time and check it beside the
 tensor-core kernel (``_launch_simt`` in bf16, ``_launch_f32_cuda_cores``
 in f32; the prefix passes' ``_launch_prefix_simt``).  The tensor-core
@@ -36,9 +41,11 @@ import weakref
 
 import torch
 import torch.nn.functional as F
+from torch.profiler import record_function
 
 from pynqs_tpu_torch.models.graph_mps_rnn import GraphMPSRNN
-from pynqs_tpu_torch.ops import cuda_build
+from pynqs_tpu_torch.ops import cuda_build, onv
+from pynqs_tpu_torch.ops.lut import row_keys, sort_order
 from pynqs_tpu_torch.ops.cuda_build import Counter, check_launch
 
 __all__ = [
@@ -54,12 +61,20 @@ __all__ = [
     "LAUNCHES",
     "MMA_LAUNCHES",
     "F32_MMA_LAUNCHES",
+    "ROWS",
+    "DISTINCT",
+    "count_distinct",
 ]
 
 _NEG = -1e30
 LAUNCHES = Counter()  # every launch of the fused forward (any kernel, any mode)
 MMA_LAUNCHES = Counter()  # launches of the tensor-core kernel in bf16
 F32_MMA_LAUNCHES = Counter()  # launches of the tensor-core kernel in f32 (3xTF32)
+# while a profiler records: rows handed to the fused forward (a host int),
+# and the distinct rows of each call among them (a 0-d tensor on the rows' device)
+ROWS = Counter()
+DISTINCT = Counter()
+PACK_ROWS = 1 << 20  # rows packed at a time by count_distinct
 MMA_WIDTHS = (16, 32, 48, 64, 96, 128)  # padded d (dp) held in registers; above, multiples of 64
 STAGE_U4 = 24576 // 16  # one weight stage of the tensor-core kernel, in 16-byte units
 STAGES = 3  # weight stages of the tensor-core kernel
@@ -746,10 +761,32 @@ def graph_mpsrnn_logpsi_fused(
     (3xTF32), or raise."""
     if not fused_forward_available(model):
         raise ValueError("the fused forward computes GraphMPSRNN models only")
-    if bits.device.type == "cpu":
-        return graph_mpsrnn_logpsi_fused_plain(
-            model, bits, matmul_dtype=matmul_dtype, tables=tables
-        )
-    if bits.device.type != "cuda":
+    if bits.device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {bits.device}")
-    return _launch_mma(model, bits, tables, matmul_dtype)  # raises unless bf16 or f32
+    with record_function("fused_rnn.forward"):
+        if bits.device.type == "cpu":
+            out = graph_mpsrnn_logpsi_fused_plain(
+                model, bits, matmul_dtype=matmul_dtype, tables=tables
+            )
+        else:
+            out = _launch_mma(model, bits, tables, matmul_dtype)  # raises unless bf16 or f32
+    if torch.autograd._profiler_enabled():
+        with record_function("fused_rnn.count_distinct"):
+            ROWS.n += bits.shape[0]
+            DISTINCT.n = DISTINCT.n + count_distinct(bits)
+    return out
+
+
+@torch.no_grad()
+def count_distinct(bits: torch.Tensor) -> torch.Tensor:
+    """The distinct rows of bits [N, sorb] as a 0-d int64 tensor on their
+    device, with the keys of ``energy/eloc.unique_rows`` (``onv.pack_bits``
+    in blocks of ``PACK_ROWS`` rows, then ``row_keys``), sorted and counted
+    where the key changes: nothing is read back to the host."""
+    if bits.shape[0] == 0:
+        return torch.zeros((), dtype=torch.long, device=bits.device)
+    packed = torch.cat([onv.pack_bits(bits[s:s + PACK_ROWS])
+                        for s in range(0, bits.shape[0], PACK_ROWS)])
+    key = row_keys(packed)
+    srt = torch.sort(key).values[:, None] if key is not None else packed[sort_order(packed)]
+    return 1 + (srt[1:] != srt[:-1]).any(-1).sum()

@@ -27,6 +27,7 @@ from functools import lru_cache
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from pynqs_tpu_torch.ops import onv
 from pynqs_tpu_torch.ops.excitation import ExcitationTable, make_comb_bits
@@ -158,60 +159,62 @@ def comb_hij(
     the spin-sector pair blocks, a tensor for the dense pair matrix
     [npair, npair], or None for the compressed triangle ``h2e``.
     ``pair_select`` is one of ``PAIR_SELECT``; the dense matrix is read
-    through ``pair_select_w`` whatever its value.
+    through ``pair_select_w`` whatever its value.  The call is the
+    ``torch.profiler`` range ``hamiltonian.comb_hij``.
     """
     if pair_select not in PAIR_SELECT:
         raise ValueError(f"pair_select must be one of {PAIR_SELECT}, not {pair_select!r}")
     sectors = isinstance(hpair, (tuple, list))
     if sectors and pair_select == "pallas":
         raise ValueError("pair_select='pallas' needs the dense hpair matrix, not sector blocks")
-    sorb = table.sorb
-    ns = table.n_singles
-    nd = table.n_doubles
-    dtype = K.dtype
-    pos, sector, is_double = _static(table, str(bits.device))
+    with record_function("hamiltonian.comb_hij"):
+        sorb = table.sorb
+        ns = table.n_singles
+        nd = table.n_doubles
+        dtype = K.dtype
+        pos, sector, is_double = _static(table, str(bits.device))
 
-    occ = bits.to(dtype)
-    prefix = onv.prefix_occ(bits)  # [B, sorb]
-    merged = onv.merged_orbital_list(bits, table.noa, table.nob)  # [B, sorb]
-    orbs = merged[:, pos]  # [B, n_sd, 4] orbitals (i, a, j, b)
-    cnts = torch.gather(prefix, 1, merged)[:, pos]  # prefix at (i, a, j, b)
+        occ = bits.to(dtype)
+        prefix = onv.prefix_occ(bits)  # [B, sorb]
+        merged = onv.merged_orbital_list(bits, table.noa, table.nob)  # [B, sorb]
+        orbs = merged[:, pos]  # [B, n_sd, 4] orbitals (i, a, j, b)
+        cnts = torch.gather(prefix, 1, merged)[:, pos]  # prefix at (i, a, j, b)
 
-    hii = hij_diagonal(bits, diag1, K)
+        hii = hij_diagonal(bits, diag1, K)
 
-    # singles: S[b, p*sorb+q] = h1e[p,q] + Σ_k occ_k <pk||qk>
-    s_full = occ @ J + h1e.reshape(1, -1)
-    i_s, a_s = orbs[:, :ns, 0], orbs[:, :ns, 1]
-    val_s = torch.gather(s_full, 1, i_s * sorb + a_s)
-    cnt_ia = cnts[:, :ns, 0] + cnts[:, :ns, 1] - (i_s < a_s).long()
-    hij_s = val_s * _parity_from_count(cnt_ia).to(dtype)
+        # singles: S[b, p*sorb+q] = h1e[p,q] + Σ_k occ_k <pk||qk>
+        s_full = occ @ J + h1e.reshape(1, -1)
+        i_s, a_s = orbs[:, :ns, 0], orbs[:, :ns, 1]
+        val_s = torch.gather(s_full, 1, i_s * sorb + a_s)
+        cnt_ia = cnts[:, :ns, 0] + cnts[:, :ns, 1] - (i_s < a_s).long()
+        hij_s = val_s * _parity_from_count(cnt_ia).to(dtype)
 
-    # doubles
-    i_d, a_d, j_d, b_d = orbs[:, ns:].unbind(-1)
-    p0 = torch.maximum(i_d, j_d)
-    p1 = torch.minimum(i_d, j_d)
-    q0 = torch.maximum(a_d, b_d)
-    q1 = torch.minimum(a_d, b_d)
-    if sectors:
-        val_d = _doubles_values(i_d, a_d, j_d, b_d, sector, hpair, sorb // 2)
-    elif hpair is not None and nd > 0:
-        po, pv, uv = _pair_operands(merged, table, str(bits.device))
-        val_d = pair_select_w(po, pv, hpair).reshape(bits.shape[0], -1)[:, uv].to(dtype)
-    else:
-        val_d = h2e[_tri_index(p0, p1, q0, q1)]
-    base = cnts[:, ns:, :].sum(-1)
-    corr = (
-        -(p0 < q0).long() - (p1 < q0).long() + (q1 < q0).long()
-        - (p0 < q1).long() - (p1 < q1).long() + (q0 < q1).long()
-    )
-    hij_d = val_d * _parity_from_count(base + corr).to(dtype)
+        # doubles
+        i_d, a_d, j_d, b_d = orbs[:, ns:].unbind(-1)
+        p0 = torch.maximum(i_d, j_d)
+        p1 = torch.minimum(i_d, j_d)
+        q0 = torch.maximum(a_d, b_d)
+        q1 = torch.minimum(a_d, b_d)
+        if sectors:
+            val_d = _doubles_values(i_d, a_d, j_d, b_d, sector, hpair, sorb // 2)
+        elif hpair is not None and nd > 0:
+            po, pv, uv = _pair_operands(merged, table, str(bits.device))
+            val_d = pair_select_w(po, pv, hpair).reshape(bits.shape[0], -1)[:, uv].to(dtype)
+        else:
+            val_d = h2e[_tri_index(p0, p1, q0, q1)]
+        base = cnts[:, ns:, :].sum(-1)
+        corr = (
+            -(p0 < q0).long() - (p1 < q0).long() + (q1 < q0).long()
+            - (p0 < q1).long() - (p1 < q1).long() + (q0 < q1).long()
+        )
+        hij_d = val_d * _parity_from_count(base + corr).to(dtype)
 
-    hij = torch.cat([hii[:, None], hij_s, hij_d], dim=-1)
-    comb = None
-    if with_comb:
-        exc = make_comb_bits(bits, orbs, is_double)
-        comb = torch.cat([bits.to(torch.int8)[:, None, :], exc], dim=1)
-    return comb, hij
+        hij = torch.cat([hii[:, None], hij_s, hij_d], dim=-1)
+        comb = None
+        if with_comb:
+            exc = make_comb_bits(bits, orbs, is_double)
+            comb = torch.cat([bits.to(torch.int8)[:, None, :], exc], dim=1)
+        return comb, hij
 
 
 def hij_pairs(bra_bits, ket_bits, h1e, h2e, diag1, K, J) -> torch.Tensor:

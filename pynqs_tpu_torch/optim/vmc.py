@@ -21,9 +21,11 @@ parameters stay replicated bit for bit.  The EMA, the ramp, the clipping
 and the clip schedule run alike on every rank; rank 0 alone writes the
 run log and the checkpoints.  ``profile_dir`` traces iterations
 [2, 2 + profile_iters) with ``torch.profiler`` into
-``profile_dir/trace_rank{r}.json``; every step marks its stages as the
-ranges ``vmc.sample``, ``vmc.eloc``, ``vmc.grad`` (or ``vmc.sr``) and
-``vmc.update``.
+``profile_dir/trace_rank{r}.json``, and the fused forward's rows and
+distinct rows over them as one ``@@`` record of the run log; every step
+marks its stages as the ranges ``vmc.sample``, ``vmc.eloc``,
+``vmc.grad`` (or ``vmc.sr``) and ``vmc.update``, which hold the
+sampler's, local energy's, forward's and gradient's own ranges.
 
 Resuming keeps two behaviours of the JAX loop: the loop's iteration
 restarts at 0 (the clip schedule, the ramp, the 3σ window and the
@@ -48,6 +50,7 @@ from torch.profiler import ProfilerActivity, profile, record_function
 from pynqs_tpu_torch.energy.eloc import local_energy_reduce, local_energy_simple
 from pynqs_tpu_torch.grad.energy_grad import energy_and_grad, energy_stats
 from pynqs_tpu_torch.grad.sr import sr_gradient, sr_gradient_blocked, sr_gradient_cg
+from pynqs_tpu_torch.ops import fused_rnn
 from pynqs_tpu_torch.ops.fused_rnn import (
     fused_forward_available,
     graph_mpsrnn_logpsi_fused,
@@ -521,15 +524,17 @@ class VMC:
                         and (it + 1) % cfg.checkpoint_interval == 0):
                     self.save_checkpoint(cfg.checkpoint_path, it)
                 if prof is not None and it == 1 + cfg.profile_iters:
-                    self._stop_profile(prof)
+                    self._stop_profile(prof, log)
                     prof = None
         finally:
             if prof is not None:
-                self._stop_profile(prof)
+                self._stop_profile(prof, log)
             log.close()
         return self.history
 
     def _start_profile(self):
+        fused_rnn.ROWS.reset()
+        fused_rnn.DISTINCT.reset()
         acts = [ProfilerActivity.CPU]
         if model_device_dtype(self.model)[0].type == "cuda":
             acts.append(ProfilerActivity.CUDA)
@@ -537,9 +542,12 @@ class VMC:
         prof.start()
         return prof
 
-    def _stop_profile(self, prof) -> str:
+    def _stop_profile(self, prof, log) -> str:
         """Stop the trace at the end of the traced iterations (after the
-        card has finished them) and write it; returns its path."""
+        card has finished them) and write it; the fused forward's rows and
+        distinct rows over the traced iterations (``fused_rnn.ROWS``,
+        ``DISTINCT``) go to the run log as one record.  Returns the
+        trace's path."""
         if model_device_dtype(self.model)[0].type == "cuda":
             torch.cuda.synchronize()
         prof.stop()
@@ -547,6 +555,8 @@ class VMC:
         path = os.path.join(self.cfg.profile_dir,
                             f"trace_rank{0 if self.mesh is None else self.mesh.rank}.json")
         prof.export_chrome_trace(path)
+        log.record(trace=path, fused_rows=int(fused_rnn.ROWS.n),
+                   fused_distinct=int(fused_rnn.DISTINCT.n))
         return path
 
     def _log(self, log, it: int, out: dict, e_tot: float, e_ref, dt: float) -> None:

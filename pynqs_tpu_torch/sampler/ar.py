@@ -27,6 +27,7 @@ device; the streams differ from ``jax.random``.
 from __future__ import annotations
 
 import torch
+from torch.profiler import record_function
 
 from pynqs_tpu_torch.ops import lut, onv
 from pynqs_tpu_torch.parallel.mesh import all_reduce_sum, rank_generator
@@ -255,7 +256,8 @@ def ar_sampling_dfs(
     dealt round-robin into ``n_group`` disjoint groups, and each group
     finishes its subtree at full ``capacity``.  Effective capacity
     n_group × capacity.  Returns (bits [n_group·capacity, sorb], counts,
-    dropped); rows are globally unique.
+    dropped); rows are globally unique.  Phase 1's expansion is the
+    ``torch.profiler`` range ``ar.root``, the groups' subtrees ``ar.groups``.
     """
     nps, _, n_steps, _ = _layout(model)
     if capacity_root is None:
@@ -267,26 +269,29 @@ def ar_sampling_dfs(
         raise ValueError("capacity_root/n_group must fit in capacity")
     if split_depth is None:
         split_depth = _default_split(capacity_root, nps, n_steps)
-    state = _ar_steps(
-        model, _root_state(model, capacity_root, n_sample), 0, split_depth,
-        generator, n_sample,
-    )
+    # the root state is made outside the ranges below: a range's device
+    # span covers only the work launched in it and not in a nested range,
+    # so the caller's range (``vmc.sample``) starts on this work
+    root = _root_state(model, capacity_root, n_sample)
+    with record_function("ar.root"):
+        state = _ar_steps(model, root, 0, split_depth, generator, n_sample)
     dev = state[0].device
     out_bits, out_counts = [], []
-    for g in range(n_group):
-        rows = g + n_group * torch.arange(rpg, device=dev)
-        idx = torch.cat([rows, rows[:1].expand(capacity - rpg)])
-        bits, counts, used_a, used_b, prev, carry = state
-        counts_g = counts[idx].clone()
-        counts_g[rpg:] = 0  # padding rows are dead
-        st = (
-            bits[idx], counts_g, used_a[idx], used_b[idx], prev[idx], _gather(carry, idx),
-        )
-        st = _ar_steps(model, st, split_depth, n_steps, generator, n_sample)
-        out_bits.append(st[0])
-        out_counts.append(st[1])
-    bits = torch.cat(out_bits, 0)
-    counts = torch.cat(out_counts, 0)
+    with record_function("ar.groups"):
+        for g in range(n_group):
+            rows = g + n_group * torch.arange(rpg, device=dev)
+            idx = torch.cat([rows, rows[:1].expand(capacity - rpg)])
+            bits, counts, used_a, used_b, prev, carry = state
+            counts_g = counts[idx].clone()
+            counts_g[rpg:] = 0  # padding rows are dead
+            st = (
+                bits[idx], counts_g, used_a[idx], used_b[idx], prev[idx], _gather(carry, idx),
+            )
+            st = _ar_steps(model, st, split_depth, n_steps, generator, n_sample)
+            out_bits.append(st[0])
+            out_counts.append(st[1])
+        bits = torch.cat(out_bits, 0)
+        counts = torch.cat(out_counts, 0)
     return bits, counts, n_sample - counts.sum()
 
 

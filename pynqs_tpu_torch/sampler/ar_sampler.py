@@ -17,6 +17,7 @@ from __future__ import annotations
 from dataclasses import dataclass
 
 import torch
+from torch.profiler import record_function
 
 from pynqs_tpu_torch.ops import lut, onv
 from pynqs_tpu_torch.parallel.mesh import (
@@ -134,7 +135,11 @@ class ARSampler:
     def sample(self, model, generator: torch.Generator):
         """Returns (bits [R, sorb] int8, weights [R] (sum 1 over all ranks;
         0 = dead row), diagnostics {"dropped_frac", "n_unique"} as 0-d
-        tensors); under a mesh, this rank's rows."""
+        tensors); under a mesh, this rank's rows.  The compaction and the
+        diagnostics are the ``torch.profiler`` range ``ar.compact``; the
+        weights come after it, outside any range of the sampler, so that
+        the caller's range ends on work launched in it directly (a range's
+        device span leaves out what a nested range launched)."""
         mesh = self.mesh
         if mesh is not None and self.mesh_mode not in ("same_tree", "independent"):
             raise ValueError(f"unknown mesh_mode {self.mesh_mode!r}")
@@ -161,20 +166,21 @@ class ARSampler:
             bits, counts, _ = ar_sampling(
                 model, self.n_sample, capacity=self.capacity, generator=generator
             )
-        n_rows = bits.shape[0] * (1 if mesh is None else mesh.size)
-        if self.max_unique is not None and self.max_unique < n_rows:
-            if mesh is None:
-                bits, counts = compact_by_count(bits, counts, self.max_unique)
-            else:
-                bits, counts = self._compact_global(bits, counts)
-        # truncation diagnostic: a truncated sampling measure biases the
-        # energy, so the dropped mass (compaction included) is reported
-        live = counts > 0
-        total, n_live = all_reduce_sum(mesh, torch.stack([counts.sum(), live.sum()]))
-        diag = {
-            "dropped_frac": 1.0 - total.double() / n_sample,
-            "n_unique": n_live,
-        }
+        with record_function("ar.compact"):
+            n_rows = bits.shape[0] * (1 if mesh is None else mesh.size)
+            if self.max_unique is not None and self.max_unique < n_rows:
+                if mesh is None:
+                    bits, counts = compact_by_count(bits, counts, self.max_unique)
+                else:
+                    bits, counts = self._compact_global(bits, counts)
+            # truncation diagnostic: a truncated sampling measure biases the
+            # energy, so the dropped mass (compaction included) is reported
+            live = counts > 0
+            total, n_live = all_reduce_sum(mesh, torch.stack([counts.sum(), live.sum()]))
+            diag = {
+                "dropped_frac": 1.0 - total.double() / n_sample,
+                "n_unique": n_live,
+            }
         if self.exact_weights:
             dt = model_device_dtype(model)[1]
             logw = torch.full(counts.shape, -torch.inf, dtype=dt, device=counts.device)

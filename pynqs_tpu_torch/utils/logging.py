@@ -1,43 +1,22 @@
-"""Structured, parseable run logging + phase timing.
+"""Structured, parseable run logging.
 
-Counterpart (a copy) of ``pynqs_tpu/utils/logging.py``: both packages
-write the same lines, so ``read_log`` parses either package's logs.
+Counterpart (a copy) of ``pynqs_tpu/utils/logging.py``, without its
+``PhaseTimer``: both packages write the same lines, so ``read_log``
+parses either package's logs.
 
-The reference's pervasive `time.time_ns()` phase spans and loguru sink
-(utils/loggings.py, SURVEY.md §5 "the log itself is the profile") get
-a structured contract here: every iteration emits one human line and
-one machine-parseable `@@ {json}` line, and :class:`PhaseTimer`
-accumulates per-phase wall times that `utils.log_helper.read_log`
-parses back into arrays (the PyNQS_helper.py analog).
+Every logged iteration emits one human line and one machine-parseable
+``@@ {json}`` record, which ``read_log`` parses back (the
+PyNQS_helper.py analog).  Where the time of a step goes is not logged
+here: the port's stages and layers are ``torch.profiler`` ranges
+(``VMCConfig.profile_dir`` traces them).
 """
 
 from __future__ import annotations
 
 import json
 import sys
-import time
-from contextlib import contextmanager
 
-__all__ = ["PhaseTimer", "RunLogger", "read_log"]
-
-
-class PhaseTimer:
-    def __init__(self):
-        self.times: dict[str, float] = {}
-
-    @contextmanager
-    def phase(self, name: str):
-        t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            self.times[name] = self.times.get(name, 0.0) + (
-                time.perf_counter() - t0
-            )
-
-    def pop(self) -> dict[str, float]:
-        t, self.times = self.times, {}
-        return t
+__all__ = ["RunLogger", "read_log"]
 
 
 class RunLogger:

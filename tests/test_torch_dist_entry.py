@@ -13,6 +13,7 @@ from pynqs_tpu_torch.entry import dryrun_multichip
 from pynqs_tpu_torch.models.graph_mps_rnn import GraphMPSRNN
 from pynqs_tpu_torch.optim.vmc import VMC, VMCConfig
 from pynqs_tpu_torch.sampler.ar_sampler import ARSampler
+from pynqs_tpu_torch.utils.logging import read_log
 from pynqs_tpu_torch.utils.system import System
 
 
@@ -40,13 +41,21 @@ def test_profiled_run_writes_a_trace_with_the_stage_ranges(tmp_path):
     system = System.hubbard_1d(4, 2, 2, u=4.0)
     model = GraphMPSRNN(8, 2, 2, dcut=4, device="cpu", generator=torch.Generator().manual_seed(0))
     cfg = VMCConfig(lr=1e-2, log_every=10**6, eloc_method="reduce", eloc_k_det=4,
-                    eloc_n_stoch=2, profile_dir=str(tmp_path / "prof"), profile_iters=2)
-    VMC(model, system, ARSampler(8, 2, 2, n_sample=1000, capacity=36), cfg).run(
-        torch.Generator().manual_seed(1), 4)
+                    eloc_n_stoch=2, profile_dir=str(tmp_path / "prof"), profile_iters=2,
+                    fused_forward=True, log_path=str(tmp_path / "log"))
+    sampler = ARSampler(8, 2, 2, n_sample=1000, capacity=36, dfs_n_group=2, dfs_split_depth=2)
+    VMC(model, system, sampler, cfg).run(torch.Generator().manual_seed(1), 4)
     trace = json.loads((tmp_path / "prof" / "trace_rank0.json").read_text())
     names = [e.get("name") for e in trace["traceEvents"] if e.get("cat") == "user_annotation"]
-    for rng in ("vmc.sample", "vmc.eloc", "vmc.grad", "vmc.update"):
-        assert names.count(rng) == 2, rng  # iterations 2 and 3 only
+    for rng in ("vmc.sample", "vmc.eloc", "vmc.grad", "vmc.update", "ar.root", "ar.groups",
+                "ar.compact", "hamiltonian.comb_hij", "eloc.select", "fused_rnn.forward",
+                "fused_rnn.count_distinct", "grad.forward", "grad.backward"):
+        assert names.count(rng) == 2, rng  # iterations 2 and 3 only (one chunk each)
+    # the fused forward's rows over the traced iterations, as one record beside the trace
+    rec = [r for r in read_log(str(tmp_path / "log")) if "fused_rows" in r]
+    assert len(rec) == 1 and rec[0]["trace"].endswith("trace_rank0.json")
+    assert 0 < rec[0]["fused_distinct"] <= rec[0]["fused_rows"]
+    assert rec[0]["fused_rows"] == 2 * 72 * (1 + 4 + 2)  # 2 iterations of 72 rows x 7 forwards
 
 
 @pytest.mark.parametrize("mode", ["flat", "prefix"])
@@ -60,6 +69,6 @@ def test_bench_run_prints_its_line(mode, capsys):
     line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert line["metric"] == "flagship_reduce_eloc_hij_terms_per_sec_per_chip"
     assert line["unit"] == "terms/s" and line["value"] > 0
-    assert line["vs_baseline"] == pytest.approx(line["value"] / 1e8)
+    assert "vs_baseline" not in line  # no anchor: nothing measured one
     assert res["mode"] == mode and res["device"] == "cpu"
     assert (res["dedup_unique_max"] is not None) == (mode == "flat")

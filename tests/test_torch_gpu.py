@@ -9,7 +9,9 @@ kernels; the SR solvers against each other in f64 and ``safe_atan2``'s
 forward mode on the card; the dp-128 forward under ``hold_rows``; the
 forward and the prefix passes above dp 128 (in passes of 128 outputs); the
 data-parallel step over one NCCL rank (bit for bit the step without a
-mesh) and two gloo ranks on one card, and ``entry()``.
+mesh) and two gloo ranks on one card, ``entry()``, and the program's
+``torch.profiler`` ranges on the card's clock (each device span after its
+host span, kernel #1 inside ``fused_rnn.forward``).
 
 They import neither JAX nor the JAX package, so they also run where only
 PyTorch for CUDA is installed.  On a machine with a card:
@@ -1015,3 +1017,117 @@ def test_entry_launches_kernel_1(dev):
     e = float(fn(*args))
     torch.cuda.synchronize()
     assert fused_rnn.MMA_LAUNCHES.n > 0 and math.isfinite(e)
+
+
+def _traced_path(path, dev):
+    """Two VMC steps of a small chain (DFS sampler, REDUCE through kernel
+    #1) or four GFMC iterations of a small tensor-coupled DAG trial through
+    kernel #1, each warmed once, then run under the benchmark's profiler.
+    Returns the trace's events and, for each device operation whose launch
+    call the trace holds, (the call's host time, device start, device end)."""
+    from bench_h100.readers import profile as prof_reader
+    from bench_h100.readers.spans import LAUNCH_CALLS
+    from pynqs_tpu_torch.gfmc.walker import GFMC, GFMCConfig
+
+    gen = torch.Generator(device=dev).manual_seed(1)
+    if path == "vmc":
+        system = System.hubbard_1d(8, 4, 4, u=4.0)
+        model = GraphMPSRNN(16, 4, 4, dcut=16, phase_mode="arg", norm_mode="mpsrnn",
+                            dtype=torch.float32, device=dev,
+                            generator=torch.Generator().manual_seed(0))
+        sampler = ARSampler(16, 4, 4, n_sample=100_000, capacity=256, dfs_n_group=2,
+                            dfs_split_depth=2, dfs_capacity_root=256, max_unique=256)
+        vmc = VMC(model, system, sampler, VMCConfig(
+            optimizer="adamw", lr=1e-3, eloc_method="reduce", eloc_k_det=32, eloc_n_stoch=8,
+            eloc_batch=128, grad_batch=128))
+
+        def run(n):
+            for _ in range(n):
+                vmc.step(gen, 0.1)
+    else:
+        system = System.hubbard_1d(6, 3, 3, u=4.0)
+        model = GraphMPSRNN(12, 3, 3, dcut=16, graph=grid_snake_graph(3, 2), phase_mode="arg",
+                            norm_mode="mpsrnn", use_tensor=True, dcut_cmpr=4,
+                            dtype=torch.float32, device=dev,
+                            generator=torch.Generator().manual_seed(0))
+        tables = fused_rnn.pack_tables(model)
+        g = GFMC(lambda b: fused_rnn.graph_mpsrnn_logpsi_fused(model, b, tables=tables), system,
+                 GFMCConfig(n_walkers=64, branch_interval=2), device=dev)
+        walkers = torch.as_tensor(_rand_dets(64, 12, 3, 3, 3), device=dev)
+
+        def run(n):
+            g.run(walkers, generator=gen, n_iter=2 * n)
+    run(1)
+    torch.cuda.synchronize(dev)
+    with prof_reader.traced(dev) as prof:
+        run(2)
+        torch.cuda.synchronize(dev)
+    calls, ops = {}, []
+    for e in prof.profiler.kineto_results.events():
+        kind, t0 = prof_reader._kind(e), prof_reader._us(e, "start")
+        if kind == "cpu_op" and e.name() in LAUNCH_CALLS:
+            calls[e.correlation_id()] = t0
+        elif kind in ("kernel", "gpu_mem"):
+            ops.append((e.correlation_id(), t0, t0 + prof_reader._us(e, "duration"), kind,
+                        e.name()))
+    launched = [(calls[c], *op) for c, *op in ops if c in calls]
+    print(f"{path}: {len(launched)} of {len(ops)} device operations matched to their launch call")
+    assert len(launched) >= 0.9 * len(ops) > 0
+    return prof_reader.events_of(prof), launched
+
+
+LAUNCH_SKEW_US = 20.0
+SPAN_TOL_US = 1.0  # a device span's edges are kept to a fraction of a us (0.25 us seen)
+# the ranges that the per-layer metrics read (``stage_ms.*``)
+READ_RANGES = {"vmc": ("vmc.sample", "vmc.eloc", "vmc.grad", "hamiltonian.comb_hij",
+                       "eloc.select", "fused_rnn.forward", "grad.backward"),
+               "gfmc": ("hamiltonian.comb_hij", "fused_rnn.forward", "gfmc.transition")}
+
+
+@pytest.mark.parametrize("path", ["vmc", "gfmc"])
+def test_device_spans_follow_their_host_spans(path, dev):
+    """The program's ranges on the card's clock: the k-th device span of a
+    range starts no earlier than its k-th host span; each range a metric
+    reads holds in its device span every kernel launched while it was
+    open (more than ``LAUNCH_SKEW_US`` from its edges), from any thread
+    and from the ranges nested in it, though a device span is drawn over
+    the work launched in the range itself on its own thread only; and
+    every launch of kernel #1 lies inside a device span of
+    ``fused_rnn.forward``."""
+    ev, launched = _traced_path(path, dev)
+    host, on_dev = {}, {}
+    for kind, name, t0, dur in ev:
+        if kind in ("cpu_range", "gpu_range"):
+            (host if kind == "cpu_range" else on_dev).setdefault(name, []).append((t0, t0 + dur))
+    stages = (("vmc.sample", "vmc.eloc", "vmc.grad", "vmc.update") if path == "vmc" else
+              ("gfmc.green_row", "gfmc.transition", "gfmc.branch", "gfmc.readback"))
+    assert set(stages) | {"hamiltonian.comb_hij", "fused_rnn.forward"} <= set(on_dev), \
+        sorted(on_dev)
+    for name, spans in on_dev.items():
+        h, d = sorted(host.get(name, [])), sorted(spans)
+        print(f"{path} {name}: {len(h)} host spans, {len(d)} device spans, earliest device lag "
+              f"{min(b[0] - a[0] for a, b in zip(h, d))!r} us")
+        assert len(d) <= len(h), name
+        assert all(b[0] >= a[0] for a, b in zip(h, d)), name
+    bad = []
+    for name in READ_RANGES[path]:
+        h, d = sorted(host[name]), sorted(on_dev[name])
+        assert len(h) == len(d), name
+        for (h0, h1), (d0, d1) in zip(h, d):
+            inside = [op for op in launched if h0 <= op[0] <= h1]
+            assert inside, name
+            out = [op for op in inside
+                   if not (d0 - SPAN_TOL_US <= op[1] and op[2] <= d1 + SPAN_TOL_US)]
+            for tl, t0, t1, kind, op in out:
+                print(f"{path} {name}: {kind} {op[:60]} launched at host +{tl - h0:.2f} / "
+                      f"-{h1 - tl:.2f} us, runs device {t0 - d0:+.2f} .. {t1 - d1:+.2f} us")
+            # the host and device clocks of a trace may differ by a few us at the edges,
+            # and Kineto may leave copies out of a span: kernels launched inside are held
+            bad += [name for op in out if op[3] == "kernel"
+                    and h0 + LAUNCH_SKEW_US <= op[0] <= h1 - LAUNCH_SKEW_US]
+    assert not bad, sorted(set(bad))
+    fwd = sorted(on_dev["fused_rnn.forward"])
+    k1 = [(t0, t0 + dur) for kind, name, t0, dur in ev
+          if kind == "kernel" and "fused_rnn_mma_kernel" in name]
+    assert len(k1) == len(host["fused_rnn.forward"]) == len(fwd) > 0
+    assert all(any(f[0] - SPAN_TOL_US <= s and t <= f[1] + SPAN_TOL_US for f in fwd) for s, t in k1)
