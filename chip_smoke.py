@@ -101,7 +101,10 @@ Phases, one line each (and a few detail lines):
      tensor-core kernel; on the run's last walkers one Green row with the
      forward dedup at its measured distinct-row count against the plain
      one, and one below the count raising; kernel #1 held to its plain
-     version on 65,536 trial-block rows and timed on the whole block; the
+     version on 65,536 trial-block rows and timed on every row of the
+     block, beside the call as the program makes it (kernel #1 on the
+     block's distinct rows, held on the same rows and bit for bit the
+     kernel on every row); the
      CI-NQS polish through pynqs_tpu_torch/scripts/fe2s2_ci_polish.main
      (exact local energies, m 2048, n 1e6 in 4 groups of 4096 at depth 6),
      its E_VMC pass through kernel #4 (timed at its chunk shape as in phase
@@ -335,6 +338,19 @@ def cuda_ms(fn, reps):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def every_row(model, bits, **kw):
+    """Kernel #1 on every row of bits: ``graph_mpsrnn_logpsi_fused`` with
+    its dedup off, so that a time is the kernel's on all the rows its bound
+    counts (phase 12 times the deduplicated call beside it)."""
+    from pynqs_tpu_torch.ops import fused_rnn
+
+    keep, fused_rnn.DEDUP_MIN_ROWS = fused_rnn.DEDUP_MIN_ROWS, 1 << 62
+    try:
+        return fused_rnn.graph_mpsrnn_logpsi_fused(model, bits, **kw)
+    finally:
+        fused_rnn.DEDUP_MIN_ROWS = keep
 
 
 def gpu_info():
@@ -656,7 +672,7 @@ def flagship_run(dev, smi, here, bound, flop_per_site, table_bytes, tol, timed):
                 m, trows[i:i + CH], matmul_dtype=bf16, tables=tables)
                 for i in range(0, n_rows, CH)])
 
-        kern = lambda: fused_rnn.graph_mpsrnn_logpsi_fused(m, trows, matmul_dtype=bf16, tables=T)  # noqa: E731
+        kern = lambda: every_row(m, trows, matmul_dtype=bf16, tables=T)  # noqa: E731
         k_out, p_out = kern(), plain()
         sync()
         ok, held, st = hold_rows(k_out, p_out, plain(T64), tol[bf16])
@@ -931,7 +947,8 @@ def refine_run(dev, smi, here, bound, flop_per_site, table_bytes, tol, timed, ti
 
         # ---- kernel #1 on the trial block ----
         T = fused_rnn.pack_tables(model)
-        sub = trows[torch.linspace(0, n_rows - 1, N_HOLD, device=dev).long()]
+        idx = torch.linspace(0, n_rows - 1, N_HOLD, device=dev).long()
+        sub = trows[idx]
         k_out = fused_rnn.graph_mpsrnn_logpsi_fused(model, sub, matmul_dtype=bf16, tables=T)
         p_out = fused_rnn.graph_mpsrnn_logpsi_fused_plain(model, sub, matmul_dtype=bf16,
                                                           tables=T)
@@ -946,7 +963,21 @@ def refine_run(dev, smi, here, bound, flop_per_site, table_bytes, tol, timed, ti
                 f"(rows over {tol[bf16][1]:g}: {st['over']}, plain f64 {st['q_over']})")
         check(ok, "kernel #1 disagrees with its plain version on the trial block")
         err = st["max_a"]
-        del k_out, p_out, q_out
+        # the call as the program makes it: kernel #1 on the block's distinct
+        # rows, their values gathered back to every row
+        check(n_rows >= fused_rnn.DEDUP_MIN_ROWS, "the trial block is under the dedup threshold")
+        ded = lambda: fused_rnn.graph_mpsrnn_logpsi_fused(model, trows, matmul_dtype=bf16, tables=T)  # noqa: E731
+        n_u = fused_rnn.distinct_rows(trows)[0].shape[0]
+        d_out = ded()
+        same = bool(torch.equal(d_out, every_row(model, trows, matmul_dtype=bf16, tables=T)))
+        ok_d, held_d, st_d = hold_rows(d_out[idx], p_out, q_out, tol[bf16])
+        log(12, f"the deduplicated call on the trial block ({n_u} of {n_rows} rows distinct, "
+                f"{n_u / n_rows:.2%}) vs plain on the same {N_HOLD} rows: max|dlog|psi|| "
+                f"{st_d['max_a']:.3e}, max phase distance {st_d['max_p']:.3e}; held: {held_d}; "
+                f"bit for bit the kernel on every row: {same}")
+        check(ok_d and same, "the deduplicated call disagrees with the kernel on every row or "
+                             "with the plain version")
+        del k_out, p_out, q_out, d_out
         CH = 1 << 18
 
         def plain():
@@ -954,7 +985,7 @@ def refine_run(dev, smi, here, bound, flop_per_site, table_bytes, tol, timed, ti
                 model, trows[i:i + CH], matmul_dtype=bf16, tables=T)
                 for i in range(0, n_rows, CH)])
 
-        kern = lambda: fused_rnn.graph_mpsrnn_logpsi_fused(model, trows, matmul_dtype=bf16, tables=T)  # noqa: E731
+        kern = lambda: every_row(model, trows, matmul_dtype=bf16, tables=T)  # noqa: E731
         p1 = cuda_ms(plain, 1)
         k_ms = (cuda_ms(kern, 2) + cuda_ms(kern, 2)) / 2
         p_ms = (p1 + cuda_ms(plain, 1)) / 2
@@ -964,6 +995,13 @@ def refine_run(dev, smi, here, bound, flop_per_site, table_bytes, tol, timed, ti
                 f"kernel {k_ms:.3f} ms ({flop / k_ms / 1e9:.2f} TFLOP/s), plain {p_ms:.3f} ms "
                 f"(in chunks of {CH}), bound {b_k[0]:.3f} ms ({b_k[1]}; {flop / 1e12:.3f} "
                 f"TFLOP), {k_ms / g_ms:.1%} of a Green row; gpu {smi}")
+        d_ms = (cuda_ms(ded, 2) + cuda_ms(ded, 2)) / 2
+        flop_u = flop * n_u / n_rows
+        b_u = bound(flop_u, n_rows * SORB + n_rows * 2 * 4 + table_bytes(T, bf16), bf16)
+        log(12, f"the deduplicated call on the trial block: {d_ms:.3f} ms ({flop_u / d_ms / 1e9:.2f} "
+                f"TFLOP/s on the {n_u} distinct rows), bound {b_u[0]:.3f} ms ({b_u[1]}; "
+                f"{flop_u / 1e12:.3f} TFLOP), {k_ms / d_ms:.2f}x faster than the kernel on every "
+                f"row; gpu {smi}")
         del plain_row, trows, sub, model
 
         # ---- the CI-NQS polish ----
@@ -1014,6 +1052,8 @@ def refine_run(dev, smi, here, bound, flop_per_site, table_bytes, tol, timed, ti
                 f"{(v16 - v32) * 1e3:+.4f} mHa; gpu {smi}")
         return {"gfmc_launches": l_g["fused_mma"], "err": err, "times": (k_ms, p_ms),
                 "bound": b_k, "rows": n_rows, "ms_per_iter": out["ms_per_iter"],
+                "dedup": {"err": st_d["max_a"], "times": (d_ms, p_ms), "bound": b_u,
+                          "distinct": n_u},
                 "polish_lane": l_p["pair_select_lane"], "pair_select": (m_ps, err_ps),
                 "pass_s": e_pass, "f32_launches": l_pair["f32"]["fused_f32_mma"]}
     finally:
@@ -1204,8 +1244,7 @@ def nqsci_run(dev, smi, here, bound, flop_per_site, table_bytes, tol, timed):
                 for i in range(0, n_rows, CH)])
 
         def kern(mm):
-            return lambda: fused_rnn.graph_mpsrnn_logpsi_fused(model, hrows, matmul_dtype=mm,
-                                                               tables=T)
+            return lambda: every_row(model, hrows, matmul_dtype=mm, tables=T)
 
         def cuda_cores():
             return fused_rnn._launch_f32_cuda_cores(model, hrows, T)
@@ -1405,7 +1444,7 @@ def sr_run(dev, smi, here, bound, flop_per_site, table_bytes, tol, timed):
             return torch.cat([fused_rnn.graph_mpsrnn_logpsi_fused_plain(
                 m, trows[i:i + CH], matmul_dtype=bf16, tables=T) for i in range(0, n_rows, CH)])
 
-        kern = lambda: fused_rnn.graph_mpsrnn_logpsi_fused(m, trows, matmul_dtype=bf16, tables=T)  # noqa: E731
+        kern = lambda: every_row(m, trows, matmul_dtype=bf16, tables=T)  # noqa: E731
         kern()
         p1, k1, k2, p2 = cuda_ms(plain, 1), cuda_ms(kern, 3), cuda_ms(kern, 3), cuda_ms(plain, 1)
         k_ms, p_ms = (k1 + k2) / 2, (p1 + p2) / 2
@@ -1832,8 +1871,7 @@ def a8_run(dev, smi, system, tol, timed, time_pairs, bound, flop_per_site, table
                 f"max phase distance {st['max_p']:.3e}, median row {st['med_a']:.3e} / "
                 f"{st['med_p']:.3e}; held: {held} (rows over {tol[bf16][1]:g}: {st['over']})")
         check(ok, "stage 4: kernel #1 disagrees with its plain version")
-        kern = lambda: fused_rnn.graph_mpsrnn_logpsi_fused(m, trows, matmul_dtype=bf16,  # noqa: E731
-                                                           tables=T)
+        kern = lambda: every_row(m, trows, matmul_dtype=bf16, tables=T)  # noqa: E731
         plain = lambda: fused_rnn.graph_mpsrnn_logpsi_fused_plain(  # noqa: E731
             m, trows, matmul_dtype=bf16, tables=T)
         kern()
@@ -2460,8 +2498,7 @@ def last_modules_run(dev, smi, here, bound, flop_per_site, table_bytes, tol, tim
                         for i in range(0, n_rows, CH)])
 
                 def kern(m=m, mm=mm, T=T):
-                    return fused_rnn.graph_mpsrnn_logpsi_fused(m, trows, matmul_dtype=mm,
-                                                               tables=T)
+                    return every_row(m, trows, matmul_dtype=mm, tables=T)
 
                 kern()
                 p1, k1, k2, p2 = cuda_ms(plain, 1), cuda_ms(kern, 2), cuda_ms(kern, 2), \
@@ -2996,7 +3033,7 @@ def main():
         tables = fused_rnn.pack_tables(m)
         res = {}
         for mm in (bf16, f32):
-            kern = lambda mm=mm: fused_rnn.graph_mpsrnn_logpsi_fused(m, trows, matmul_dtype=mm, tables=tables)  # noqa: E731
+            kern = lambda mm=mm: every_row(m, trows, matmul_dtype=mm, tables=tables)  # noqa: E731
             plain = lambda mm=mm: fused_rnn.graph_mpsrnn_logpsi_fused_plain(m, trows, matmul_dtype=mm, tables=tables)  # noqa: E731
             simt = ((lambda: fused_rnn._launch_simt(m, trows, tables)) if mm == bf16 else  # noqa: E731
                     (lambda: fused_rnn._launch_f32_cuda_cores(m, trows, tables)))
@@ -3558,9 +3595,9 @@ def main():
         check(ok, f"dcut_cmpr {DCMP_C3} {mmname(mm)}: the tensor-core kernel disagrees with the "
                   f"CUDA-core kernel")
         del s_out, p_out, q
-        kern = lambda mm=mm: fused_rnn.graph_mpsrnn_logpsi_fused(  # noqa: E731
+        kern = lambda mm=mm: every_row(  # noqa: E731
             m14, x14, matmul_dtype=mm, tables=T14)
-        dc4 = lambda mm=mm: fused_rnn.graph_mpsrnn_logpsi_fused(  # noqa: E731
+        dc4 = lambda mm=mm: every_row(  # noqa: E731
             m14_dc4, x14, matmul_dtype=mm)
         dc4()
         k, k4 = alternate(dc4, kern, 5, 5)
@@ -3590,6 +3627,11 @@ def main():
     log(16, f"phase 16 in {time.perf_counter() - t16:.1f} s")
 
     # ---- 17. the other ansätze: decoder, MPS-Transformer, Hubbard ladder ----
+    # the decoder's step peaks at about 52 GiB: it starts from an empty cache,
+    # since its blocks split across the segments the earlier phases cached left
+    # no 12.5 GiB block free (29.7 GiB reserved and unallocated at the failure)
+    gc.collect()
+    torch.cuda.empty_cache()
     t17 = time.perf_counter()
     f17 = a8_run(dev, smi, system, tol, timed, time_pairs, bound, flop_per_site, table_bytes)
     log(17, f"phase 17 in {time.perf_counter() - t17:.1f} s")
@@ -3681,6 +3723,13 @@ def main():
         entry("fused_rnn_forward_mma_gfmc", "pynqs_tpu/ops/fused_rnn.py:254",
               f12["gfmc_launches"], f12["err"], f12["times"], f12["bound"], "fused_rnn_mma.cu",
               rows=f12["rows"]),
+        # the same block through the call as the program makes it (phase
+        # 12): kernel #1 on its distinct rows, gathered back to every row;
+        # bound_ms counts the distinct rows' operations
+        entry("fused_rnn_forward_mma_gfmc_dedup", "pynqs_tpu/ops/fused_rnn.py:254",
+              f12["gfmc_launches"], f12["dedup"]["err"], f12["dedup"]["times"],
+              f12["dedup"]["bound"], "fused_rnn_mma.cu", rows=f12["rows"],
+              distinct=f12["dedup"]["distinct"]),
         # kernel #4 in the polish's E_VMC pass (phase 12): its launches and
         # its chunk's shape
         entry("pair_select_lane_polish", "pynqs_tpu/ops/pallas_hij.py:48",

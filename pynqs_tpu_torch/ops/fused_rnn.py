@@ -20,11 +20,18 @@ from ``pack_mma_tables`` and ``hidden_slots``, launch shape from
 in f32 mode its f32 one, each product as three TF32 products.
 ``LAUNCHES`` counts every launch of the fused forward, ``MMA_LAUNCHES``
 those of the bf16 tensor-core kernel, ``F32_MMA_LAUNCHES`` those of the
-f32 one.  Each call is the ``torch.profiler`` range ``fused_rnn.forward``;
-while a profiler records, each call also adds its rows to ``ROWS`` and
-the distinct rows among them (``count_distinct``, in the range
-``fused_rnn.count_distinct`` after the forward's) to ``DISTINCT``: the
-share that dedup at the caller's batching would keep.
+f32 one.  A call of at least ``DEDUP_MIN_ROWS`` rows, on either device,
+runs the forward once per distinct row (``distinct_rows``) and gathers
+its values back to every row (the distinct count is read back to the
+host once).  On the card the output is the same, row for row and bit for
+bit, since the kernel's values of a row depend on that row alone (the
+CPU's plain version, whose products may round a row by its place in the
+batch, agrees to rounding).  Each call is the
+``torch.profiler`` range ``fused_rnn.forward``; while a profiler
+records, each call also adds, in the range ``fused_rnn.count_distinct``
+after the forward's, its rows to ``ROWS``, the rows the forward ran on
+to ``EVALUATED`` and the distinct rows among them to ``DISTINCT`` (the
+dedup's own count, or below the threshold ``count_distinct``).
 (``ops/fused_rnn_prefix.py`` launches the same library's prefix-sharing
 entry points.)  The earlier CUDA-core kernel
 (``csrc/fused_rnn.cu``) is reached only to time and check it beside the
@@ -63,7 +70,10 @@ __all__ = [
     "F32_MMA_LAUNCHES",
     "ROWS",
     "DISTINCT",
+    "EVALUATED",
+    "DEDUP_MIN_ROWS",
     "count_distinct",
+    "distinct_rows",
 ]
 
 _NEG = -1e30
@@ -71,10 +81,20 @@ LAUNCHES = Counter()  # every launch of the fused forward (any kernel, any mode)
 MMA_LAUNCHES = Counter()  # launches of the tensor-core kernel in bf16
 F32_MMA_LAUNCHES = Counter()  # launches of the tensor-core kernel in f32 (3xTF32)
 # while a profiler records: rows handed to the fused forward (a host int),
-# and the distinct rows of each call among them (a 0-d tensor on the rows' device)
+# the distinct rows of each call among them (a host int where the call
+# deduplicated, else a 0-d tensor on the rows' device), and the rows the
+# forward ran on (a host int)
 ROWS = Counter()
 DISTINCT = Counter()
-PACK_ROWS = 1 << 20  # rows packed at a time by count_distinct
+EVALUATED = Counter()
+PACK_ROWS = 1 << 20  # rows packed at a time by count_distinct and distinct_rows
+# calls of at least this many rows run once per distinct row: on an H100,
+# on the REDUCE local energy's rows of the dcut-96 chain's samples (k_det
+# 512, n_stoch 128), the dedup (about 0.6-1 ms a call, its launches and the
+# read-back) saved time on every call measured from 512 samples' 328,192
+# rows on (48-88% distinct), at dp 96 and at dcut 64 with the tensor
+# coupling, and lost up to 0.3 ms on a 164,096-row call (92% distinct)
+DEDUP_MIN_ROWS = 5 << 16
 MMA_WIDTHS = (16, 32, 48, 64, 96, 128)  # padded d (dp) held in registers; above, multiples of 64
 STAGE_U4 = 24576 // 16  # one weight stage of the tensor-core kernel, in 16-byte units
 STAGES = 3  # weight stages of the tensor-core kernel
@@ -758,35 +778,72 @@ def graph_mpsrnn_logpsi_fused(
     """Gradient-free replacement for ``model.log_psi``: bits [N, sorb]
     0/1 -> [N, 2] (log|ψ|, arg ψ), f32.  CPU rows take the plain
     version; CUDA rows launch the tensor-core kernel in bf16 or in f32
-    (3xTF32), or raise."""
+    (3xTF32), or raise.  From ``DEDUP_MIN_ROWS`` rows on, either runs on
+    the distinct rows alone."""
     if not fused_forward_available(model):
         raise ValueError("the fused forward computes GraphMPSRNN models only")
     if bits.device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {bits.device}")
+    n = bits.shape[0]
+    dedup = n >= DEDUP_MIN_ROWS
     with record_function("fused_rnn.forward"):
+        if dedup:
+            first, inverse = distinct_rows(bits)
+            rows = bits[first]
+        else:
+            rows = bits
         if bits.device.type == "cpu":
             out = graph_mpsrnn_logpsi_fused_plain(
-                model, bits, matmul_dtype=matmul_dtype, tables=tables
+                model, rows, matmul_dtype=matmul_dtype, tables=tables
             )
         else:
-            out = _launch_mma(model, bits, tables, matmul_dtype)  # raises unless bf16 or f32
+            out = _launch_mma(model, rows, tables, matmul_dtype)  # raises unless bf16 or f32
+        if dedup:
+            out = out[inverse]
     if torch.autograd._profiler_enabled():
         with record_function("fused_rnn.count_distinct"):
-            ROWS.n += bits.shape[0]
-            DISTINCT.n = DISTINCT.n + count_distinct(bits)
+            ROWS.n += n
+            EVALUATED.n += rows.shape[0]
+            DISTINCT.n = DISTINCT.n + (rows.shape[0] if dedup else count_distinct(bits))
     return out
+
+
+def _sorted_keys(bits: torch.Tensor) -> tuple:
+    """The rows of bits [N, sorb] as sorted keys [N, k] (one int64 each
+    with ``row_keys``, else the packed words) and the permutation [N]
+    that sorts them."""
+    packed = torch.cat([onv.pack_bits(bits[s:s + PACK_ROWS])
+                        for s in range(0, max(bits.shape[0], 1), PACK_ROWS)])
+    key = row_keys(packed)
+    if key is not None:
+        srt, perm = torch.sort(key)
+        return srt[:, None], perm
+    perm = sort_order(packed)
+    return packed[perm], perm
 
 
 @torch.no_grad()
 def count_distinct(bits: torch.Tensor) -> torch.Tensor:
     """The distinct rows of bits [N, sorb] as a 0-d int64 tensor on their
-    device, with the keys of ``energy/eloc.unique_rows`` (``onv.pack_bits``
-    in blocks of ``PACK_ROWS`` rows, then ``row_keys``), sorted and counted
-    where the key changes: nothing is read back to the host."""
+    device, with the keys of ``energy/eloc.unique_rows`` (the words of
+    ``onv.pack_bits``, ``PACK_ROWS`` rows at a time, then ``row_keys``),
+    sorted and counted where the key changes: nothing is read back to the
+    host."""
     if bits.shape[0] == 0:
         return torch.zeros((), dtype=torch.long, device=bits.device)
-    packed = torch.cat([onv.pack_bits(bits[s:s + PACK_ROWS])
-                        for s in range(0, bits.shape[0], PACK_ROWS)])
-    key = row_keys(packed)
-    srt = torch.sort(key).values[:, None] if key is not None else packed[sort_order(packed)]
+    srt, _ = _sorted_keys(bits)
     return 1 + (srt[1:] != srt[:-1]).any(-1).sum()
+
+
+@torch.no_grad()
+def distinct_rows(bits: torch.Tensor) -> tuple:
+    """(first [U] int64, inverse [N] int64): a row of each distinct row of
+    bits [N, sorb], in the order of ``count_distinct``'s keys, and each
+    row's place among them, so that ``bits[first][inverse]`` equals
+    ``bits``.  U is read back to the host, once."""
+    srt, perm = _sorted_keys(bits)
+    new = torch.ones(bits.shape[0], dtype=torch.bool, device=bits.device)
+    new[1:] = (srt[1:] != srt[:-1]).any(-1)  # where a run of equal rows starts
+    inverse = torch.empty_like(perm)
+    inverse[perm] = torch.cumsum(new, 0) - 1
+    return perm[new], inverse

@@ -43,13 +43,17 @@ def n_words32(sorb: int) -> int:
 
 
 def pack_bits(bits: torch.Tensor) -> torch.Tensor:
-    """0/1 bits [..., sorb] -> the words [..., n_words32(sorb)] as int64."""
+    """0/1 bits [..., sorb] -> the words [..., n_words32(sorb)] as int64.
+    A row's 0/1 bytes, padded to 32 per word and read as int64s of 8 bytes
+    each, fold into one byte per int64 by one multiply (byte j lands on
+    bit 56 + j, and nothing below carries into the top byte); 4 such
+    bytes make a word."""
     sorb = bits.shape[-1]
     nw = n_words32(sorb)
-    b = torch.nn.functional.pad(bits.long(), (0, nw * 32 - sorb))
-    pow2 = torch.bitwise_left_shift(torch.ones(32, dtype=torch.long, device=bits.device),
-                                    torch.arange(32, device=bits.device))
-    return (b.reshape(bits.shape[:-1] + (nw, 32)) * pow2).sum(-1)
+    b = torch.nn.functional.pad(bits.reshape(-1, sorb).to(torch.int8), (0, nw * 32 - sorb))
+    byte = ((b.view(torch.int64) * 0x0102040810204080) >> 56) & 0xFF  # [n, 4 nw]
+    shift = torch.arange(0, 32, 8, device=bits.device)
+    return (byte.view(b.shape[0], nw, 4) << shift).sum(-1).reshape(bits.shape[:-1] + (nw,))
 
 
 def unpack_bits(words: torch.Tensor, sorb: int) -> torch.Tensor:

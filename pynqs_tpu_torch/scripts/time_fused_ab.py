@@ -13,9 +13,9 @@ call, 5 timed) and its kernel alone on the device (``torch.profiler``,
 the kernels named ``fused_rnn*``, 5 calls), on the same seeded random
 rows of Fe2S2's shape (sorb 40, 15α/15β), in bf16 and f32:
 
-  * ``graph_mpsrnn_logpsi_fused`` (kernel #1) on 657,408 rows of the
-    dcut-48 chain with ``checkpoints/fe2s2_dcut48_final.pkl``, and of the
-    r5g64 flagship (dcut 64, 2 predecessors, the tensor coupling at
+  * ``graph_mpsrnn_logpsi_fused`` (kernel #1, its dedup off) on 657,408
+    rows of the dcut-48 chain with ``checkpoints/fe2s2_dcut48_final.pkl``,
+    and of the r5g64 flagship (dcut 64, 2 predecessors, the tensor coupling at
     dcut_cmpr 4) with ``checkpoints/fe2s2_r3_dcut64_r5g64.pkl`` on the
     graph of seeded stand-in integrals, as ``chip_smoke.py`` builds it;
   * the chain's prefix passes (``fused_rnn_prefix.prefix_parent`` and
@@ -62,6 +62,7 @@ def _turn(root, n_rows, seed):
     from pynqs_tpu_torch.utils.system import System
 
     assert fused_rnn.__file__.startswith(os.path.abspath(root)), fused_rnn.__file__
+    fused_rnn.DEDUP_MIN_ROWS = 1 << 62  # kernel #1 on every row (a checkout without the dedup ignores it)
     dev = torch.device("cuda")
     irng = np.random.default_rng(0)  # chip_smoke.py's stand-in integrals
     h1e = irng.standard_normal((SORB, SORB)) * 0.1

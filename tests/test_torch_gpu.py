@@ -222,6 +222,48 @@ def test_mma_kernel_global_hidden_slots(mm, dev):
 
 
 @pytest.mark.parametrize("mm", ["f32", "bf16"])
+def test_fused_forward_dedup_is_bit_identical_on_card(mm, dev, monkeypatch):
+    """A GFMC-like trial block, 64 walkers with branching copies times
+    their connected rows (``comb_hij``), on the r5g64-shaped tensor branch
+    and on a chain at dp 96: kernel #1 once per distinct row gives every
+    row exactly what it gives on all rows (the distinct batch ends in a
+    partial tile); ``EVALUATED`` counts the distinct rows under a
+    profiler and nothing without one."""
+    from torch.profiler import profile
+
+    rng = np.random.default_rng(7)
+    h1e = rng.standard_normal((40, 40)) * 0.1
+    system = System.from_integrals((h1e + h1e.T) / 2,
+                                   rng.standard_normal(triangle_size(40)) * 0.01, 40, 15, 15)
+    t = system.tables(dev)
+    parents = torch.as_tensor(_rand_dets(24, 40, 15, 15, 8), device=dev)
+    walkers = parents[torch.as_tensor(rng.integers(24, size=64), device=dev)]
+    comb, _ = comb_hij(walkers, *t.astuple(), t.hpair_best, table=system.excitation,
+                       with_comb=True)
+    flat = comb.reshape(-1, 40)
+    n_u = torch.unique(flat, dim=0).shape[0]
+    assert n_u < flat.shape[0] / 2
+    dt = {"f32": torch.float32, "bf16": torch.bfloat16}[mm]
+    g = torch.Generator().manual_seed(0)
+    for model in (flagship_model(system, 64, use_tensor=True, max_preds=2, device=dev,
+                                 generator=g),
+                  GraphMPSRNN(40, 15, 15, dcut=96, device=dev, generator=g)):
+        assert n_u % (16 * fused_rnn.mma_launch_shape(model, matmul_dtype=dt)["warps"])
+        monkeypatch.setattr(fused_rnn, "DEDUP_MIN_ROWS", flat.shape[0] + 1)
+        every = fused_rnn.graph_mpsrnn_logpsi_fused(model, flat, matmul_dtype=dt)
+        monkeypatch.setattr(fused_rnn, "DEDUP_MIN_ROWS", flat.shape[0])
+        for c in (fused_rnn.ROWS, fused_rnn.DISTINCT, fused_rnn.EVALUATED):
+            monkeypatch.setattr(c, "n", 0)
+        once = fused_rnn.graph_mpsrnn_logpsi_fused(model, flat, matmul_dtype=dt)
+        assert fused_rnn.EVALUATED.n == 0
+        assert torch.isfinite(every).all() and torch.equal(once, every)
+        with profile():
+            fused_rnn.graph_mpsrnn_logpsi_fused(model, flat, matmul_dtype=dt)
+        assert fused_rnn.ROWS.n == flat.shape[0]
+        assert fused_rnn.EVALUATED.n == int(fused_rnn.DISTINCT.n) == n_u
+
+
+@pytest.mark.parametrize("mm", ["f32", "bf16"])
 @pytest.mark.parametrize("case", ["chain-d160", "chain-d256", "dag-tensor-d140"])
 def test_mma_kernel_above_dp_128(case, mm, dev):
     """Kernel #1 above dp 128 (dp / 64 passes of 128 outputs; ROADMAP C4):

@@ -2,13 +2,14 @@
 step (DFS sampler, REDUCE local energy through the fused forward, the
 chunked gradient) and of a GFMC run, each the expected number of times a
 step or iteration and nested in its stage; the same results with and
-without a profiler; the fused forward's row counters; and the
-benchmark's readers of ranges and counters (``bench_h100/readers/spans``)
-on hand-built events."""
+without a profiler; the fused forward's row counters, below and above
+its dedup threshold; and the benchmark's readers of ranges and counters
+(``bench_h100/readers/spans``, ``counters``) on hand-built events."""
 
 import pytest
 import torch
 
+from bench_h100.readers import counters
 from bench_h100.readers import profile as prof_reader
 from bench_h100.readers import spans
 from pynqs_tpu_torch.gfmc.walker import GFMC, GFMCConfig
@@ -141,13 +142,24 @@ def test_fused_forward_counts_rows_only_under_a_profiler(monkeypatch):
     # 4 distinct rows, planted 3, 1, 4 and 2 times in a mixed order
     flat = rows[torch.tensor([0, 2, 0, 3, 2, 1, 2, 3, 0, 2])]
     monkeypatch.setattr(fused_rnn, "PACK_ROWS", 3)  # the packing in several blocks
-    for c in (fused_rnn.ROWS, fused_rnn.DISTINCT):
+    tallies = (fused_rnn.ROWS, fused_rnn.DISTINCT, fused_rnn.EVALUATED)
+    for c in tallies:
         monkeypatch.setattr(c, "n", 0)
     fused_rnn.graph_mpsrnn_logpsi_fused(model, flat, matmul_dtype=torch.float32)
-    assert fused_rnn.ROWS.n == 0 and fused_rnn.DISTINCT.n == 0
-    _traced(lambda: [fused_rnn.graph_mpsrnn_logpsi_fused(model, b, matmul_dtype=torch.float32)
-                     for b in (flat, flat[:2], flat[:0])])
-    assert int(fused_rnn.ROWS.n) == 12 and int(fused_rnn.DISTINCT.n) == 4 + 2
+    assert fused_rnn.ROWS.n == 0 and fused_rnn.DISTINCT.n == 0 and fused_rnn.EVALUATED.n == 0
+
+    def three_calls():
+        _traced(lambda: [fused_rnn.graph_mpsrnn_logpsi_fused(model, b, matmul_dtype=torch.float32)
+                         for b in (flat, flat[:2], flat[:0])])
+        return [int(c.n) for c in tallies]
+
+    # below the threshold the forward runs on every row
+    assert three_calls() == [12, 4 + 2, 12]
+    # with the dedup on the 10 rows: it ran on their 4 distinct rows, and adds its own count
+    for c in tallies:
+        monkeypatch.setattr(c, "n", 0)
+    monkeypatch.setattr(fused_rnn, "DEDUP_MIN_ROWS", 3)
+    assert three_calls() == [12, 4 + 2, 4 + 2]
     # rows wider than two 32-bit words have no int64 key: the packed rows sorted as they are
     g = torch.Generator().manual_seed(2)
     wide = (torch.rand(9, 70, generator=g) < 0.5).to(torch.int8)
@@ -176,3 +188,13 @@ def test_span_readers_on_hand_built_events(monkeypatch):
     with monkeypatch.context() as m:  # a program without the counters
         m.delattr(fused_rnn, "DISTINCT")
         assert spans.distinct_pct(ev, work) is None
+    # the share of the rows kernel #1 ran on
+    monkeypatch.setattr(fused_rnn.ROWS, "n", 0)
+    monkeypatch.setattr(fused_rnn.EVALUATED, "n", 0)
+    assert counters.evaluated_pct(ev, work) is None
+    monkeypatch.setattr(fused_rnn.ROWS, "n", 400)
+    monkeypatch.setattr(fused_rnn.EVALUATED, "n", 52)
+    assert counters.evaluated_pct(ev, work) == pytest.approx(13.0)
+    with monkeypatch.context() as m:
+        m.delattr(fused_rnn, "EVALUATED")
+        assert counters.evaluated_pct(ev, work) is None

@@ -103,18 +103,20 @@ class _JaxARPartExact(JExact):
         return bits, w, model.log_psi(params, bits), st
 
 
-def _step_pair(case):
-    """(JAX model, port model, port VMCConfig, optax transform) of a case."""
+def _step_pair(case, seed=0):
+    """(JAX model, port model, port VMCConfig, optax transform) of a case;
+    the port model's init drawn from ``seed``."""
+    kw = dict(CPU, generator=torch.Generator().manual_seed(seed))
     if case == "rnn-adamw":
         return (jm.RNNWavefunction(8, 2, 2, hidden=6, phase_hidden=5),
-                tm.RNNWavefunction(8, 2, 2, hidden=6, phase_hidden=5, **CPU),
+                tm.RNNWavefunction(8, 2, 2, hidden=6, phase_hidden=5, **kw),
                 VMCConfig(lr=0.02, optimizer="adamw"), optax.adamw(0.02))
     if case == "multipsi-adam":
         return (jextra.MultiPsi(jm.ARRBM(8, 2, 2, nh=6, phase_hidden=5), jextra.Jastrow(8)),
-                tm.MultiPsi(tm.ARRBM(8, 2, 2, nh=6, phase_hidden=5, **CPU), tm.Jastrow(8, **CPU)),
+                tm.MultiPsi(tm.ARRBM(8, 2, 2, nh=6, phase_hidden=5, **kw), tm.Jastrow(8, **kw)),
                 VMCConfig(lr=0.02), optax.adam(0.02))
     return (jextra.SpinProjected(jm.ARRBM(8, 2, 2, nh=6, phase_hidden=5), -1),
-            tm.SpinProjected(tm.ARRBM(8, 2, 2, nh=6, phase_hidden=5, **CPU), -1),
+            tm.SpinProjected(tm.ARRBM(8, 2, 2, nh=6, phase_hidden=5, **kw), -1),
             VMCConfig(lr=0.02, optimizer="sgd", clip_grad=0.5), optax.sgd(0.02))
 
 
